@@ -1,0 +1,647 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (`src/repro_torch`).
+
+    python3 chip_smoke.py            # needs one CUDA card and nvcc
+
+Builds the three hand-written CUDA kernels from the sources in this checkout,
+holds each against its plain PyTorch version on the card at the shapes
+llama2-7b gives it, checks a 2-layer full-width model on the card against the
+same model on the CPU, then serves LCD 4-bit llama2-7b at full width and full
+depth (random weights from --seed) through the continuous-batching engine,
+shows, by the kernels' launch counts, that the serving path really went
+through the kernels, and reads under torch.profiler where a prefill step's and
+a decode step's time goes. Every phase prints one JSON line; any failed phase ends
+the process with a non-zero exit code. The last line is
+`{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
+exits 1.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# published peaks of one H100 SXM (dense, no sparsity), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of fn(i) over `iters` calls, by CUDA events.
+
+    The calls are captured into a CUDA graph and the graph is replayed, so the
+    time is the card's: back-to-back launches with no host in between."""
+    for i in range(warmup):
+        fn(i)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * reps)
+
+
+# ---------------------------------------------------------------------------
+# env / build
+# ---------------------------------------------------------------------------
+
+def phase_env() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    from repro_torch.kernels import _build
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+    release = next((ln.strip() for ln in nvcc.splitlines() if "release" in ln), "")
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         nvcc=release, card=smi, python=sys.version.split()[0])
+    return smi
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.library()
+    emit("build", seconds=round(time.perf_counter() - t0, 2),
+         compiled=_build.build_seconds is not None,
+         sources=[f"src/repro_torch/kernels/csrc/{s}" for s in _build.SOURCES])
+
+
+# ---------------------------------------------------------------------------
+# kernels vs their plain versions, on the card
+# ---------------------------------------------------------------------------
+
+def _lut_operands(gen, m, k, n, nbits, dtype, layers):
+    """Operands as the model hands them over: layer slices of stacked tensors."""
+    from repro_torch.core.lut import packed_rows
+    dev = gen.device
+    packed = torch.randint(0, 255, (layers, packed_rows(k, nbits), n),
+                           generator=gen, dtype=torch.uint8, device=dev)
+    cb = torch.sort(torch.randn((layers, 16), generator=gen, device=dev) * 0.02,
+                    dim=-1).values
+    cb[:, (1 << nbits):] = 0.0
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    smooth = 0.5 + torch.rand((layers, k), generator=gen, device=dev)
+    return x, smooth, packed, cb
+
+
+def _lut_bound_ms(m, k, n, nbits, dtype):
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = m * k * elt + k * 4 + k * n * nbits // 8 + 16 * 4 + m * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * k * n / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_lut_kernels(gen):
+    from repro_torch.core.lut import padded_d_in, unpack_codes
+    from repro_torch.kernels.lut_matmul import (lut_matmul_fused,
+                                                lut_matmul_fused_gemv)
+    from repro_torch.kernels.ref import lut_matmul_fused_ref
+
+    cases, worst = [], {"lut_matmul_fused_gemv": 0.0, "lut_matmul_fused": 0.0}
+    headline = {}
+    shapes = [(m, k, n) for (k, n) in LLAMA_KN for m in (8, 256)]
+    shapes += [(5, 130, 37), (130, 130, 37)]          # ragged edges, K group padding
+    for (m, k, n) in shapes:
+        full = k >= 4096
+        for nbits in (4, 3, 2):
+            kp = padded_d_in(k, nbits)
+            for dtype in (torch.bfloat16, torch.float32):
+                for quantize in (True, False):
+                    main = nbits == 4 and dtype == torch.bfloat16 and quantize
+                    layers = 2
+                    x, smooth, packed, cb = _lut_operands(gen, m, kp, n, nbits, dtype, layers)
+                    s_q = 0.04
+                    inv = (1.0 / (smooth * s_q)) if quantize else (1.0 / smooth)
+                    l = 1
+                    name = "lut_matmul_fused_gemv" if m < 128 else "lut_matmul_fused"
+                    kern = lut_matmul_fused_gemv if m < 128 else lut_matmul_fused
+                    y = kern(x, inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)
+                    ref = lut_matmul_fused_ref(x, inv[l], packed[l], cb[l], 1.0,
+                                               quantize=quantize, nbits=nbits)
+                    torch.cuda.synchronize()
+                    # |y - ref| <= 1e-5 * max_m ||T(x)_m|| * max_n ||w_n||  (f32 sums
+                    # of K terms taken in another order)
+                    xt = x.float() * inv[l]
+                    if quantize:
+                        xt = torch.clamp(torch.round(xt), -127, 127)
+                    w = cb[l][unpack_codes(packed[l], kp, nbits).long()]
+                    tol = 1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max())
+                    err = float((y - ref).abs().max())
+                    ok = bool(torch.isfinite(y).all()) and err <= tol
+                    # a row's bits must not depend on which kernel served it
+                    same = True
+                    if m < 128:
+                        y2 = lut_matmul_fused(x, inv[l], packed[l], cb[l],
+                                              quantize=quantize, nbits=nbits)
+                        same = bool(torch.equal(y, y2))
+                    case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits,
+                                dtype=str(dtype).split(".")[-1], quantize=quantize,
+                                max_abs_err=err, tol=tol, gemv_equals_gemm_bits=same)
+                    if not (ok and same):
+                        emit("kernels", failed=case)
+                        raise SystemExit(f"LUT kernel disagrees with its plain version: {case}")
+                    worst[name] = max(worst[name], err)
+                    if full and main:
+                        case.update(_time_lut(gen, kern, m, k, n, nbits, dtype, quantize))
+                        if (k, n) == (4096, 4096):
+                            headline[name] = case
+                    cases.append(case)
+    return cases, worst, headline
+
+
+def _time_lut(gen, kern, m, k, n, nbits, dtype, quantize):
+    """Kernel, plain version and the dense bf16 matmul yardstick of the same
+    (M, K, N), each walking a stack of layers larger than the 50 MB L2 so that
+    every call finds its weights cold, as a serving step does."""
+    from repro_torch.kernels.ref import lut_matmul_fused_ref
+    per_layer = k * n * nbits // 8
+    layers = max(2, math.ceil(128e6 / per_layer))
+    x, smooth, packed, cb = _lut_operands(gen, m, k, n, nbits, dtype, layers)
+    inv = 1.0 / (smooth * 0.04)
+    iters = 4 * layers if m < 128 else layers
+    call = lambda i: kern(x, inv[i % layers], packed[i % layers], cb[i % layers],  # noqa: E731
+                          quantize=quantize, nbits=nbits)
+    ms = time_ms(call, iters)
+    plain = time_ms(lambda i: lut_matmul_fused_ref(
+        x, inv[i % layers], packed[i % layers], cb[i % layers], 1.0,
+        quantize=quantize, nbits=nbits), 3, warmup=1)
+    dl = max(2, math.ceil(128e6 / (k * n * 2)))
+    wd = torch.randn((dl, k, n), generator=gen, device=gen.device,
+                     dtype=torch.float32).mul_(0.02).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    dense = time_ms(lambda i: torch.matmul(xb, wd[i % dl]), 4 * dl)
+    bound, by = _lut_bound_ms(m, k, n, nbits, dtype)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                dense_bf16_matmul_ms=dense)
+
+
+def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap):
+    from repro_torch.models.layers import quantize_kv
+    dev = gen.device
+    s, d, bs, nb, nbw = 8, 128, 16, 256, 32
+    # ragged: a long slot, short ones, one idle slot, one chunk with n_new < T
+    lengths = torch.tensor([200, 37, 0, 95, 16, 0, 130, 63], dtype=torch.int32)
+    n_new = torch.tensor([t, t, 0, max(t // 2, 1), t, t, 1, t], dtype=torch.int32)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(1))[:s * nbw]
+    tables = perm.reshape(s, nbw).to(torch.int32)
+    kf = torch.randn((nb, bs, kv, d), generator=gen, device=dev)
+    vf = torch.randn((nb, bs, kv, d), generator=gen, device=dev)
+    q = torch.randn((s, t, h, d), generator=gen, device=dev).to(qdtype)
+    kw = {}
+    if pool == "int8":
+        ksm = 0.5 + torch.rand((kv, d), generator=gen, device=dev)
+        vsm = 0.5 + torch.rand((kv, d), generator=gen, device=dev)
+        kp, ks = quantize_kv(kf, ksm)
+        vp, vs = quantize_kv(vf, vsm)
+        kw = dict(k_scale=ks.contiguous(), v_scale=vs.contiguous(), k_smooth=ksm, v_smooth=vsm)
+    else:
+        pdt = torch.float32 if pool == "f32" else torch.bfloat16
+        kp, vp = kf.to(pdt), vf.to(pdt)
+    args = (q, kp.contiguous(), vp.contiguous(), tables.to(dev), lengths.to(dev),
+            n_new.to(dev), window)
+    kw["softcap"] = softcap
+    # what this data needs: for a slot with new tokens, the K and V rows its
+    # queries can see (length + n_new, narrowed by the window), its table
+    # entries, and the q / out rows of its new tokens; nothing for a slot
+    # without new tokens
+    g = h // kv
+    seen = rows = entries = pairs = 0
+    for a, b in zip(lengths.tolist(), n_new.tolist()):
+        if b == 0:
+            continue
+        lo = max(0, a - window + 1) if window > 0 else 0
+        seen += a + b - lo
+        entries += math.ceil((a + b) / bs) - lo // bs
+        rows += b
+        for tt in range(b):
+            qp = a + tt
+            pairs += qp - (max(0, qp - window + 1) if window > 0 else 0) + 1
+    nbytes = 2 * seen * kv * d * kp.element_size() + 2 * rows * h * d * q.element_size()
+    nbytes += entries * 4 + 2 * s * 4
+    if pool == "int8":
+        nbytes += 2 * seen * kv * 4 + 2 * kv * d * 4
+    ops = 4.0 * pairs * g * kv * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[qdtype]
+    bound = dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations")
+    return args, kw, bound
+
+
+def check_attention_kernel(gen):
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    from repro_torch.kernels.ref import paged_pool_attention_ref
+    cases, worst, headline = [], 0.0, None
+    for t in (1, 32):
+        for (h, kv) in ((32, 32), (16, 2)):
+            for qdtype, pool in ((torch.bfloat16, "bf16"), (torch.float32, "f32"),
+                                 (torch.bfloat16, "int8"), (torch.float32, "int8"),
+                                 (torch.float32, "bf16")):
+                for window, softcap in ((0, 0.0), (64, 0.0), (0, 30.0)):
+                    args, kw, bound = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap)
+                    out = paged_pool_attention(*args, **kw)
+                    ref = paged_pool_attention_ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    # f32 rows: online vs materialized softmax, f32 rounding only.
+                    # bf16 rows: both round an f32 result to bf16 — one bf16 ulp.
+                    scale = float(ref.float().abs().max())
+                    tol = 5e-5 * max(scale, 1.0) if qdtype == torch.float32 \
+                        else 2.0 ** -7 * max(scale, 1.0)
+                    err = float((out.float() - ref.float()).abs().max())
+                    idle_zero = bool((out[2] == 0).all())     # slot 2: nothing visible
+                    case = dict(kernel="paged_pool_attention", t=t, h=h, kv=kv, pool=pool,
+                                q=str(qdtype).split(".")[-1], window=window,
+                                softcap=softcap, max_abs_err=err, tol=tol,
+                                idle_slot_zero=idle_zero)
+                    if not (bool(torch.isfinite(out.float()).all()) and err <= tol
+                            and idle_zero):
+                        emit("kernels", failed=case)
+                        raise SystemExit(
+                            f"attention kernel disagrees with its plain version: {case}")
+                    worst = max(worst, err)
+                    if (h, kv) == (32, 32) and pool == "bf16" and window == 0 \
+                            and softcap == 0.0 and qdtype == torch.bfloat16:
+                        case["ms"] = time_ms(lambda i: paged_pool_attention(*args, **kw), 50)
+                        case["plain_ms"] = time_ms(
+                            lambda i: paged_pool_attention_ref(*args, **kw), 5, warmup=1)
+                        case.update(bound)
+                        if t == 1:
+                            headline = case
+                    cases.append(case)
+    return cases, worst, headline
+
+
+def phase_kernels(seed: int):
+    from repro_torch.kernels.ops import launch_counts
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lut_cases, lut_worst, lut_head = check_lut_kernels(gen)
+    att_cases, att_worst, att_head = check_attention_kernel(gen)
+    timed = [c for c in lut_cases + att_cases if "ms" in c]
+    emit("kernels", compared=len(lut_cases) + len(att_cases),
+         worst_abs_err={**lut_worst, "paged_pool_attention": att_worst},
+         launches_during_comparison=launch_counts(), timed=timed)
+    return {"lut_matmul_fused_gemv": (lut_head["lut_matmul_fused_gemv"],
+                                      lut_worst["lut_matmul_fused_gemv"]),
+            "lut_matmul_fused": (lut_head["lut_matmul_fused"], lut_worst["lut_matmul_fused"]),
+            "paged_pool_attention": (att_head, att_worst)}
+
+
+# ---------------------------------------------------------------------------
+# model parity and serving
+# ---------------------------------------------------------------------------
+
+ACT_SCALE = {"wq": 0.04, "wk": 0.04, "wv": 0.04, "wo": 0.01,
+             "w_gate": 0.04, "w_up": 0.04, "w_down": 0.03}
+
+
+def calibrate(params):
+    """Install a calibrated-looking activation scale on every clustered leaf,
+    so the kernels run the quantized Eq. 11 transform, not the float one."""
+    from repro_torch.core.api import is_clustered
+
+    def walk(tree, name=""):
+        if is_clustered(tree):
+            # dense_to_clustered's arithmetic: act_scale = s_q per (stacked)
+            # tensor, inv_scale = 1/(s_m*s_q) per input channel
+            s_m, s_q = tree.smooth.to(torch.float32), ACT_SCALE[name]
+            return tree._replace(
+                inv_scale=1.0 / (s_m * s_q),
+                act_scale=torch.full(s_m.shape[:-1], s_q, dtype=torch.float32,
+                                     device=s_m.device))
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return tree
+    return walk(params)
+
+
+def to_device(tree, device):
+    from repro_torch.core.api import is_clustered, map_arrays
+    if is_clustered(tree):
+        return map_arrays(tree, lambda a: a.to(device))
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_model_parity(seed: int) -> None:
+    """llama2-7b at full width: the same params and the same steps (one
+    prefill chunk, two decode steps) on the card (kernels) and on the CPU
+    (plain versions). Three times: in float32 with the float transform
+    (2 layers) and with the quantized Eq. 11 transform (1 layer), where the
+    two sides differ by the order of f32 sums, and in the serving
+    configuration (bf16, quantized transform, 2 layers). There an activation
+    that lands on the other side of a rounding boundary moves a whole output
+    row by s_q * centroid, so single logits lie further apart than bf16
+    rounding alone would put them; the greedy token must still be the same
+    wherever the CPU's top-2 margin is clear of that noise."""
+    import dataclasses
+
+    from repro_torch.core.clustered_params import materialize_clustered
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+
+    s, t, nbw, nb, bs = 8, 32, 8, 64, 16
+    rng = np.random.default_rng(seed)
+    tables = rng.permutation(nb)[:s * nbw].reshape(s, nbw).astype(np.int32)
+    n_first = rng.integers(5, t + 1, s).astype(np.int32)
+    n_first[3] = 0                                         # an idle slot
+    active = n_first > 0
+    vocab = get_config("llama2-7b").vocab
+    steps = [(rng.integers(0, vocab, (s, t)).astype(np.int32), n_first)]
+    for _ in range(2):
+        steps.append((rng.integers(0, vocab, (s, 1)).astype(np.int32),
+                      active.astype(np.int32)))
+
+    # (dtype, quantized transform, layers, max |dlogit| allowed, mean |dlogit| allowed)
+    variants = (("float32", False, 2, 1e-3, 1e-4), ("float32", True, 1, 5e-3, 5e-4),
+                ("bfloat16", True, 2, 0.75, 0.03))
+    clear_margin = 0.12          # 4 x the mean limit of the bf16 variant
+    report = []
+    for dtype, quantized, n_layers, tol_max, tol_mean in variants:
+        cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=n_layers, dtype=dtype,
+                                  fused_projections=False)
+        model = get_model(cfg)
+        params = materialize_clustered(model, torch.Generator().manual_seed(seed),
+                                       nbits=4, device="cpu")
+        if quantized:
+            params = calibrate(params)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            p = to_device(params, dev)
+            caches = model.init_seq_caches(num_blocks=nb, block_size=bs, num_slots=s,
+                                           max_seq=nbw * bs, kv_dtype="float", device=dev)
+            lengths = np.zeros(s, np.int32)
+            outs = []
+            for tokens, n_new in steps:
+                args = [torch.from_numpy(a).to(dev) for a in (tokens, lengths, n_new, tables)]
+                # the step itself must not wait for the host: any synchronising
+                # call inside it raises while this mode is on
+                torch.cuda.set_sync_debug_mode("error" if dev == "cuda" else "default")
+                try:
+                    lg, caches = model.serving_step(p, caches, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                outs.append(lg[active][:, :vocab].float().cpu())
+                lengths = lengths + n_new
+            logits[dev] = torch.stack(outs)
+            del p, caches
+        diff = (logits["cuda"] - logits["cpu"]).abs()
+        top2 = logits["cpu"].topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > clear_margin
+        same = logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)
+        row = dict(dtype=dtype, quantized_transform=quantized, layers=n_layers,
+                   max_abs_logit_err=float(diff.max()), tol_max=tol_max,
+                   mean_abs_logit_err=float(diff.mean()), tol_mean=tol_mean,
+                   argmax_agreement=float(same.float().mean()),
+                   rows=same.numel(), rows_with_clear_margin=int(clear.sum()),
+                   clear_margin=clear_margin,
+                   logit_abs_max=float(logits["cpu"].abs().max()),
+                   logit_std=float(logits["cpu"].std()))
+        row["ok"] = (bool(torch.isfinite(logits["cuda"]).all())
+                     and row["max_abs_logit_err"] <= tol_max
+                     and row["mean_abs_logit_err"] <= tol_mean
+                     and bool(same[clear].all()) and int(clear.sum()) > 0)
+        report.append(row)
+    emit("model_parity", arch="llama2-7b", steps=len(steps), variants=report)
+    if not all(r["ok"] for r in report):
+        raise SystemExit(f"model_parity: card and CPU logits disagree: {report}")
+
+
+def _drive(engine, prompts, new_tokens):
+    """Staggered submissions: a fresh request every other scheduler step."""
+    pending = list(prompts)
+    requests = []
+    while pending or engine.busy:
+        if pending and engine.steps % 2 == 0:
+            requests.append(engine.submit(pending.pop(0), max_new_tokens=new_tokens))
+        if engine.busy:
+            engine.step()
+        else:
+            engine.steps += 1
+    return requests
+
+
+def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
+    from repro_torch.models.config import get_config
+
+    ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                        max_blocks_per_slot=32, kv_dtype=kv_dtype)
+    kv_smooth = None
+    if kv_dtype == "int8":
+        base = get_config(arch)
+        ones = np.ones((n_layers, base.n_kv_heads, base.hd), np.float32)   # identity: valid
+        kv_smooth = (ones, ones)
+    engine, params = build_engine(
+        arch, use_reduced=False, lcd=True, ecfg=ecfg, seed=seed, kv_smooth=kv_smooth,
+        fused_projections=False, n_layers=n_layers, device="cuda")
+    engine.params = params = calibrate(params)
+    cfg = engine.model.cfg
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(n_requests)]
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    requests = _drive(engine, prompts, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+
+    engine.assert_bounded_traces()
+    widths = dict(engine.traces)
+    model_steps = sum(widths.values())
+    n_tok = sum(len(r.out_tokens) for r in requests)
+    lut = counts["lut_matmul_fused_gemv"] + counts["lut_matmul_fused"]
+    ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
+          and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
+          and all(c > 0 for c in counts.values())
+          and lut == 7 * n_layers * model_steps
+          and counts["paged_pool_attention"] == n_layers * model_steps
+          and counts["lut_matmul_fused"] == 7 * n_layers * widths.get(32, 0)
+          and counts["lut_matmul_fused_gemv"] == 7 * n_layers * widths.get(1, 0))
+
+    # engine-vs-solo token identity: the same request alone, same engine geometry
+    tokens = {r.rid: list(r.out_tokens) for r in requests}
+    model = engine.model
+    del engine
+    solo_same = {}
+    for rid in solo_ids:
+        solo = ServingEngine(model, params, ecfg, kv_smooth=kv_smooth, device="cuda")
+        r = solo.submit(prompts[rid], max_new_tokens=new_tokens)
+        solo.run()
+        solo_same[rid] = r.out_tokens == tokens[rid]
+        del solo
+    emit(name, arch=arch, layers=n_layers, dtype=cfg.dtype, weight_bits=4,
+         kv_dtype=kv_dtype or "float", fused_projections=False, requests=n_requests,
+         new_tokens_each=new_tokens, prompt_lens=[len(p) for p in prompts],
+         model_steps=model_steps, step_widths={str(w): c for w, c in widths.items()},
+         tokens_generated=n_tok, wall_s=round(wall, 3),
+         tokens_per_s=round(n_tok / wall, 2), launches=counts,
+         lut_launches_expected=7 * n_layers * model_steps,
+         solo_redecode_same_tokens=solo_same,
+         preemptions=sum(r.preemptions for r in requests))
+    if not ok:
+        raise SystemExit(f"{name}: launch counts or outputs are wrong: {counts}, "
+                         f"model steps {model_steps}")
+    if not all(solo_same.values()):
+        raise SystemExit(f"{name}: engine tokens differ from solo decoding: {solo_same}")
+    return counts
+
+
+def phase_profile(seed: int) -> None:
+    """Where a serving step's time goes: the
+    32-layer engine with all 8 slots busy, a few prefill-width steps and a few
+    decode steps under torch.profiler — wall time per step on the host's clock,
+    the card's busy time, and the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.engine import EngineConfig, build_engine
+
+    ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                        max_blocks_per_slot=32)
+    engine, params = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                                  seed=seed, fused_projections=False, device="cuda")
+    engine.params = calibrate(params)
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        engine.submit(rng.integers(0, engine.model.cfg.vocab, 224), max_new_tokens=64)
+    engine.step()                                    # warm: every kernel has run once
+    out = {}
+    for name, n_steps in (("prefill_width_32", 3), ("decode_width_1", 8)):
+        if name == "decode_width_1":
+            while any(r is not None and r.prefilling for r in engine.slots):
+                engine.step()
+            engine.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0                  # without the profiler's cost
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                engine.step()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue          # host-side ops repeat their kernels' device time
+            dev = getattr(ev, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev > 0:
+                rows.append((ev.key, dev / 1e3 / n_steps, ev.count / n_steps))
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        out[name] = dict(
+            steps=n_steps, wall_ms_per_step=round(wall * 1e3 / n_steps, 3),
+            device_busy_ms_per_step=round(busy, 3) if rows else "not measured",
+            device_idle_share=round(1.0 - busy / (wall * 1e3 / n_steps), 3) if rows
+            else "not measured",
+            top_kernels=[dict(name=k[:60], ms_per_step=round(ms, 3), calls_per_step=round(c, 1))
+                         for k, ms, c in rows[:8]])
+    emit("profile", arch="llama2-7b", layers=32, slots=8, **out)
+
+
+# ---------------------------------------------------------------------------
+
+ALL_PHASES = ("kernels", "model_parity", "serve", "serve_int8", "serve_gqa", "profile")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma list of the phases to run after env and build")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script runs "
+              "on a CUDA card only", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in full f32
+    torch.set_float32_matmul_precision("highest")
+    phases = [p for p in args.phases.split(",") if p]
+
+    smi = phase_env()
+    phase_build()
+    checked = phase_kernels(args.seed) if "kernels" in phases else {}
+    if "model_parity" in phases:
+        phase_model_parity(args.seed)
+    counts = {}
+    if "serve" in phases:
+        counts = _serve("serve", "llama2-7b", args.seed, 32, 12, 24, None, solo_ids=(0, 11))
+    if "serve_int8" in phases:
+        _serve("serve_int8", "llama2-7b", args.seed, 4, 4, 24, "int8", solo_ids=(1, 3))
+    if "serve_gqa" in phases:
+        # a second model's shapes: 16 (padded) query heads over 2 kv heads, QKV bias,
+        # K = 1536 / 8960, so 256 query rows per (slot, kv head) on a prefill step
+        _serve("serve_gqa", "qwen2-1.5b", args.seed, 4, 4, 24, None, solo_ids=(0, 2))
+    if "profile" in phases:
+        phase_profile(args.seed)
+
+    meta = {
+        "lut_matmul_fused_gemv": ("src/repro_torch/kernels/csrc/lut_gemv.cu",
+                                  "src/repro/kernels/lut_matmul.py:404"),
+        "lut_matmul_fused": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+                             "src/repro/kernels/lut_matmul.py:334"),
+        "paged_pool_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                                 "src/repro/kernels/paged_attention.py:419"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        head, worst = checked.get(name, ({}, None))
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts.get(name, 0), "max_abs_err": worst,
+            "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
+            "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
+            "library_ms": None,      # no single PyTorch call computes this function
+            "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
+            "shape": {k: head[k] for k in ("m", "k", "n", "nbits", "t", "h", "kv", "pool")
+                      if k in head},
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    complete = set(phases) >= set(ALL_PHASES)
+    if complete and not all(k["launches"] > 0 and k["ms"] for k in kernels):
+        print("chip_smoke: a kernel of the main path was never launched", file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    print(json.dumps({"ok": complete, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0 if complete else 4
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,110 @@
+"""ClusteredTensor parameter trees for LCD serving without a compression run.
+
+For smoke tests of the serve path we need the *shape* of an LCD-compressed
+model without running distillation on it: this module maps a model's
+parameter table to the equivalent ClusteredTensor tree (sub-byte packed codes
++ codebook + smoothing vector per eligible weight) and fills it with
+random-but-valid values.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.core.api import ClusteredTensor, is_clustered
+from repro_torch.core.lut import _check_nbits, packed_rows
+from repro_torch.models import params as PT
+from repro_torch.models.registry import Model
+from repro_torch.utils import resolve_device
+
+KC = 16
+
+# path-regexes NEVER clustered: embeddings, norms, biases, router/gates,
+# SSM/RWKV dynamics parameters (they feed exponentials), small vectors.
+_EXCLUDE = re.compile(
+    r"(embed|embedding|lm_head|norm|scale|bias|router|gate_w|a_log|dt_|decay|"
+    r"time_|lerp|conv|state|\['b[a-z_]*'\]$|\['u'\]$)", re.I,
+)
+
+
+def _eligible(path: str, decl: PT.ParamDecl) -> bool:
+    # >=2D weight matrices, excluding embeddings/norms/routers/dynamics
+    if len(decl.shape) < 2 or min(decl.shape[-2:]) < 32:
+        return False
+    # true weight matrices have >= 2 non-layer logical dims; stacked biases
+    # ((L, dim), names "layers,x") do not
+    dims = decl.names.split(",")
+    non_layer = [d for d in dims if d not in ("layers",)]
+    if len(non_layer) < 2:
+        return False
+    if _EXCLUDE.search(path):
+        return False
+    # skip tied/vocab tensors by name fragment
+    if "embed" in path or "lm_head" in path or "pos" in path:
+        return False
+    return True
+
+
+def clustered_abstract(model: Model, nbits: int = 4) -> Tuple[Any, Dict[str, int]]:
+    """(shapes, stats): the model's parameter tree with every eligible dense
+    weight replaced by a ClusteredTensor of SHAPES (codes stored packed at
+    `nbits`, codebook, smooth) and every other leaf by its
+    (shape, torch dtype); stats count tensors and bytes on both sides."""
+    _check_nbits(nbits)
+    dtype = model.cfg.torch_dtype
+    stats = {"clustered": 0, "dense": 0, "code_bytes": 0, "dense_bytes": 0}
+
+    def one(path: str, decl: PT.ParamDecl):
+        if _eligible(path, decl):
+            *lead, d_in, d_out = decl.shape
+            codes_shape = tuple(lead) + (packed_rows(d_in, nbits), d_out)
+            stats["clustered"] += 1
+            stats["code_bytes"] += math.prod(codes_shape)
+            return ClusteredTensor(codes=codes_shape,
+                                   codebook=tuple(lead) + (KC,),
+                                   smooth=tuple(lead) + (d_in,), nbits=nbits)
+        dt = PT.decl_dtype(decl, dtype)
+        stats["dense"] += 1
+        stats["dense_bytes"] += math.prod(decl.shape) * dt.itemsize
+        return (tuple(decl.shape), dt)
+
+    return PT.map_table(model.table, one), stats
+
+
+def materialize_clustered(model: Model, generator: torch.Generator,
+                          nbits: int = 4, device="cuda") -> Any:
+    """Random-but-valid clustered params (smoke tests of the serve path):
+    random packed codes (uniform random bytes are valid bit-streams at every
+    width — each sub-byte field lands in [0, 2**nbits)), sorted random
+    codebook, unit smoothing; dense leaves are normal(0, 0.02). Numbers are
+    drawn on the generator's device, leaf by leaf, and moved to `device`."""
+    shapes, _ = clustered_abstract(model, nbits=nbits)
+    device = resolve_device(device)
+    gdev = generator.device
+
+    def one(leaf):
+        if is_clustered(leaf):
+            codes = torch.randint(0, 255, leaf.codes, generator=generator,
+                                  dtype=torch.uint8, device=gdev)
+            cb = torch.sort(torch.randn(leaf.codebook, generator=generator,
+                                        dtype=torch.float32, device=gdev) * 0.02,
+                            dim=-1).values
+            return ClusteredTensor(
+                codes.to(device), cb.to(device),
+                torch.ones(leaf.smooth, dtype=torch.float32, device=device),
+                nbits=leaf.nbits)
+        shape, dt = leaf
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=gdev)
+        return (x * 0.02).to(dt).to(device)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return one(tree)
+
+    return walk(shapes)
+

@@ -1,0 +1,120 @@
+"""Build and bind the CUDA kernels: nvcc at first use, ctypes to call.
+
+The sources under `csrc/` are compiled for sm_90a, one nvcc per source and all
+of them at once, and linked into one shared library with a plain C interface
+under `build/repro_torch_kernels/<hash of the sources>/` at the root of the
+checkout. Nothing happens at import: `library()` builds (or finds) and loads
+it, and the kernel wrappers call it at their first launch. A failed build
+raises with nvcc's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "paged_attention.cu")
+HEADERS = ("lut_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of this process's build, if it built
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "of repro_torch cannot be built on this machine")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all, raise on the first failure
+    with the compiler's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0 and failed is None:
+            failed = (cmd, p.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(
+            f"kernel build failed (exit {rc}): {' '.join(cmd)}\n{out}")
+
+
+def build() -> Path:
+    """Compile the sources if this hash has not been built; returns the path
+    of the shared library."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "librepro_torch_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    objs = [out_dir / (Path(s).stem + ".o") for s in SOURCES]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+              for s, o in zip(SOURCES, objs)])
+    tmp = out_dir / f".{lib_path.name}.{os.getpid()}"
+    _run_all([[nvcc, "-shared", *NVCC_FLAGS, *map(str, objs), "-o", str(tmp)]])
+    os.replace(tmp, lib_path)          # atomic: a concurrent reader never sees half a file
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("lut_gemv_launch", "lut_gemm_launch"):
+        fn = getattr(lib, name)
+        # x, x_is_bf16, inv, packed, cb, y, M, K, N, packed_rows, nbits, quantize, stream
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+    fn = lib.paged_attn_launch
+    # q, q_is_bf16, k_pool, v_pool, pool_kind, k_scale, v_scale, k_smooth,
+    # v_smooth, block_tables, lengths, n_new, out, S, T, H, KV, D, nb, bs, NB,
+    # window, softcap, stream
+    fn.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p, p,
+                   i, i, i, i, i, i, i, i, i, f, p]
+    fn.restype = i
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

@@ -1,0 +1,133 @@
+"""Model-facing wrappers around the LUT kernels: operand preparation, variant
+selection, and the launch counters.
+
+`clustered_linear(x, ct)` is the serving-path entry the models call. It runs
+the fused smooth(+quant)+LUT contraction streaming the tensor's packed codes:
+the CUDA kernels for CUDA tensors, their plain versions for CPU tensors (the
+choice is made by where the tensor lies, in the kernel wrappers, and nowhere
+else).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.api import ClusteredTensor
+from repro_torch.core.lut import packed_rows, padded_d_in
+from repro_torch.kernels import lut_matmul as _lm
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels.lut_matmul import (KC, lut_matmul_fused,
+                                            lut_matmul_fused_gemv)
+
+GEMV_MAX_M = 128   # M < 128 goes to the GEMV kernel, else to the GEMM kernel
+
+
+# ---------------------------------------------------------------------------
+# Launch counters (the counterpart of the JAX package's track_lut_launches)
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of every kernel since the last `reset_launch_counts()`. A
+    wrapper adds one where it launches its kernel and nowhere else; the plain
+    versions that serve CPU tensors are not counted."""
+    return {**_lm.LAUNCHES, **_pa.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_lm.LAUNCHES, _pa.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Operand preparation
+# ---------------------------------------------------------------------------
+
+def pad_codebook(codebook: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the active centroids up to the kernel's KC=16 capacity.
+    Padded slots decode to 0 and are never referenced by valid codes."""
+    k = codebook.shape[0]
+    if k == KC:
+        return codebook.to(torch.float32)
+    if k > KC:
+        raise ValueError(
+            f"pad_codebook: codebook has K={k} centroids but the kernel "
+            f"supports K<=KC={KC} (paper: distillation yields <16)")
+    return F.pad(codebook.to(torch.float32), (0, KC - k))
+
+
+def packed_view(ct: ClusteredTensor) -> torch.Tensor:
+    """The tensor's packed sub-byte codes (at ct.nbits per code): the
+    first-class `packed` field, or codes already stored packed
+    (materialized serving trees). Unpacked codes without a `packed` field are
+    refused: packing happens once, when the tensor is assembled
+    (core/api.py dense_to_clustered), never per call."""
+    if ct.packed is not None:
+        return ct.packed
+    d_in = ct.smooth.shape[-1]
+    if ct.codes.shape[-2] == packed_rows(d_in, ct.nbits):
+        return ct.codes if ct.codes.dtype == torch.uint8 else ct.codes.to(torch.uint8)
+    raise ValueError(
+        f"packed_view: ClusteredTensor has unpacked codes {tuple(ct.codes.shape)} "
+        f"and no `packed` field; assemble it with dense_to_clustered")
+
+
+def _transform_params(ct: ClusteredTensor):
+    """(inv_scale, act_scale, quantize) for the fused kernel — precomputed
+    fields when present, else derived from the smoothing vector alone."""
+    quantize = ct.act_scale is not None
+    if ct.inv_scale is not None:
+        inv = ct.inv_scale
+    else:
+        inv = 1.0 / ct.smooth
+        if quantize:
+            inv = inv / ct.act_scale
+    act = ct.act_scale if quantize else 1.0
+    return inv.to(torch.float32), act, quantize
+
+
+def lut_gemm_fused(
+    x: torch.Tensor,            # (M, K) RAW activations (smoothing NOT applied)
+    inv_scale: torch.Tensor,    # (K,) f32 — Eq. 11 fused multiplier
+    packed_codes: torch.Tensor, # (packed_rows(K), N) uint8
+    codebook: torch.Tensor,     # (K_active,) f32
+    act_scale,                  # () f32 s_q (pass 1.0 when quantize=False)
+    *,
+    quantize: bool = True,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """Single-pass serving GEMM: smooth(+quant) fused into the LUT matmul's
+    K loop — no standalone smooth pass, no intermediate activation tensor in
+    device memory. Decode shapes (M < 128) dispatch to the GEMV kernel. The
+    kernels mask ragged M and N themselves; only the packing-group padding of
+    K (2, 8 or 4 rows) is applied here."""
+    cb = pad_codebook(codebook)
+    m, k = x.shape
+    kc = padded_d_in(k, nbits)
+    inv_scale = inv_scale.to(torch.float32)
+    if kc != k:  # group padding: packed codes carry zero-code tail rows
+        x = F.pad(x, (0, kc - k))
+        inv_scale = F.pad(inv_scale, (0, kc - k))
+    kern = lut_matmul_fused_gemv if m < GEMV_MAX_M else lut_matmul_fused
+    y = kern(x.contiguous(), inv_scale.contiguous(), packed_codes, cb,
+             quantize=quantize, nbits=nbits)
+    return y * act_scale if quantize else y
+
+
+def clustered_linear(x: torch.Tensor, ct: ClusteredTensor) -> torch.Tensor:
+    """Model-facing clustered matmul: the fused LUT contraction over the
+    tensor's packed codes, cast back to x's dtype. `ct` is one layer's
+    tensor: a stacked (expert) codebook belongs to the MoE family, which is
+    not ported."""
+    if ct.codebook.ndim != 1:
+        raise NotImplementedError(
+            f"clustered_linear: stacked codebook {tuple(ct.codebook.shape)}; the "
+            f"expert (MoE) contraction is not ported - index the layer first")
+    inv, act, quantize = _transform_params(ct)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    y = lut_gemm_fused(x2, inv, packed_view(ct), ct.codebook, act,
+                       quantize=quantize, nbits=ct.nbits)
+    return y.reshape(*lead, -1).to(x.dtype)

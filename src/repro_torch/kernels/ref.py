@@ -1,0 +1,91 @@
+"""Plain PyTorch versions of the CUDA kernels in this package.
+
+They mirror the mathematical definition, not the machine mapping. The CPU
+tests run them, a kernel's wrapper uses them for CPU tensors, and the on-card
+smoke script holds every kernel against them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.lut import lut_matmul_dequant_ref, unpack_codes
+
+KC = 16
+
+
+def lut_matmul_fused_ref(
+    x: torch.Tensor,            # (M, K) raw activations
+    inv_scale: torch.Tensor,    # (K,) = 1/(s_m·s_q)  (or 1/s_m when quantize=False)
+    packed_codes: torch.Tensor,
+    codebook: torch.Tensor,
+    act_scale,                  # scalar s_q (ignored when quantize=False)
+    *,
+    quantize: bool = True,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """The fused serving GEMM: Eq. 11 transform (symmetric clip, |q| <= 127)
+    composed with the gather-dequant contraction. `torch.round` rounds half
+    to even, as the kernels' `rintf` does."""
+    k = x.shape[-1]
+    codes = unpack_codes(packed_codes, k, nbits)
+    xs = x.to(torch.float32) * inv_scale
+    if not quantize:
+        return xs @ codebook[codes.long()]
+    q = torch.clamp(torch.round(xs), -127, 127).to(torch.int8)
+    return lut_matmul_dequant_ref(q, codes, codebook, act_scale)
+
+
+def _masked_paged_softmax(q, k, v, lengths, n_new, window: int, softcap: float):
+    """Masked softmax attention over per-slot ragged logical KV views:
+    q (S,T,H,D) float; k/v (S,L,KV,D) float. `window` is a Python int."""
+    s_slots, t, h, d = q.shape
+    l, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.to(torch.float32).reshape(s_slots, t, kv, g, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qf,
+                          k.to(torch.float32)) / math.sqrt(d)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    dev = q.device
+    q_pos = lengths[:, None] + torch.arange(t, device=dev)[None, :]    # (S, T)
+    k_pos = torch.arange(l, device=dev)
+    weff = window if window > 0 else 1 << 30
+    mask = q_pos[:, :, None] >= k_pos[None, None, :]
+    mask &= (q_pos[:, :, None] - k_pos[None, None, :]) < weff
+    mask &= k_pos[None, None, :] < (lengths + n_new)[:, None, None]
+    mexp = mask[:, None, None]                                         # (S,1,1,T,L)
+    scores = torch.where(mexp, scores, torch.full_like(scores, -1e30))
+    m = torch.clamp(scores.max(dim=-1, keepdim=True).values, min=-1e30)
+    p = torch.exp(scores - m) * mexp.to(torch.float32)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgts,bskd->btkgd", p, v.to(torch.float32))
+    return out.reshape(s_slots, t, h, d).to(q.dtype)
+
+
+def paged_pool_attention_ref(q, k_pool, v_pool, block_tables, lengths, n_new,
+                             window: int, *, k_scale=None, v_scale=None,
+                             k_smooth=None, v_smooth=None, softcap: float = 0.0):
+    """Pool-direct paged attention, the plain way: gather the slot-visible
+    logical view through the block tables (the materialization the kernel
+    avoids), dequantize int8 pools, masked softmax.
+
+    q (S,T,H,D); k_pool/v_pool (nb,bs,KV,D) float or int8 (int8 needs
+    k_scale/v_scale (nb,bs,KV) and k_smooth/v_smooth (KV,D));
+    block_tables (S,NB) int32; lengths/n_new (S,); window a Python int."""
+    s_slots = q.shape[0]
+    nb = k_pool.shape[0]
+    bt = torch.clamp(block_tables, 0, nb - 1).long()
+    kg = k_pool[bt].reshape(s_slots, -1, *k_pool.shape[2:])   # (S, L, KV, D)
+    vg = v_pool[bt].reshape(s_slots, -1, *v_pool.shape[2:])
+    if k_pool.dtype == torch.int8:
+        ksg = k_scale[bt].reshape(s_slots, -1, k_pool.shape[2])
+        vsg = v_scale[bt].reshape(s_slots, -1, v_pool.shape[2])
+        k = (kg.to(torch.float32) * ksg[..., None]
+             * k_smooth[None, None].to(torch.float32))
+        v = (vg.to(torch.float32) * vsg[..., None]
+             * v_smooth[None, None].to(torch.float32))
+    else:
+        k, v = kg, vg
+    return _masked_paged_softmax(q, k, v, lengths, n_new, int(window), softcap)

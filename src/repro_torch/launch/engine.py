@@ -1,0 +1,755 @@
+"""LCD continuous-batching serving engine with a paged KV cache.
+
+`launch/serve.py` is the CLI; this module is the importable API.
+
+Real traffic is requests with different prompt lengths, arrival times and
+completion times. The engine holds a fixed number of request SLOTS and a pool
+of fixed-size KV BLOCKS:
+
+  * a free-list `BlockAllocator` hands blocks to slots on demand, so a
+    finishing short request frees exactly its blocks for a queued long one;
+  * each scheduler `step()` packs prefilling slots (a prompt chunk), decoding
+    slots (one token) and idle slots (nothing) into ONE model step — per-slot
+    position/length/activity are data, not shapes;
+  * the step therefore comes in exactly TWO shapes: token-window width
+    `prefill_chunk` (any slot prefilling) and width 1 (pure decode).
+    `assert_bounded_traces()` enforces the contract on the set of widths the
+    engine has actually run; per-slot math is independent, so engine output
+    equals a single-request run.
+
+Out-of-block pressure is resolved by recompute preemption: the youngest
+running request is evicted back to the queue (its blocks freed) and later
+re-prefills its prompt plus the tokens it had already generated.
+
+The block pool stores either the model dtype (`EngineConfig.kv_dtype =
+"float"`) or smoothed int8 codes with per-(block-slot, kv-head) scale pools
+("int8"). The default (None) follows the model's cfg.kv_cache_dtype.
+
+One step is one upload (tokens, lengths, n_new and block tables in a single
+int32 buffer) and one download (the next token of every slot); nothing else
+crosses between host and device inside `step` or inside the layer loop.
+
+Not ported yet, and refused with NotImplementedError naming the knob:
+speculative self-drafting, the prefix cache with copy-on-write, the priority
+scheduler, chunked-prefill admission, serving meshes, and every model family
+but the dense transformer.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import is_clustered
+from repro_torch.core.lut import SUPPORTED_NBITS
+from repro_torch.models.config import get_config, reduced
+from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
+                                         CAP_PREFIX_CACHE, CAP_SPECULATIVE,
+                                         Model, arch_capabilities, get_model)
+from repro_torch.utils import cdiv, human_bytes, logger, resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Paged-block allocator (refcounted, content-hash-indexed)
+# ---------------------------------------------------------------------------
+
+class BlockAllocator:
+    """Refcounted free-list allocator over the physical KV block pool, with a
+    content-hash index for prefix caching.
+
+    Invariants:
+
+      * every block id is either on the free list (refcount 0) or referenced
+        (refcount >= 1) — `num_free + referenced == num_blocks` always;
+      * a reference is a slot's block-table entry OR the hash index's own
+        entry, so `refcount(b) == holders(b) + (1 if b is indexed)` and a
+        hash-index entry can NEVER point at a freed block (the index's
+        reference keeps it allocated);
+      * `alloc` is all-or-nothing (no partial grants) and may reclaim
+        cache-only blocks (refcount 1, held solely by the index) in LRU
+        order to satisfy a grant;
+      * `free` decrements; a block returns to the free list exactly when its
+        refcount hits zero, exactly once. Freeing an unallocated block or an
+        out-of-range id raises `ValueError` naming the block id.
+    """
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self._free: collections.deque = collections.deque(range(num_blocks))
+        self._refcount: List[int] = [0] * num_blocks
+        # content hash -> block id; the index HOLDS one reference per entry.
+        # An OrderedDict doubles as the LRU order for cache-only reclaim
+        # (move_to_end on every hit/registration).
+        self._hash_index: "collections.OrderedDict" = collections.OrderedDict()
+        self._block_hash: List[Optional[int]] = [None] * num_blocks
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_cached(self) -> int:
+        return len(self._hash_index)
+
+    def refcount(self, b: int) -> int:
+        return self._refcount[b]
+
+    def _check_id(self, op: str, b) -> None:
+        if not isinstance(b, (int, np.integer)) or not 0 <= b < self.num_blocks:
+            raise ValueError(
+                f"BlockAllocator.{op}: block id {b!r} out of range "
+                f"[0, {self.num_blocks})")
+
+    def _reclaimable(self) -> int:
+        """Cache-only blocks (refcount 1, sole holder is the index) that
+        `alloc` may evict from the prefix cache to satisfy a grant."""
+        return sum(1 for h, b in self._hash_index.items()
+                   if self._refcount[b] == 1)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        if n > len(self._free) + self._reclaimable():
+            return None
+        while len(self._free) < n:
+            self._evict_cached()
+        out = []
+        for _ in range(n):
+            b = self._free.popleft()
+            self._refcount[b] = 1
+            out.append(b)
+        return out
+
+    def share(self, b: int) -> int:
+        """Add a reference to an allocated block (read-only sharing across
+        slots — prefix caching's grant path). Returns the new refcount."""
+        self._check_id("share", b)
+        if self._refcount[b] == 0:
+            raise ValueError(
+                f"BlockAllocator.share: block {b} is free — only an "
+                f"allocated block can be shared")
+        self._refcount[b] += 1
+        return self._refcount[b]
+
+    def free(self, blocks: List[int]) -> None:
+        """Drop one reference per block id; a block whose refcount hits zero
+        returns to the free list. Raises ValueError (naming the id) on an
+        out-of-range id or a refcount underflow (double free / free of a
+        never-allocated block)."""
+        for b in blocks:
+            self._check_id("free", b)
+            if self._refcount[b] == 0:
+                raise ValueError(
+                    f"BlockAllocator.free: block {b} is not allocated "
+                    f"(double free or refcount underflow)")
+            self._refcount[b] -= 1
+            if self._refcount[b] == 0:
+                # cannot still be hash-indexed: the index holds a reference,
+                # so an indexed block bottoms out at refcount 1
+                self._free.append(b)
+
+    # -- prefix-cache index --------------------------------------------------
+
+    def register(self, b: int, h: int) -> bool:
+        """Publish allocated block `b` under content hash `h`. The index
+        takes its own reference, so the entry keeps the block alive after
+        every slot lets go. First writer wins: an already-indexed hash is
+        left pointing at its existing block (returns False)."""
+        self._check_id("register", b)
+        if self._refcount[b] == 0:
+            raise ValueError(
+                f"BlockAllocator.register: block {b} is free — only an "
+                f"allocated block can enter the hash index")
+        if h in self._hash_index:
+            self._hash_index.move_to_end(h)
+            return False
+        if self._block_hash[b] is not None:
+            # block already published under some other hash — a second entry
+            # would take a second index reference and orphan the first one;
+            # first publication wins
+            return False
+        self._hash_index[h] = b
+        self._block_hash[b] = h
+        self._refcount[b] += 1
+        return True
+
+    def lookup(self, h: int) -> Optional[int]:
+        """Block id cached under hash `h`, or None. A hit refreshes the
+        entry's LRU position (it just proved useful)."""
+        b = self._hash_index.get(h)
+        if b is not None:
+            self._hash_index.move_to_end(h)
+        return b
+
+    def _evict_cached(self) -> bool:
+        """Drop the least-recently-used cache-only index entry, returning its
+        block to the free list. Blocks a slot still holds (refcount > 1) are
+        never touched."""
+        for h, b in self._hash_index.items():
+            if self._refcount[b] == 1:
+                del self._hash_index[h]
+                self._block_hash[b] = None
+                self._refcount[b] = 0
+                self._free.append(b)
+                return True
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Requests and engine configuration
+# ---------------------------------------------------------------------------
+
+QUEUED, RUNNING, FINISHED, CANCELLED = ("queued", "running", "finished",
+                                        "cancelled")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (P,) int32
+    max_new_tokens: int
+    state: str = QUEUED
+    slot: Optional[int] = None
+    blocks: List[int] = dataclasses.field(default_factory=list)
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    fed: int = 0                       # tokens of `feed` already in the cache
+    preemptions: int = 0
+    submit_t: float = 0.0
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    # streaming: called as on_token(request, token) for every emitted token
+    on_token: Optional[Any] = None
+
+    # tokens to (re)prefill this running stint, SNAPSHOTTED at admission:
+    # the prompt plus anything generated before a preemption. Tokens decoded
+    # after admission are fed one at a time, not appended here — otherwise a
+    # decoding request would look permanently "prefilling" and pin the step
+    # at the wide shape.
+    feed: Optional[np.ndarray] = None
+
+    @property
+    def done(self) -> bool:
+        return len(self.out_tokens) >= self.max_new_tokens
+
+    @property
+    def prefilling(self) -> bool:
+        return self.feed is not None and self.fed < len(self.feed)
+
+    def resume_feed(self) -> np.ndarray:
+        """prompt + already-generated tokens — after a recompute preemption
+        the generated tokens are re-ingested as prompt so greedy decoding
+        resumes where it left off."""
+        if not self.out_tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out_tokens, np.int32)])
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    num_slots: int = 4                # concurrent sequences per step
+    block_size: int = 16              # tokens per KV block
+    num_blocks: int = 64              # physical pool size (all slots share it)
+    max_blocks_per_slot: int = 16     # block-table width (max seq / block_size)
+    prefill_chunk: int = 16           # token-window width of the mixed step
+    # speculative decoding: tokens drafted by the 2-bit LCD draft per verify
+    # round; 0 = off. (Validated here; the engine does not serve it yet.)
+    speculative_k: int = 0
+    draft_centroids: int = 4          # 2-bit self-draft
+    # KV block-pool dtype: "float" keeps blocks in the model dtype; "int8"
+    # stores smoothed int8 codes + per-(block-slot, kv-head) scale pools.
+    # None follows the model's cfg.kv_cache_dtype.
+    kv_dtype: Optional[str] = None
+    # weight bit-width policy: weight_bits is the uniform packing width;
+    # bits_budget, when set, asks for per-layer mixed precision under that
+    # global element-weighted mean.
+    weight_bits: int = 4
+    bits_budget: Optional[float] = None
+    # prefix caching, chunked-prefill admission and the admission policy
+    # ("fcfs" | "priority") with its tenant knobs. (Validated here; only
+    # "fcfs" without prefix cache or chunked admission is served yet.)
+    prefix_cache: bool = False
+    chunked_prefill: bool = False
+    scheduler: str = "fcfs"
+    tenant_weights: Optional[Dict[str, float]] = None
+    tenant_token_budget: Optional[int] = None
+    # architecture binding: when set, capability-dependent knobs are
+    # validated EAGERLY against the arch's family capabilities at config
+    # construction.
+    arch: Optional[str] = None
+    # requested (data, model) axis sizes of a serving mesh. None = one device.
+    data_parallel: Optional[int] = None
+    model_parallel: Optional[int] = None
+
+    def __post_init__(self):
+        """Eager validation: a bad knob fails at config construction with the
+        allowed values spelled out, not deep inside cache init."""
+        if self.kv_dtype not in (None, "float", "int8"):
+            raise ValueError(
+                f"EngineConfig.kv_dtype must be None (follow the model "
+                f"config), 'float' or 'int8'; got {self.kv_dtype!r}")
+        if self.weight_bits not in SUPPORTED_NBITS:
+            raise ValueError(
+                f"EngineConfig.weight_bits must be one of {SUPPORTED_NBITS}; "
+                f"got {self.weight_bits!r}")
+        if self.bits_budget is not None and not (
+                min(SUPPORTED_NBITS) <= self.bits_budget <= max(SUPPORTED_NBITS)):
+            raise ValueError(
+                f"EngineConfig.bits_budget must lie in "
+                f"[{min(SUPPORTED_NBITS)}, {max(SUPPORTED_NBITS)}] (global "
+                f"mean packed bits); got {self.bits_budget!r}")
+        if self.speculative_k < 0:
+            raise ValueError(
+                f"EngineConfig.speculative_k must be >= 0; got "
+                f"{self.speculative_k}")
+        if not 2 <= self.draft_centroids <= 16:
+            raise ValueError(
+                f"EngineConfig.draft_centroids must lie in [2, 16] (sub-byte "
+                f"codes); got {self.draft_centroids}")
+        if self.num_blocks < self.max_blocks_per_slot:
+            raise ValueError(
+                f"EngineConfig.num_blocks ({self.num_blocks}) must be >= "
+                f"max_blocks_per_slot ({self.max_blocks_per_slot}) or no "
+                f"request can ever be fully admitted")
+        if self.scheduler not in ("fcfs", "priority"):
+            raise ValueError(
+                f"EngineConfig.scheduler must be 'fcfs' or 'priority'; got "
+                f"{self.scheduler!r}")
+        if self.tenant_token_budget is not None and self.tenant_token_budget <= 0:
+            raise ValueError(
+                f"EngineConfig.tenant_token_budget must be positive (max "
+                f"concurrently admitted tokens per tenant); got "
+                f"{self.tenant_token_budget!r}")
+        if self.tenant_weights is not None and any(
+                w <= 0 for w in self.tenant_weights.values()):
+            raise ValueError(
+                f"EngineConfig.tenant_weights must all be positive; got "
+                f"{self.tenant_weights!r}")
+        for knob in ("data_parallel", "model_parallel"):
+            v = getattr(self, knob)
+            if v is not None and (not isinstance(v, int) or v < 1):
+                raise ValueError(
+                    f"EngineConfig.{knob} must be a positive int (mesh axis "
+                    f"size) or None (auto layout); got {v!r}")
+        if self.arch is not None:
+            caps = arch_capabilities(self.arch)  # ValueError when unknown
+            if self.speculative_k and CAP_SPECULATIVE not in caps:
+                raise ValueError(
+                    f"EngineConfig.speculative_k > 0 needs the 'speculative' "
+                    f"capability; arch {self.arch!r} has {sorted(caps)}")
+            if self.prefix_cache and CAP_PREFIX_CACHE not in caps:
+                raise ValueError(
+                    f"EngineConfig.prefix_cache=True needs the 'prefix_cache' "
+                    f"capability; arch {self.arch!r} has {sorted(caps)}")
+            if self.kv_dtype == "int8" and CAP_INT8_KV not in caps:
+                raise ValueError(
+                    f"EngineConfig.kv_dtype='int8' needs the 'int8_kv' "
+                    f"capability; arch {self.arch!r} has {sorted(caps)}")
+
+    @property
+    def max_seq(self) -> int:
+        return self.max_blocks_per_slot * self.block_size
+
+
+def _refuse_unported(ecfg: EngineConfig, model: Model) -> None:
+    """NotImplementedError, naming the knob, for everything the reference
+    engine serves and this one does not yet."""
+    later = "not ported yet"
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"ServingEngine: model family {model.cfg.family!r} is not ported "
+            f"yet (only 'dense'); {later}")
+    if ecfg.speculative_k > 0:
+        raise NotImplementedError(
+            f"EngineConfig.speculative_k={ecfg.speculative_k}: speculative "
+            f"self-drafting (paged_verify_step, the draft pool) is {later}")
+    if ecfg.prefix_cache:
+        raise NotImplementedError(
+            f"EngineConfig.prefix_cache=True: the prefix cache with "
+            f"copy-on-write block tables is {later}")
+    if ecfg.scheduler == "priority":
+        raise NotImplementedError(
+            f"EngineConfig.scheduler='priority': the priority / weighted-fair "
+            f"scheduler is {later}; use 'fcfs'")
+    if ecfg.chunked_prefill:
+        raise NotImplementedError(
+            f"EngineConfig.chunked_prefill=True: chunked-prefill admission is "
+            f"{later}")
+    for knob in ("data_parallel", "model_parallel"):
+        v = getattr(ecfg, knob)
+        if v not in (None, 1):
+            raise NotImplementedError(
+                f"EngineConfig.{knob}={v}: serving on a mesh is {later}; the "
+                f"engine runs on one device")
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching engine
+# ---------------------------------------------------------------------------
+
+class ServingEngine:
+    """Continuous-batching scheduler over the paged decode path.
+
+    Slot lifecycle: submit -> QUEUED -> (admit: slot + prompt blocks granted)
+    -> RUNNING prefill (chunked) -> RUNNING decode (1 token per step, blocks
+    allocated lazily at block-size boundaries) -> FINISHED (slot and blocks
+    freed, immediately reusable by the queue).
+
+        engine = ServingEngine(model, params, EngineConfig(...), device="cuda")
+        engine.submit(prompt, max_new_tokens=32)
+        finished = engine.run()          # drive until queue + slots drain
+        engine.assert_bounded_traces()   # bounded set of step shapes
+
+    `params` and the KV pools live on `device`; the pools are updated in
+    place by every step.
+    """
+
+    def __init__(self, model: Model, params, ecfg: Optional[EngineConfig] = None,
+                 mesh=None, clock=time.perf_counter, draft_params=None,
+                 kv_smooth=None, device="cuda"):
+        ecfg = EngineConfig() if ecfg is None else ecfg
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServingEngine(mesh=...): serving on a mesh is not ported yet; "
+                "the engine runs on one device")
+        if draft_params is not None:
+            raise NotImplementedError(
+                "ServingEngine(draft_params=...): speculative self-drafting "
+                "is not ported yet")
+        _refuse_unported(ecfg, model)
+        caps = model.capabilities
+        if CAP_PAGED not in caps:
+            raise ValueError(
+                f"family '{model.cfg.family}' publishes no paged cache "
+                f"protocol; has {sorted(caps)}")
+        self.device = resolve_device(device)
+        # the RESOLVED pool dtype: an explicit knob wins, else follow the
+        # model config
+        if CAP_INT8_KV in caps:
+            self.kv_dtype = ecfg.kv_dtype or (
+                "int8" if model.cfg.kv_cache_dtype == "int8" else "float")
+        else:
+            if ecfg.kv_dtype == "int8":
+                raise ValueError(
+                    f"EngineConfig.kv_dtype='int8' needs the 'int8_kv' "
+                    f"capability; family '{model.cfg.family}' has "
+                    f"{sorted(caps)}")
+            self.kv_dtype = "float"
+        if kv_smooth is not None and self.kv_dtype != "int8":
+            raise ValueError("kv_smooth only applies to the int8 KV cache")
+        self.model, self.params, self.ecfg = model, params, ecfg
+        self.clock = clock
+        self.alloc = BlockAllocator(ecfg.num_blocks)
+        self.slots: List[Optional[Request]] = [None] * ecfg.num_slots
+        # unallocated entries point at block 0; reads there are masked by
+        # lengths, writes by n_new — never observable
+        self.block_tables = np.zeros(
+            (ecfg.num_slots, ecfg.max_blocks_per_slot), np.int32)
+        self.lengths = np.zeros(ecfg.num_slots, np.int32)
+        self.queue: collections.deque = collections.deque()
+        self.finished: List[Request] = []
+        self.caches = model.init_seq_caches(
+            num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
+            num_slots=ecfg.num_slots, max_seq=ecfg.max_seq,
+            kv_dtype=self.kv_dtype, device=self.device)
+        if kv_smooth is not None:
+            # calibrated smoothing vectors; identity vectors are always valid
+            # (smoothing is a quantization-quality knob, not a correctness one)
+            k_sm, v_sm = kv_smooth
+            pool = self.caches["paged"]
+            for name, sm in (("k_smooth", k_sm), ("v_smooth", v_sm)):
+                sm = torch.tensor(np.asarray(sm, np.float32))
+                if sm.shape != pool[name].shape:
+                    raise ValueError(
+                        f"kv_smooth: {name} must be {tuple(pool[name].shape)} "
+                        f"(layers, kv heads, head dim); got {tuple(sm.shape)}")
+                pool[name] = sm.to(self.device).contiguous()
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in self.caches["paged"].values())
+        logger.info(f"engine: {ecfg.num_slots} slots, {ecfg.num_blocks} x "
+                    f"{ecfg.block_size}-token {self.kv_dtype} KV blocks "
+                    f"({human_bytes(pool_bytes)}) on {self.device}")
+        # the step widths T this engine has run, with how often; the counted
+        # form of the reference's bounded-trace contract
+        self.traces: Dict[int, int] = {}
+        self._next_rid = 0
+        self.steps = 0
+
+    # -- public API ---------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int, *, on_token=None) -> Request:
+        """Queue a request. `on_token(request, token)` streams every emitted
+        token as it is decoded."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        need = len(prompt) + max_new_tokens
+        if need > self.ecfg.max_seq:
+            raise ValueError(
+                f"request needs {need} tokens; engine max_seq is "
+                f"{self.ecfg.max_seq} (max_blocks_per_slot * block_size)")
+        r = Request(self._next_rid, prompt, max_new_tokens,
+                    submit_t=self.clock(), on_token=on_token)
+        self._next_rid += 1
+        self.queue.append(r)
+        return r
+
+    def cancel(self, r: Request) -> bool:
+        """Abort a queued or running request. A running request's slot and
+        blocks are released immediately. Returns False if the request already
+        finished or was already cancelled."""
+        if r.state == QUEUED:
+            self.queue.remove(r)
+            r.state = CANCELLED
+            return True
+        if r.state == RUNNING:
+            self._release(r)
+            r.state, r.finish_t = CANCELLED, self.clock()
+            return True
+        return False
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slots)
+
+    def run(self, max_steps: int = 100_000) -> List[Request]:
+        """Drive `step()` until every submitted request finishes."""
+        done: List[Request] = []
+        for _ in range(max_steps):
+            if not self.busy:
+                return done
+            done.extend(self.step())
+        raise RuntimeError(f"engine did not drain in {max_steps} steps")
+
+    def assert_bounded_traces(self) -> None:
+        """The bounded-shape contract: no matter how requests arrive or
+        interleave, the engine runs its model step at a FIXED set of
+        token-window widths — at most two, prefill_chunk and 1. (The JAX
+        package counts traced computations; this engine runs eagerly and
+        counts the widths it has run.)"""
+        allowed = {1, self.ecfg.prefill_chunk}
+        if not set(self.traces) <= allowed:
+            raise AssertionError(
+                f"unexpected step shapes {set(self.traces)} (allowed {allowed})")
+
+    # -- scheduler ----------------------------------------------------------
+
+    def step(self) -> List[Request]:
+        """One scheduler iteration: admit from the queue, run one model step
+        over every active slot, harvest finished requests. Returns the
+        requests that finished during this step."""
+        self._admit()
+        active = [(s, r) for s, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return []
+        ecfg = self.ecfg
+        t = ecfg.prefill_chunk if any(r.prefilling for _, r in active) else 1
+
+        # pass 1 — reserve blocks. Reservation may EVICT other active slots
+        # (recompute preemption), so it must complete before any tokens are
+        # packed: a slot evicted here simply drops out of pass 2.
+        def want(r):
+            return min(len(r.feed) - r.fed, t) if r.prefilling else 1
+        for s, r in active:
+            if self.slots[s] is not r:
+                continue           # evicted by an earlier reservation
+            self._ensure_blocks(r, int(self.lengths[s]) + want(r))
+
+        # pass 2 — pack the surviving slots into one batch
+        tokens = np.zeros((ecfg.num_slots, t), np.int32)
+        n_new = np.zeros(ecfg.num_slots, np.int32)
+        active = [(s, r) for s, r in enumerate(self.slots) if r is not None]
+        for s, r in active:
+            w = want(r)
+            if len(r.blocks) * ecfg.block_size < int(self.lengths[s]) + w:
+                continue               # starved of blocks: waits this step
+            if r.prefilling:
+                tokens[s, :w] = r.feed[r.fed:r.fed + w]
+            else:
+                tokens[s, 0] = r.out_tokens[-1]
+            n_new[s] = w
+
+        next_tok = self._model_step(tokens, n_new)
+        self.traces[t] = self.traces.get(t, 0) + 1
+        self.steps += 1
+
+        done: List[Request] = []
+        for s, r in active:
+            if self.slots[s] is not r or not n_new[s]:
+                continue               # evicted by _ensure_blocks, or starved
+            r.fed += int(n_new[s])
+            self.lengths[s] += int(n_new[s])
+            if not r.prefilling:       # last valid token's logits are usable
+                if r.first_token_t is None:
+                    r.first_token_t = self.clock()
+                self._emit(r, int(next_tok[s]))
+                if r.done:
+                    self._finish(r)
+                    done.append(r)
+        return done
+
+    # -- internals ----------------------------------------------------------
+
+    @torch.no_grad()
+    def _model_step(self, tokens: np.ndarray, n_new: np.ndarray) -> np.ndarray:
+        """Run the model over one packed batch: ONE upload (tokens, lengths,
+        n_new and the block tables in a single int32 buffer), the step, ONE
+        download of every slot's greedy next token."""
+        s, t = tokens.shape
+        nbw = self.block_tables.shape[1]
+        host = torch.from_numpy(np.concatenate([
+            tokens.reshape(-1), self.lengths, n_new,
+            self.block_tables.reshape(-1)]).astype(np.int32, copy=False))
+        dev = host.to(self.device)
+        o1, o2, o3 = s * t, s * t + s, s * t + 2 * s
+        logits, self.caches = self.model.serving_step(
+            self.params, self.caches, dev[:o1].view(s, t), dev[o1:o2],
+            dev[o2:o3], dev[o3:].view(s, nbw))
+        nxt = torch.argmax(logits[..., :self.model.cfg.vocab], dim=-1)
+        return nxt.to(torch.int32).cpu().numpy()
+
+    def _admit(self) -> None:
+        """FCFS admission: the queue head gets a free slot and, all or
+        nothing, the blocks for its whole feed."""
+        ecfg = self.ecfg
+        for s in range(ecfg.num_slots):
+            if self.slots[s] is not None or not self.queue:
+                continue
+            r = self.queue[0]
+            feed = r.resume_feed()
+            blocks = self.alloc.alloc(cdiv(len(feed), ecfg.block_size))
+            if blocks is None:
+                return             # all-or-nothing: don't starve the pick
+            self.queue.remove(r)
+            r.feed = feed
+            r.blocks = blocks
+            r.state, r.slot, r.fed = RUNNING, s, 0
+            self.slots[s] = r
+            self.lengths[s] = 0
+            self.block_tables[s] = 0
+            self.block_tables[s, :len(r.blocks)] = r.blocks
+
+    def _emit(self, r: Request, tok: int) -> None:
+        """Append one generated token: bookkeeping + streaming callback."""
+        r.out_tokens.append(tok)
+        if r.on_token is not None:
+            r.on_token(r, tok)
+
+    def _ensure_blocks(self, r: Request, tokens_needed: int) -> bool:
+        """Grow `r`'s block table to cover `tokens_needed` cached tokens.
+        On pool exhaustion, evict the youngest other running request
+        (recompute preemption) and retry; False if `r` still cannot be served
+        this step."""
+        while True:
+            need = cdiv(tokens_needed, self.ecfg.block_size) - len(r.blocks)
+            if need <= 0:
+                return True
+            got = self.alloc.alloc(need)
+            if got is not None:
+                self.block_tables[r.slot, len(r.blocks):len(r.blocks) + len(got)] = got
+                r.blocks.extend(got)
+                continue
+            victim = self._youngest_running(exclude=r)
+            if victim is None:
+                return False           # nothing to evict; r waits this step
+            self._evict(victim)
+
+    def _youngest_running(self, exclude: Request) -> Optional[Request]:
+        running = [r for r in self.slots
+                   if r is not None and r is not exclude]
+        return max(running, key=lambda r: r.rid) if running else None
+
+    def _release(self, r: Request) -> None:
+        """Give back `r`'s slot and blocks."""
+        s = r.slot
+        self.alloc.free(r.blocks)
+        r.blocks, r.slot, r.feed = [], None, None
+        self.slots[s] = None
+        self.lengths[s] = 0
+        self.block_tables[s] = 0
+
+    def _evict(self, r: Request) -> None:
+        """Recompute preemption: return `r` to the FRONT of the queue with its
+        blocks freed; on re-admission it re-prefills prompt + generated."""
+        logger.info(f"engine: preempting request {r.rid} "
+                    f"({len(r.out_tokens)}/{r.max_new_tokens} tokens done)")
+        self._release(r)
+        r.fed = 0
+        r.state, r.preemptions = QUEUED, r.preemptions + 1
+        self.queue.appendleft(r)
+
+    def _finish(self, r: Request) -> None:
+        self._release(r)
+        r.state, r.finish_t = FINISHED, self.clock()
+        self.finished.append(r)
+
+
+# ---------------------------------------------------------------------------
+# Convenience constructor shared by the CLI, the smoke script and the tests
+# ---------------------------------------------------------------------------
+
+def _has_clustered(tree) -> bool:
+    if is_clustered(tree):
+        return True
+    if isinstance(tree, dict):
+        return any(_has_clustered(v) for v in tree.values())
+    return False
+
+
+def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
+                 ecfg: Optional[EngineConfig] = None, seed: int = 0,
+                 params=None, kv_smooth=None, fused_projections: bool = True,
+                 n_layers: Optional[int] = None, device="cuda"):
+    """(engine, params): model + params wrapped in a ready ServingEngine on
+    `device` ("cuda" unless the caller asks for the CPU; asking for a card
+    that is not there raises).
+
+    Without `params`, dense weights are drawn from `seed`; with `lcd=True`
+    and no clustered `params`, random-but-valid clustered params are
+    materialized at `ecfg.weight_bits` (core/clustered_params.py
+    materialize_clustered — compressing real weights needs the compression
+    pipeline, which is not ported yet) and a log line says so. With
+    `ecfg.kv_dtype == "int8"` the smoothing vectors must be passed as
+    `kv_smooth` (identity vectors are valid); calibrating them here is not
+    ported yet. `n_layers` cuts the model's depth (widths stay)."""
+    dev = resolve_device(device)
+    ecfg = EngineConfig() if ecfg is None else ecfg
+    if ecfg.arch is None:
+        # bind the config to the arch so capability-dependent knobs fail
+        # eagerly with the capability named
+        ecfg = dataclasses.replace(ecfg, arch=arch)
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg, dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.fused_projections != fused_projections:
+        cfg = dataclasses.replace(cfg, fused_projections=fused_projections)
+    model = get_model(cfg)
+    _refuse_unported(ecfg, model)
+    resolved_kv = ecfg.kv_dtype or (
+        "int8" if cfg.kv_cache_dtype == "int8" else "float")
+    if resolved_kv == "int8" and kv_smooth is None:
+        raise NotImplementedError(
+            "build_engine(kv_dtype='int8') without kv_smooth: "
+            "calibrate_kv_smooth is not ported yet; pass kv_smooth="
+            "(k_smooth, v_smooth), each (n_layers, n_kv_heads, head_dim) — "
+            "identity vectors are valid")
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if lcd:
+            from repro_torch.core.clustered_params import materialize_clustered
+            params = materialize_clustered(model, gen, nbits=ecfg.weight_bits,
+                                           device=dev)
+            logger.info(
+                f"LCD: compress_model is not ported yet — serving "
+                f"random-but-valid {ecfg.weight_bits}-bit clustered params "
+                f"(materialize_clustered, seed {seed})")
+        else:
+            params = model.init(gen, device=dev)
+    elif lcd and not _has_clustered(params):
+        raise NotImplementedError(
+            "build_engine(lcd=True, params=<dense>): compress_model is not "
+            "ported yet; pass clustered params")
+    engine = ServingEngine(model, params, ecfg, kv_smooth=kv_smooth, device=dev)
+    return engine, params

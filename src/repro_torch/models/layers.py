@@ -1,0 +1,239 @@
+"""Layer library of the dense transformer family's paged serving path.
+
+Everything is functional: `fn(params_subtree, inputs, cfg, ...) -> outputs`,
+on plain tensors and nested dicts of tensors. Names and conventions are those
+of the JAX package's `models/layers.py`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.api import _unpack_codes, is_clustered
+from repro_torch.kernels.ops import clustered_linear
+from repro_torch.kernels.paged_attention import paged_pool_attention
+from repro_torch.models.config import ModelConfig
+
+# ---------------------------------------------------------------------------
+# Linear / norms
+# ---------------------------------------------------------------------------
+
+def resolve_weight(w, dtype) -> torch.Tensor:
+    """Dense view of a (possibly clustered) weight: codebook[codes] / smooth."""
+    if not is_clustered(w):
+        return w.to(dtype)
+    d_in = w.smooth.shape[-1]
+    codes = _unpack_codes(w.codes, d_in, w.nbits).long()   # (..., d_in, d_out)
+    if w.codebook.ndim == 1:
+        dense = w.codebook[codes]
+    else:                                                  # stacked (E, K)
+        dense = torch.stack([cb[cd] for cb, cd in zip(w.codebook, codes)])
+    return (dense / w.smooth[..., :, None]).to(dtype)
+
+
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense projection. `w` may be a plain tensor or an LCD ClusteredTensor;
+    clustered weights go through kernels.ops.clustered_linear (the fused
+    smooth+quant+LUT kernels on CUDA tensors)."""
+    if is_clustered(w):
+        y = clustered_linear(x, w)
+    else:
+        y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def linear_group(x: torch.Tensor, ws, bs, cfg: ModelConfig) -> Tuple[torch.Tensor, ...]:
+    """Projections sharing one input (QKV; gate+up).
+
+    With `cfg.fused_projections` on and every weight clustered, the JAX
+    package serves the group in ONE multi-projection LUT launch. That kernel
+    pair (`lut_matmul_fused_multi[_gemv]`) is not ported yet, so the
+    combination raises; with `fused_projections=False` — or any dense weight
+    in the group — each projection is an independent `linear` call, which is
+    bit-equal per projection to the fused form."""
+    if (cfg.fused_projections and len(ws) > 1
+            and all(is_clustered(w) for w in ws)):
+        raise NotImplementedError(
+            "linear_group: fused_projections=True over clustered weights "
+            "needs the fused_multi LUT kernels (lut_matmul_fused_multi / "
+            "lut_matmul_fused_multi_gemv), which are not ported yet; build "
+            "the model with fused_projections=False")
+    ys = tuple(linear(x, w) for w in ws)
+    return tuple(y if b is None else y + b.to(y.dtype)
+                 for y, b in zip(ys, bs))
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    nrm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (nrm * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); pos: broadcastable to (..., S). Rotates pairs
+    (d, d+D/2). Angles, cos and sin are f32; the rotation itself runs in the
+    activation dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = pos.to(torch.float32)[..., None] * freqs              # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    c2, s2 = cos.to(x.dtype), sin.to(x.dtype)
+    return torch.cat([x1 * c2 - x2 * s2, x2 * c2 + x1 * s2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention block (continuous-batching serving engine)
+# ---------------------------------------------------------------------------
+
+def quantize_kv(t: torch.Tensor, smooth: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smoothed symmetric int8 quantization of one step's K or V: divide
+    channel outliers away with the calibrated per-(kv-head, channel) smoothing
+    vector, then absmax-quantize per (token, kv-head).
+
+    t: (..., KV, D); smooth: (KV, D). Returns (codes int8 (..., KV, D),
+    scale f32 (..., KV)); dequant is `codes * scale * smooth`."""
+    ts = t.to(torch.float32) / smooth.to(torch.float32)
+    amax = torch.amax(torch.abs(ts), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    codes = torch.clamp(torch.round(ts / scale), -127, 127).to(torch.int8)
+    return codes, scale[..., 0]
+
+
+def _scatter_rows(pool: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                  valid: torch.Tensor) -> None:
+    """pool.view(nb*bs, ...)[idx[i]] = vals[i] for the valid i only, in place.
+
+    `index_put_` has no drop mode and a boolean-mask index would wait for the
+    host, so a padded token is redirected — index AND value — to the first
+    valid token of the step: it rewrites what that token writes anyway. With
+    no valid token at all every write targets one row and carries that row's
+    current content. Duplicate indices therefore always carry equal values,
+    which makes the result deterministic; nothing observable is written for a
+    padded token and nothing synchronises with the host."""
+    flat = pool.view(-1, *pool.shape[2:])
+    # index_select, not `t[anchor]`: indexing with a 0-d tensor reads it back
+    anchor = torch.argmax(valid.to(torch.int8)).view(1)    # first valid, else 0
+    any_valid = valid.index_select(0, anchor)
+    idx = torch.where(valid, idx, idx.index_select(0, anchor))
+    shape = (-1,) + (1,) * (vals.ndim - 1)
+    vals = torch.where(valid.view(shape), vals, vals.index_select(0, anchor))
+    vals = torch.where(any_valid.view(shape), vals, flat.index_select(0, idx))
+    flat.index_put_((idx,), vals)
+
+
+def paged_attn_block(
+    p: Dict[str, Any],
+    x: torch.Tensor,              # (S_slots, T, d_model) — T new tokens/slot
+    cfg: ModelConfig,
+    *,
+    layer_window: int,
+    kc: torch.Tensor,             # (num_blocks, block_size, KV, D) paged K
+    vc: torch.Tensor,             # (num_blocks, block_size, KV, D) paged V
+    block_tables: torch.Tensor,   # (S_slots, max_blocks) int32 logical->physical
+    lengths: torch.Tensor,        # (S_slots,) int32 tokens already in the cache
+    n_new: torch.Tensor,          # (S_slots,) int32 valid tokens among the T fed
+    kc_scale: Optional[torch.Tensor] = None,   # (num_blocks, block_size, KV) f32
+    vc_scale: Optional[torch.Tensor] = None,   # int8 cache only
+    k_smooth: Optional[torch.Tensor] = None,   # (KV, D) f32 smoothing vectors
+    v_smooth: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One attention block over the paged KV cache.
+
+    Every slot advances by up to T tokens in the same step — prefilling slots
+    feed a prompt chunk (n_new up to T), decoding slots feed one token
+    (n_new = 1), idle slots feed nothing (n_new = 0). The three ragged
+    quantities (per-slot position, per-slot length, per-slot activity) are all
+    masks; the step's shape depends only on (S_slots, T).
+
+    Writes go through each slot's block table: token `lengths[s] + t` lands in
+    physical block `block_tables[s, (lengths[s]+t) // block_size]`; padded
+    tokens write nothing (`_scatter_rows`). UNLIKE the JAX package, which
+    returns new pool arrays, the pools (`kc`, `vc` and, for int8, the scale
+    pools) are UPDATED IN PLACE and only the block's output is returned.
+    Reads go through kernels.paged_attention.paged_pool_attention, which walks
+    the slot's live blocks in place, so the attention math equals that of a
+    contiguous cache of the same length — which is what makes engine output
+    equal to single-request decoding.
+
+    int8 cache (kc.dtype == int8): appended K/V are smoothed and
+    absmax-quantized per (token, kv-head) (`quantize_kv`), scales scatter into
+    their own pools through the same block table, and the kernel dequantizes
+    on read."""
+    b, t, _ = x.shape
+    hd, nh, nkv = cfg.hd, cfg.n_heads_eff, cfg.n_kv_heads
+    bs = kc.shape[1]
+    int8_kv = kc.dtype == torch.int8
+
+    q, k, v = linear_group(
+        x, (p["wq"], p["wk"], p["wv"]),
+        (p.get("bq"), p.get("bk"), p.get("bv")), cfg)
+    q = q.reshape(b, t, nh, hd)
+    k = k.reshape(b, t, nkv, hd)
+    v = v.reshape(b, t, nkv, hd)
+    steps = torch.arange(t, dtype=lengths.dtype, device=x.device)
+    pos = lengths[:, None] + steps[None, :]                              # (S, T)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+
+    # scatter this step's K/V into the slots' blocks
+    valid = (steps[None, :] < n_new[:, None]).reshape(-1)
+    blk = torch.gather(block_tables, 1, torch.clamp(
+        pos // bs, max=block_tables.shape[1] - 1).long())               # (S, T)
+    idx = (blk.long() * bs + (pos % bs).long()).reshape(-1)
+    k = k.reshape(b * t, nkv, hd)
+    v = v.reshape(b * t, nkv, hd)
+    if int8_kv:
+        kq8, ks8 = quantize_kv(k, k_smooth)
+        vq8, vs8 = quantize_kv(v, v_smooth)
+        _scatter_rows(kc, idx, kq8, valid)
+        _scatter_rows(vc, idx, vq8, valid)
+        _scatter_rows(kc_scale, idx, ks8, valid)
+        _scatter_rows(vc_scale, idx, vs8, valid)
+    else:
+        _scatter_rows(kc, idx, k.to(kc.dtype), valid)
+        _scatter_rows(vc, idx, v.to(vc.dtype), valid)
+
+    o = paged_pool_attention(
+        q.contiguous(), kc, vc, block_tables, lengths, n_new, int(layer_window),
+        k_scale=kc_scale, v_scale=vc_scale, k_smooth=k_smooth,
+        v_smooth=v_smooth, softcap=cfg.attn_softcap)
+    return linear(o.reshape(b, t, nh * hd), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        gate, up = linear_group(x, (p["w_gate"], p["w_up"]),
+                                (None, None), cfg)
+        return linear(F.silu(gate) * up, p["w_down"])
+    h = F.gelu(linear(x, p["w_up"], p.get("b_up")), approximate="tanh")
+    return linear(h, p["w_down"], p.get("b_down"))
