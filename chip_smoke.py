@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-Builds the three hand-written CUDA kernels from the sources in this checkout,
+Builds the five hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card at the shapes
-llama2-7b gives it, checks a 2-layer full-width model on the card against the
-same model on the CPU, then serves LCD 4-bit llama2-7b at full width and full
-depth (random weights from --seed) through the continuous-batching engine,
-shows, by the kernels' launch counts, that the serving path really went
-through the kernels, and reads under torch.profiler where a prefill step's and
-a decode step's time goes. Every phase prints one JSON line; any failed phase ends
-the process with a non-zero exit code. The last line is
-`{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
-exits 1.
+llama2-7b and qwen2-1.5b give it (and every projection of a multi-projection
+launch bit for bit against its solo launch), checks a 2-layer full-width
+model on the card against the same model on the CPU, then serves LCD 4-bit
+llama2-7b at full width and full depth (random weights from --seed) through
+the continuous-batching engine in the default configuration (fused
+projections) and in the per-projection one (the same tokens), and through the
+static-batch `serve()`; shows, by the kernels' launch counts, that each path
+really went through the kernels, and reads under torch.profiler where a
+prefill step's and a decode step's time goes. Every phase prints one JSON
+line; any failed phase ends the process with a non-zero exit code. The last
+line is `{"ok": true, "device": {...}}`. Without a CUDA card it prints no
+result and exits 1.
 """
 from __future__ import annotations
 
@@ -91,7 +94,8 @@ def phase_build() -> None:
     _build.library()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          compiled=_build.build_seconds is not None,
-         sources=[f"src/repro_torch/kernels/csrc/{s}" for s in _build.SOURCES])
+         sources=[f"src/repro_torch/kernels/csrc/{s}" for s in _build.SOURCES],
+         ptxas=_build.resource_usage())
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +208,166 @@ def _time_lut(gen, kern, m, k, n, nbits, dtype, quantize):
                 dense_bf16_matmul_ms=dense)
 
 
+# the projection groups the main path fuses: (K, output widths)
+MULTI_GROUPS = {
+    "llama2-7b qkv": (4096, (4096, 4096, 4096)),
+    "llama2-7b gate_up": (4096, (11008, 11008)),
+    "qwen2-1.5b qkv": (1536, (2048, 256, 256)),       # 12 heads padded to 16, 2 kv heads
+    "qwen2-1.5b gate_up": (1536, (8960, 8960)),
+}
+GEMV_MS, GEMM_MS = (1, 5, 8, 127), (128, 130, 256)
+
+
+def _multi_operands(gen, m, k, widths, nbits, quantize, dtype, layers):
+    """Stacked per-layer operands of a projection group, as the model hands
+    them over: inv rows (P, K) and padded codebooks (P, 16) per layer."""
+    from repro_torch.core.lut import packed_rows
+    dev = gen.device
+    packed = [torch.randint(0, 255, (layers, packed_rows(k, nb), n), generator=gen,
+                            dtype=torch.uint8, device=dev) for n, nb in zip(widths, nbits)]
+    cb = torch.sort(torch.randn((layers, len(widths), 16), generator=gen, device=dev) * 0.02,
+                    dim=-1).values
+    for p, nb in enumerate(nbits):
+        cb[:, p, (1 << nb):] = 0.0
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    smooth = 0.5 + torch.rand((layers, len(widths), k), generator=gen, device=dev)
+    qmask = torch.tensor(quantize, device=dev)[None, :, None]
+    inv = torch.where(qmask, 1.0 / (smooth * 0.04), 1.0 / smooth).contiguous()
+    return x, inv, packed, cb
+
+
+def _multi_bound_ms(m, k, widths, nbits, dtype):
+    elt = torch.empty((), dtype=dtype).element_size()
+    p, n = len(widths), sum(widths)
+    nbytes = (m * k * elt + p * k * 4 + sum(k * nb * w // 8 for w, nb in zip(widths, nbits))
+              + p * 64 + m * n * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * k * n / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_multi_kernels(gen):
+    """B3 / B4 against their plain version, and every projection's segment
+    against its solo B1 / B2 launch on the same operands: bits equal, also
+    after the ops wrapper's s_q rescale and the cast to x's dtype."""
+    from repro_torch.core.lut import unpack_codes
+    from repro_torch.kernels.lut_matmul import (lut_matmul_fused, lut_matmul_fused_gemv,
+                                                lut_matmul_fused_multi,
+                                                lut_matmul_fused_multi_gemv)
+    from repro_torch.kernels.ops import lut_gemm_fused, lut_gemm_fused_multi
+    from repro_torch.kernels.ref import lut_matmul_fused_multi_ref
+
+    names = ("lut_matmul_fused_multi_gemv", "lut_matmul_fused_multi")
+    cases, worst, headline = [], {n: 0.0 for n in names}, {}
+    plan = []
+    for group, (k, widths) in MULTI_GROUPS.items():
+        p = len(widths)
+        main = ((4,) * p, (True,) * p, torch.bfloat16)
+        for m in GEMV_MS + GEMM_MS:
+            plan.append((group, m, *main))
+        for m in (5, 130):
+            plan += [(group, m, (4,) * p, (True,) * p, torch.float32),
+                     (group, m, (4, 2, 2)[:p], (True,) * p, torch.bfloat16),
+                     (group, m, (3, 3, 3)[:p], (True,) * p, torch.bfloat16),
+                     (group, m, (4,) * p, (True, False, True)[:p], torch.float32)]
+    for group, m, nbits, quantize, dtype in plan:
+        k, widths = MULTI_GROUPS[group]
+        gemv = m < 128
+        name = names[0] if gemv else names[1]
+        multi = lut_matmul_fused_multi_gemv if gemv else lut_matmul_fused_multi
+        solo = lut_matmul_fused_gemv if gemv else lut_matmul_fused
+        x, inv, packed, cb = _multi_operands(gen, m, k, widths, nbits, quantize, dtype, 1)
+        pk = [t[0] for t in packed]
+        y = multi(x, inv[0], cb[0], *pk, quantize=quantize, nbits=nbits)
+        segs = y.split(list(widths), dim=1)
+        ref = lut_matmul_fused_multi_ref(x, list(inv[0]), pk, list(cb[0]), [1.0] * len(widths),
+                                         quantize=quantize, nbits=nbits)
+        acts = [0.04 if q else 1.0 for q in quantize]
+        wrapped = lut_gemm_fused_multi(x, inv[0], cb[0], acts, *pk, quantize=quantize,
+                                       nbits=nbits)
+        same, errs, tols = True, [], []
+        for i, (seg, r) in enumerate(zip(segs, ref)):
+            same &= bool(torch.equal(seg, solo(x, inv[0, i], pk[i], cb[0, i],
+                                               quantize=quantize[i], nbits=nbits[i])))
+            alone = lut_gemm_fused(x, inv[0, i], pk[i], cb[0, i], acts[i],
+                                   quantize=quantize[i], nbits=nbits[i])
+            same &= bool(torch.equal(wrapped[i].to(dtype), alone.to(dtype)))
+            # |y - ref| <= 1e-5 * max_m ||T(x)_m|| * max_n ||w_n||, per projection
+            # (f32 sums of K terms taken in another order)
+            xt = x.float() * inv[0, i]
+            if quantize[i]:
+                xt = torch.clamp(torch.round(xt), -127, 127)
+            w = cb[0, i][unpack_codes(pk[i], k, nbits[i]).long()]
+            tols.append(1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max()))
+            errs.append(float((seg - r).abs().max()))
+        torch.cuda.synchronize()
+        err = max(errs)
+        case = dict(kernel=name, group=group, m=m, k=k, widths=list(widths), nbits=list(nbits),
+                    quantize=list(quantize), dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, tol=min(tols), segments_equal_solo_bits=same)
+        if not (same and bool(torch.isfinite(y).all())
+                and all(e <= t for e, t in zip(errs, tols))):
+            emit("kernels", failed=case)
+            raise SystemExit(f"multi-projection kernel disagrees: {case}")
+        worst[name] = max(worst[name], err)
+        if m in (8, 256) and dtype == torch.bfloat16 and nbits == (4,) * len(widths) \
+                and all(quantize):
+            case.update(_time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype))
+            if group == "llama2-7b qkv":
+                headline[name] = case
+        cases.append(case)
+    # ragged K beside mixed widths: the ops wrapper pads K to the widest
+    # packing group and a narrower projection's codes with zero rows
+    for m in (5, 130):
+        k, widths, nbits, quantize = 130, (37, 16, 8), (4, 2, 3), (True, False, True)
+        x, inv, packed, cb = _multi_operands(gen, m, k, widths, nbits, quantize,
+                                             torch.bfloat16, 1)
+        acts = [0.04 if q else 1.0 for q in quantize]
+        wrapped = lut_gemm_fused_multi(x, inv[0], cb[0], acts, *[t[0] for t in packed],
+                                       quantize=quantize, nbits=nbits)
+        same = all(bool(torch.equal(wrapped[i], lut_gemm_fused(
+            x, inv[0, i], packed[i][0], cb[0, i], acts[i], quantize=quantize[i],
+            nbits=nbits[i]))) for i in range(3))
+        case = dict(kernel=names[m >= 128], group="ragged K", m=m, k=k, widths=list(widths),
+                    nbits=list(nbits), quantize=list(quantize),
+                    segments_equal_solo_bits=same)
+        if not same:
+            emit("kernels", failed=case)
+            raise SystemExit(f"multi-projection kernel disagrees: {case}")
+        cases.append(case)
+    return cases, worst, headline
+
+
+def _time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype):
+    """The multi kernel, its P solo launches and its plain version on the same
+    shapes, each walking a stack of layers larger than the 50 MB L2."""
+    from repro_torch.kernels.ref import lut_matmul_fused_multi_ref
+    per_layer = sum(k * w * nb // 8 for w, nb in zip(widths, nbits))
+    layers = max(2, math.ceil(128e6 / per_layer))
+    x, inv, packed, cb = _multi_operands(gen, m, k, widths, nbits, quantize, dtype, layers)
+    iters = 4 * layers if m < 128 else layers
+
+    def fused(i):
+        l = i % layers
+        multi(x, inv[l], cb[l], *[t[l] for t in packed], quantize=quantize, nbits=nbits)
+
+    def solos(i):
+        l = i % layers
+        for p in range(len(widths)):
+            solo(x, inv[l, p], packed[p][l], cb[l, p], quantize=quantize[p], nbits=nbits[p])
+
+    def plain(i):
+        l = i % layers
+        lut_matmul_fused_multi_ref(x, list(inv[l]), [t[l] for t in packed], list(cb[l]),
+                                   [1.0] * len(widths), quantize=quantize, nbits=nbits)
+
+    ms = time_ms(fused, iters)
+    solo_ms = time_ms(solos, iters)
+    bound, by = _multi_bound_ms(m, k, widths, nbits, dtype)
+    return dict(ms=ms, solo_sum_ms=solo_ms, plain_ms=time_ms(plain, 3, warmup=1),
+                bound_ms=bound, bound_by=by)
+
+
 def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap):
     from repro_torch.models.layers import quantize_kv
     dev = gen.device
@@ -302,15 +466,16 @@ def phase_kernels(seed: int):
     from repro_torch.kernels.ops import launch_counts
     gen = torch.Generator(device="cuda").manual_seed(seed)
     lut_cases, lut_worst, lut_head = check_lut_kernels(gen)
+    multi_cases, multi_worst, multi_head = check_multi_kernels(gen)
     att_cases, att_worst, att_head = check_attention_kernel(gen)
-    timed = [c for c in lut_cases + att_cases if "ms" in c]
-    emit("kernels", compared=len(lut_cases) + len(att_cases),
-         worst_abs_err={**lut_worst, "paged_pool_attention": att_worst},
+    timed = [c for c in lut_cases + multi_cases + att_cases if "ms" in c]
+    emit("kernels", compared=len(lut_cases) + len(multi_cases) + len(att_cases),
+         worst_abs_err={**lut_worst, **multi_worst, "paged_pool_attention": att_worst},
          launches_during_comparison=launch_counts(), timed=timed)
-    return {"lut_matmul_fused_gemv": (lut_head["lut_matmul_fused_gemv"],
-                                      lut_worst["lut_matmul_fused_gemv"]),
-            "lut_matmul_fused": (lut_head["lut_matmul_fused"], lut_worst["lut_matmul_fused"]),
-            "paged_pool_attention": (att_head, att_worst)}
+    out = {name: (lut_head[name], lut_worst[name]) for name in lut_head}
+    out.update({name: (multi_head[name], multi_worst[name]) for name in multi_head})
+    out["paged_pool_attention"] = (att_head, att_worst)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +550,7 @@ def phase_model_parity(seed: int) -> None:
     clear_margin = 0.12          # 4 x the mean limit of the bf16 variant
     report = []
     for dtype, quantized, n_layers, tol_max, tol_mean in variants:
-        cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=n_layers, dtype=dtype,
-                                  fused_projections=False)
+        cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=n_layers, dtype=dtype)
         model = get_model(cfg)
         params = materialize_clustered(model, torch.Generator().manual_seed(seed),
                                        nbits=4, device="cpu")
@@ -448,22 +612,55 @@ def _drive(engine, prompts, new_tokens):
     return requests
 
 
-def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids):
+def _served_params(arch, seed, n_layers, fused=True):
+    """(model, params): LCD 4-bit weights from `seed` on the card, with the
+    quantized Eq. 11 transform armed."""
+    import dataclasses
+
+    from repro_torch.core.clustered_params import materialize_clustered
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+    model = get_model(dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                          fused_projections=fused))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return model, calibrate(materialize_clustered(model, gen, nbits=4, device="cuda"))
+
+
+def _expected_launches(fused, n_layers, widths):
+    """LUT and attention launches of the engine's steps: per layer 2 multi
+    launches (QKV, gate+up) + 2 solo (wo, w_down) fused, 7 solo unfused."""
+    w32, w1 = widths.get(32, 0), widths.get(1, 0)
+    per = (2, 2) if fused else (0, 7)
+    return {"lut_matmul_fused_multi_gemv": per[0] * n_layers * w1,
+            "lut_matmul_fused_multi": per[0] * n_layers * w32,
+            "lut_matmul_fused_gemv": per[1] * n_layers * w1,
+            "lut_matmul_fused": per[1] * n_layers * w32,
+            "paged_pool_attention": n_layers * (w1 + w32)}
+
+
+def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids,
+           fused=True, params=None, want_tokens=None):
+    """The engine at full width: staggered requests, launch counts per model
+    step, engine-vs-solo token identity for `solo_ids` and, with
+    `want_tokens`, token identity with another configuration's run."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
-    from repro_torch.models.config import get_config
 
     ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
                         max_blocks_per_slot=32, kv_dtype=kv_dtype)
+    if params is None:
+        _, params = _served_params(arch, seed, n_layers, fused)
+    t0 = time.perf_counter()
+    engine, _ = build_engine(arch, use_reduced=False, lcd=True, ecfg=ecfg, seed=seed,
+                             params=params, fused_projections=fused, n_layers=n_layers,
+                             device="cuda")
+    build_s = time.perf_counter() - t0
     kv_smooth = None
-    if kv_dtype == "int8":
-        base = get_config(arch)
-        ones = np.ones((n_layers, base.n_kv_heads, base.hd), np.float32)   # identity: valid
-        kv_smooth = (ones, ones)
-    engine, params = build_engine(
-        arch, use_reduced=False, lcd=True, ecfg=ecfg, seed=seed, kv_smooth=kv_smooth,
-        fused_projections=False, n_layers=n_layers, device="cuda")
-    engine.params = params = calibrate(params)
+    if kv_dtype == "int8":          # calibrated by build_engine, on the card
+        pool = engine.caches["paged"]
+        kv_smooth = (pool["k_smooth"].cpu().numpy(), pool["v_smooth"].cpu().numpy())
+        if all(np.all(v == 1.0) for v in kv_smooth):
+            raise SystemExit(f"{name}: the int8 pool kept identity smoothing vectors")
     cfg = engine.model.cfg
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
@@ -481,17 +678,13 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     widths = dict(engine.traces)
     model_steps = sum(widths.values())
     n_tok = sum(len(r.out_tokens) for r in requests)
-    lut = counts["lut_matmul_fused_gemv"] + counts["lut_matmul_fused"]
+    expected = _expected_launches(fused, n_layers, widths)
     ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
           and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
-          and all(c > 0 for c in counts.values())
-          and lut == 7 * n_layers * model_steps
-          and counts["paged_pool_attention"] == n_layers * model_steps
-          and counts["lut_matmul_fused"] == 7 * n_layers * widths.get(32, 0)
-          and counts["lut_matmul_fused_gemv"] == 7 * n_layers * widths.get(1, 0))
+          and counts == expected and all(c > 0 for c in expected.values() if fused))
 
     # engine-vs-solo token identity: the same request alone, same engine geometry
-    tokens = {r.rid: list(r.out_tokens) for r in requests}
+    tokens = [list(r.out_tokens) for r in requests]
     model = engine.model
     del engine
     solo_same = {}
@@ -501,81 +694,198 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
         solo.run()
         solo_same[rid] = r.out_tokens == tokens[rid]
         del solo
-    emit(name, arch=arch, layers=n_layers, dtype=cfg.dtype, weight_bits=4,
-         kv_dtype=kv_dtype or "float", fused_projections=False, requests=n_requests,
-         new_tokens_each=new_tokens, prompt_lens=[len(p) for p in prompts],
-         model_steps=model_steps, step_widths={str(w): c for w, c in widths.items()},
-         tokens_generated=n_tok, wall_s=round(wall, 3),
-         tokens_per_s=round(n_tok / wall, 2), launches=counts,
-         lut_launches_expected=7 * n_layers * model_steps,
-         solo_redecode_same_tokens=solo_same,
-         preemptions=sum(r.preemptions for r in requests))
+    row = dict(arch=arch, layers=n_layers, dtype=cfg.dtype, weight_bits=4,
+               kv_dtype=kv_dtype or "float", fused_projections=fused, requests=n_requests,
+               new_tokens_each=new_tokens, prompt_lens=[len(p) for p in prompts],
+               model_steps=model_steps, step_widths={str(w): c for w, c in widths.items()},
+               tokens_generated=n_tok, wall_s=round(wall, 3),
+               tokens_per_s=round(n_tok / wall, 2), launches=counts,
+               launches_expected=expected, solo_redecode_same_tokens=solo_same,
+               preemptions=sum(r.preemptions for r in requests),
+               engine_build_s=round(build_s, 3))
+    if want_tokens is not None:
+        row["same_tokens_as_fused"] = tokens == want_tokens
+    emit(name, **row)
     if not ok:
-        raise SystemExit(f"{name}: launch counts or outputs are wrong: {counts}, "
-                         f"model steps {model_steps}")
+        raise SystemExit(f"{name}: launch counts or outputs are wrong: {counts} vs "
+                         f"{expected}, model steps {model_steps}")
     if not all(solo_same.values()):
         raise SystemExit(f"{name}: engine tokens differ from solo decoding: {solo_same}")
-    return counts
+    if want_tokens is not None and tokens != want_tokens:
+        raise SystemExit(f"{name}: tokens differ from the fused configuration's")
+    return counts, tokens
 
 
-def phase_profile(seed: int) -> None:
-    """Where a serving step's time goes: the
-    32-layer engine with all 8 slots busy, a few prefill-width steps and a few
-    decode steps under torch.profiler — wall time per step on the host's clock,
-    the card's busy time, and the kernels that take it."""
+def phase_serve_static(seed: int, params) -> None:
+    """llama2-7b at full width and depth through the static-batch `serve()`:
+    one prefill step at M = 4 x 64 (B4 and B2) and 16 decode steps at M = 4
+    (B3 and B1), 4 LUT launches per layer per step; the same steps again
+    under torch.cuda.set_sync_debug_mode("error"). Then the static step
+    against the paged step on the same prompts: f32, float transform,
+    2 layers, full width."""
+    import dataclasses
+
+    from repro_torch.core.clustered_params import materialize_clustered
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import build_decode_fns, serve
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+
+    batch, prompt_len, gen_tokens, n_layers = 4, 64, 16, 32
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    stats = {}
+    gen, _ = serve("llama2-7b", use_reduced=False, lcd=True, batch=batch,
+                   prompt_len=prompt_len, gen_tokens=gen_tokens, seed=seed, params=params,
+                   stats=stats, device="cuda")
+    counts = launch_counts()
+    steps = 1 + gen_tokens
+    expected = {"lut_matmul_fused_multi": 2 * n_layers, "lut_matmul_fused": 2 * n_layers,
+                "lut_matmul_fused_multi_gemv": 2 * n_layers * gen_tokens,
+                "lut_matmul_fused_gemv": 2 * n_layers * gen_tokens,
+                "paged_pool_attention": 0}
+    vocab = get_config("llama2-7b").vocab
+    ok = (stats["traces"] == {"prefill": 1, "decode": 1} and counts == expected
+          and gen.shape == (batch, gen_tokens) and bool(((gen >= 0) & (gen < vocab)).all()))
+
+    # the same two computations with every host synchronisation an error
+    model = get_model("llama2-7b")
+    prefill, decode, _ = build_decode_fns(model, model.cfg, 2)
+    cache = model.init_cache(batch, prompt_len + 2, device="cuda")
+    prompt = torch.randint(0, vocab, (batch, prompt_len), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, cache = prefill(params, cache, prompt)
+        toks, cache = decode(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del cache
+
+    # static vs paged: same prompts, same params, f32 with the float transform
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2, dtype="float32")
+    model2 = get_model(cfg)
+    p2 = materialize_clustered(model2, torch.Generator(device="cuda").manual_seed(seed + 1),
+                               nbits=4, device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, vocab, (batch, prompt_len)).astype(np.int32))
+    bs, nbw = 16, (prompt_len + 2 + 15) // 16
+    tables = torch.arange(batch * nbw, dtype=torch.int32).reshape(batch, nbw)
+    caches = model2.init_seq_caches(num_blocks=batch * nbw, block_size=bs, num_slots=batch,
+                                    max_seq=nbw * bs, kv_dtype="float", device="cuda")
+    scache = model2.init_cache(batch, prompt_len + 2, device="cuda")
+    lengths = torch.zeros(batch, dtype=torch.int32)
+    feed, diffs = prompts, []
+    for _ in range(3):                                   # the prompt, then 2 tokens
+        n_new = torch.full((batch,), feed.shape[1], dtype=torch.int32)
+        lp, caches = model2.serving_step(p2, caches, *[t.cuda() for t in (feed, lengths, n_new,
+                                                                          tables)])
+        ls, scache = model2.decode(p2, scache, {"tokens": feed.cuda(), "pos": scache["pos"]})
+        diffs.append(float((lp[:, :vocab] - ls[:, :vocab]).abs().max()))
+        lengths = lengths + n_new
+        feed = torch.argmax(ls[:, :vocab], dim=-1)[:, None].to(torch.int32).cpu()
+    torch.cuda.synchronize()
+    parity_ok = max(diffs) <= 1e-3
+    emit("serve_static", arch="llama2-7b", layers=n_layers, batch=batch,
+         prompt_len=prompt_len, gen_tokens=gen_tokens, traces=stats["traces"],
+         model_steps=steps, launches=counts, launches_expected=expected,
+         prefill_s=round(stats["prefill_s"], 3), decode_s=round(stats["decode_s"], 3),
+         tokens_per_s=round(stats["tokens_per_s"], 2), sync_free_steps=True,
+         static_vs_paged=dict(dtype="float32", layers=2, max_abs_logit_diff=diffs,
+                              tol=1e-3))
+    if not ok:
+        raise SystemExit(f"serve_static: traces, launch counts or tokens are wrong: "
+                         f"{stats['traces']}, {counts} vs {expected}")
+    if not parity_ok:
+        raise SystemExit(f"serve_static: static and paged logits differ: {diffs}")
+
+
+def _profile_steps(engine, n_steps, profiled=True):
+    """(wall ms per step with the profiler off, device rows under it when
+    `profiled`, over as many steps run again)."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        engine.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    if not profiled:
+        return wall, None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue          # host-side ops repeat their kernels' device time
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((ev.key, dev / 1e3 / n_steps, ev.count / n_steps))
+    rows.sort(key=lambda r: -r[1])
+    return wall, rows
 
+
+def _profile_row(walls, rows, n_steps):
+    busy = sum(r[1] for r in rows)
+    wall = walls[0]
+    return dict(
+        steps=n_steps, wall_ms_per_step=round(wall, 3),
+        wall_ms_per_step_reads=[round(w, 3) for w in walls],
+        device_busy_ms_per_step=round(busy, 3) if rows else "not measured",
+        device_idle_share=round(1.0 - busy / wall, 3) if rows else "not measured",
+        device_calls_per_step=round(sum(r[2] for r in rows), 1),
+        top_kernels=[dict(name=k[:60], ms_per_step=round(ms, 3), calls_per_step=round(c, 1))
+                     for k, ms, c in rows[:8]])
+
+
+def phase_profile(seed: int, params) -> None:
+    """Where a serving step's time goes: the 32-layer engine with all 8 slots
+    busy, in the default (fused) configuration, a few prefill-width steps and
+    a few decode steps; then decode steps of the fused and the unfused
+    configuration in turns (fused, unfused, unfused, fused) on the same
+    weights — wall time per step on the host's clock, the card's busy time,
+    and the kernels that take it."""
     from repro_torch.launch.engine import EngineConfig, build_engine
 
     ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
                         max_blocks_per_slot=32)
-    engine, params = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
-                                  seed=seed, fused_projections=False, device="cuda")
-    engine.params = calibrate(params)
-    rng = np.random.default_rng(seed)
-    for _ in range(8):
-        engine.submit(rng.integers(0, engine.model.cfg.vocab, 224), max_new_tokens=64)
-    engine.step()                                    # warm: every kernel has run once
+    engines = {}
+    for fused in (True, False):
+        engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                                 seed=seed, params=params, fused_projections=fused,
+                                 device="cuda")
+        rng = np.random.default_rng(seed)
+        for _ in range(8):
+            engine.submit(rng.integers(0, engine.model.cfg.vocab, 224), max_new_tokens=64)
+        engine.step()                                # warm: every kernel has run once
+        engines[fused] = engine
     out = {}
-    for name, n_steps in (("prefill_width_32", 3), ("decode_width_1", 8)):
-        if name == "decode_width_1":
-            while any(r is not None and r.prefilling for r in engine.slots):
-                engine.step()
+    n_pre, n_dec = 3, 8
+    wall, rows = _profile_steps(engines[True], n_pre)
+    out["prefill_width_32"] = _profile_row([wall], rows, n_pre)
+    for engine in engines.values():
+        while any(r is not None and r.prefilling for r in engine.slots):
             engine.step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            engine.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0                  # without the profiler's cost
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_steps):
-                engine.step()
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue          # host-side ops repeat their kernels' device time
-            dev = getattr(ev, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev > 0:
-                rows.append((ev.key, dev / 1e3 / n_steps, ev.count / n_steps))
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        out[name] = dict(
-            steps=n_steps, wall_ms_per_step=round(wall * 1e3 / n_steps, 3),
-            device_busy_ms_per_step=round(busy, 3) if rows else "not measured",
-            device_idle_share=round(1.0 - busy / (wall * 1e3 / n_steps), 3) if rows
-            else "not measured",
-            top_kernels=[dict(name=k[:60], ms_per_step=round(ms, 3), calls_per_step=round(c, 1))
-                         for k, ms, c in rows[:8]])
+        engine.step()
+    reads = {True: [], False: []}
+    profiled = {}
+    for fused in (True, False, False, True):
+        wall, rows = _profile_steps(engines[fused], n_dec, profiled=fused not in profiled)
+        reads[fused].append(wall)
+        profiled.setdefault(fused, rows)
+    out["decode_width_1"] = _profile_row(reads[True], profiled[True], n_dec)
+    out["decode_width_1_unfused"] = _profile_row(reads[False], profiled[False], n_dec)
     emit("profile", arch="llama2-7b", layers=32, slots=8, **out)
 
 
 # ---------------------------------------------------------------------------
 
-ALL_PHASES = ("kernels", "model_parity", "serve", "serve_int8", "serve_gqa", "profile")
+ALL_PHASES = ("kernels", "model_parity", "serve", "serve_unfused", "serve_static",
+              "serve_int8", "serve_gqa", "profile")
 
 
 def main() -> int:
@@ -593,28 +903,55 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     phases = [p for p in args.phases.split(",") if p]
 
-    smi = phase_env()
-    phase_build()
-    checked = phase_kernels(args.seed) if "kernels" in phases else {}
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    t_start = time.perf_counter()
+    smi = timed("env", phase_env)
+    timed("build", phase_build)
+    checked = timed("kernels", phase_kernels, args.seed) if "kernels" in phases else {}
     if "model_parity" in phases:
-        phase_model_parity(args.seed)
-    counts = {}
+        timed("model_parity", phase_model_parity, args.seed)
+    # llama2-7b, full width and depth: one set of weights for every phase below
+    params = None
+    if {"serve", "serve_unfused", "serve_static", "profile"} & set(phases):
+        _, params = timed("weights", _served_params, "llama2-7b", args.seed, 32)
+    counts, tokens = {}, None
     if "serve" in phases:
-        counts = _serve("serve", "llama2-7b", args.seed, 32, 12, 24, None, solo_ids=(0, 11))
+        counts, tokens = timed("serve", _serve, "serve", "llama2-7b", args.seed, 32, 12, 24,
+                               None, solo_ids=(0, 11), params=params)
+    if "serve_unfused" in phases:
+        # the same prompts through per-projection launches: the same tokens
+        timed("serve_unfused", _serve, "serve_unfused", "llama2-7b", args.seed, 32, 12, 24,
+              None, solo_ids=(), fused=False, params=params, want_tokens=tokens)
+    if "serve_static" in phases:
+        timed("serve_static", phase_serve_static, args.seed, params)
     if "serve_int8" in phases:
-        _serve("serve_int8", "llama2-7b", args.seed, 4, 4, 24, "int8", solo_ids=(1, 3))
+        timed("serve_int8", _serve, "serve_int8", "llama2-7b", args.seed, 4, 4, 24, "int8",
+              solo_ids=(1, 3))
     if "serve_gqa" in phases:
         # a second model's shapes: 16 (padded) query heads over 2 kv heads, QKV bias,
         # K = 1536 / 8960, so 256 query rows per (slot, kv head) on a prefill step
-        _serve("serve_gqa", "qwen2-1.5b", args.seed, 4, 4, 24, None, solo_ids=(0, 2))
+        timed("serve_gqa", _serve, "serve_gqa", "qwen2-1.5b", args.seed, 4, 4, 24, None,
+              solo_ids=(0, 2))
     if "profile" in phases:
-        phase_profile(args.seed)
+        timed("profile", phase_profile, args.seed, params)
+    emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1))
 
     meta = {
         "lut_matmul_fused_gemv": ("src/repro_torch/kernels/csrc/lut_gemv.cu",
                                   "src/repro/kernels/lut_matmul.py:404"),
         "lut_matmul_fused": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
                              "src/repro/kernels/lut_matmul.py:334"),
+        "lut_matmul_fused_multi_gemv": ("src/repro_torch/kernels/csrc/lut_multi_gemv.cu",
+                                        "src/repro/kernels/lut_matmul.py:646"),
+        "lut_matmul_fused_multi": ("src/repro_torch/kernels/csrc/lut_multi_gemm.cu",
+                                   "src/repro/kernels/lut_matmul.py:583"),
         "paged_pool_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                  "src/repro/kernels/paged_attention.py:419"),
     }
@@ -628,8 +965,9 @@ def main() -> int:
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
             "library_ms": None,      # no single PyTorch call computes this function
             "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
-            "shape": {k: head[k] for k in ("m", "k", "n", "nbits", "t", "h", "kv", "pool")
-                      if k in head},
+            "solo_sum_ms": head.get("solo_sum_ms"),
+            "shape": {k: head[k] for k in ("group", "m", "k", "n", "widths", "nbits", "t",
+                                           "h", "kv", "pool") if k in head},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     complete = set(phases) >= set(ALL_PHASES)

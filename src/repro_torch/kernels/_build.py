@@ -5,24 +5,28 @@ of them at once, and linked into one shared library with a plain C interface
 under `build/repro_torch_kernels/<hash of the sources>/` at the root of the
 checkout. Nothing happens at import: `library()` builds (or finds) and loads
 it, and the kernel wrappers call it at their first launch. A failed build
-raises with nvcc's output.
+raises with nvcc's output; a good one leaves each source's ptxas report
+(registers, stack frame and spills per kernel) beside the library, which
+`resource_usage()` reads.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "paged_attention.cu")
-HEADERS = ("lut_common.cuh",)
+SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "lut_multi_gemv.cu", "lut_multi_gemm.cu",
+           "paged_attention.cu")
+HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -50,21 +54,23 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds) -> List[str]:
     """Start every command at once, wait for all, raise on the first failure
-    with the compiler's output."""
+    with the compiler's output; returns each command's output."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    failed = None
+    failed, outs = None, []
     for cmd, p in procs:
         out, _ = p.communicate()
+        outs.append(out)
         if p.returncode != 0 and failed is None:
             failed = (cmd, p.returncode, out)
     if failed is not None:
         cmd, rc, out = failed
         raise RuntimeError(
             f"kernel build failed (exit {rc}): {' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build() -> Path:
@@ -79,8 +85,10 @@ def build() -> Path:
     t0 = time.perf_counter()
     out_dir.mkdir(parents=True, exist_ok=True)
     objs = [out_dir / (Path(s).stem + ".o") for s in SOURCES]
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
-              for s, o in zip(SOURCES, objs)])
+    outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                     for s, o in zip(SOURCES, objs)])
+    for o, out in zip(objs, outs):
+        o.with_suffix(".ptxas.txt").write_text(out)
     tmp = out_dir / f".{lib_path.name}.{os.getpid()}"
     _run_all([[nvcc, "-shared", *NVCC_FLAGS, *map(str, objs), "-o", str(tmp)]])
     os.replace(tmp, lib_path)          # atomic: a concurrent reader never sees half a file
@@ -94,6 +102,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         # x, x_is_bf16, inv, packed, cb, y, M, K, N, packed_rows, nbits, quantize, stream
         fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+    for name in ("lut_multi_gemv_launch", "lut_multi_gemm_launch"):
+        fn = getattr(lib, name)
+        # x, x_is_bf16, inv_stack, cb_stack, packed[P] (host array of pointers),
+        # widths[P], nbits[P], quantize[P] (host int arrays), P, y, M, K, stream
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, p]
         fn.restype = i
     fn = lib.paged_attn_launch
     # q, q_is_bf16, k_pool, v_pool, pool_kind, k_scale, v_scale, k_smooth,
@@ -112,6 +126,36 @@ def library() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
     return _lib
+
+
+def resource_usage(build_dir: Optional[Path] = None) -> Dict[str, Dict]:
+    """Per kernel (template instances pooled by kernel name): the range of
+    registers per thread and the largest stack frame and spill bytes, from
+    the ptxas reports of the build in `build_dir` (default: the current
+    sources' build)."""
+    out: Dict[str, Dict] = {}
+    name = None
+    for f in sorted((build_dir or BUILD_ROOT / _source_hash()).glob("*.ptxas.txt")):
+        for line in f.read_text().splitlines():
+            # mangled: ...<length><name>_kernel<template args>
+            m = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)", line)
+            if m:
+                name = m.group(1)
+                continue
+            if name is None:
+                continue
+            k = out.setdefault(name, {"registers": [], "stack_bytes": 0, "spill_bytes": 0})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                stack, st, ld = map(int, m.groups())
+                k["stack_bytes"] = max(k["stack_bytes"], stack)
+                k["spill_bytes"] = max(k["spill_bytes"], st + ld)
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                k["registers"].append(int(m.group(1)))
+    return {n: {**k, "registers": [min(k["registers"]), max(k["registers"])]}
+            for n, k in out.items() if k["registers"]}
 
 
 def check_launch(err: int, name: str) -> None:

@@ -15,125 +15,24 @@
 // order of lut_common.cuh (way by way, two accumulators per output), so each
 // output row carries the same bits the GEMV kernel gives for that row, and
 // the Pallas body's accumulator carried across a sequential K grid becomes a
-// loop inside the block. Ragged M, N and the K tail are masked here.
-#include "lut_common.cuh"
+// loop inside the block. Ragged M, N and the K tail are masked here. The
+// body of a block is `lut::gemm::tile` (lut_gemm.cuh), which the
+// multi-projection kernel (lut_multi_gemm.cu) runs too.
+#include "lut_gemm.cuh"
 
 namespace {
 
 using namespace lut;
-
-constexpr int BM = 128;
-constexpr int BN = 64;
-constexpr int TM = 8;               // rows per thread
-constexpr int TN = 4;               // columns per thread
-constexpr int THREADS = 256;        // 16 x 16 threads
-constexpr int TB = 4;               // k-blocks of one way per shared-memory tile
-constexpr int TK = TB * KB;         // 32 channels per tile
+using namespace lut::gemm;
 
 template <int NBITS, typename XT, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 lut_gemm_kernel(const XT* __restrict__ x, const float* __restrict__ inv,
                 const uint8_t* __restrict__ packed, const float* __restrict__ cb,
                 float* __restrict__ y, int M, int K, int N, int packed_rows) {
-  __shared__ float cb_s[KC];
-  __shared__ __align__(16) float xs[TK][BM];
-  __shared__ __align__(16) float ws[TK][BN];
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int nblk = (K + KB - 1) / KB;
-
-  if (tid < KC) cb_s[tid] = cb[tid];
-
-  float total[TM][TN];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) total[r][c] = 0.0f;
-
-  for (int way = 0; way < WAYS; ++way) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) acc[r][c] = 0.0f;
-
-    for (int b0 = way; b0 < nblk; b0 += TB * WAYS) {
-      __syncthreads();
-      // activation tile: (row, k-block) pairs, 8 contiguous channels each
-#pragma unroll
-      for (int u = 0; u < (BM * TB) / THREADS; ++u) {
-        const int p = tid + THREADS * u;
-        const int row = p % BM;
-        const int i = p / BM;
-        const int b = b0 + i * WAYS;
-        if (b < nblk) {
-#pragma unroll
-          for (int kk = 0; kk < KB; ++kk) {
-            const int k = b * KB + kk;
-            float v = 0.0f;
-            if (k < K && m0 + row < M)
-              v = transform<QUANT>(to_float(x[(int64_t)(m0 + row) * K + k]), inv[k]);
-            xs[i * KB + kk][row] = v;
-          }
-        }
-      }
-      // weight tile: one (k-block, column) pair per thread, decoded through the table
-      {
-        const int col = tid % BN;
-        const int i = tid / BN;
-        const int b = b0 + i * WAYS;
-        if (b < nblk) {
-          uint32_t word = 0;
-          if (n0 + col < N) word = load_word<NBITS>(packed, N, packed_rows, b, n0 + col);
-#pragma unroll
-          for (int kk = 0; kk < KB; ++kk) ws[i * KB + kk][col] = cb_s[code_of<NBITS>(word, kk)];
-        }
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int i = 0; i < TB; ++i) {
-        const int b = b0 + i * WAYS;
-        if (b < nblk) {
-          const int kvalid = min(KB, K - b * KB);
-#pragma unroll
-          for (int kk = 0; kk < KB; ++kk) {
-            if (kk < kvalid) {
-              const int t = i * KB + kk;
-              const float4 xa = *reinterpret_cast<const float4*>(&xs[t][ty * TM]);
-              const float4 xb = *reinterpret_cast<const float4*>(&xs[t][ty * TM + 4]);
-              const float4 wv = *reinterpret_cast<const float4*>(&ws[t][tx * TN]);
-              const float xr[TM] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-              const float wc[TN] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-              for (int r = 0; r < TM; ++r)
-#pragma unroll
-                for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(xr[r], wc[c], acc[r][c]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) total[r][c] += acc[r][c];
-  }
-
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int m = m0 + ty * TM + r;
-    if (m >= M) continue;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int n = n0 + tx * TN + c;
-      if (n < N) y[(int64_t)m * N + n] = total[r][c];
-    }
-  }
+  __shared__ Smem sm;
+  tile<NBITS, XT, QUANT>(x, inv, packed, cb, y, M, K, N, packed_rows, blockIdx.x, blockIdx.y, N,
+                         0, sm);
 }
 
 template <int NBITS, typename XT>

@@ -1,10 +1,14 @@
 """Fused sub-byte-code dequant + matmul — the LCD serving GEMM, for Hopper.
 
-Two entry points, the counterparts of the JAX package's Pallas kernels of the
-same names:
+Four entry points, the counterparts of the JAX package's Pallas kernels of
+the same names:
 
-  lut_matmul_fused      — Y = T(x) @ codebook[codes], any M (used for M >= 128);
-  lut_matmul_fused_gemv — the same contraction for decode, M < 128.
+  lut_matmul_fused            — Y = T(x) @ codebook[codes], any M (used for
+                                M >= 128);
+  lut_matmul_fused_gemv       — the same contraction for decode, M < 128;
+  lut_matmul_fused_multi      — P projections sharing x (QKV; gate+up), their
+                                outputs concatenated along N, in one launch;
+  lut_matmul_fused_multi_gemv — the same for decode, M < 128.
 
 T is the Eq. 11 input transform: x · inv_scale, and when `quantize`
 clip(round(·), ±127) with round-half-to-even. The caller applies the trailing
@@ -12,18 +16,23 @@ s_q rescale. Weights arrive as packed centroid codes at `nbits` in {2, 3, 4}
 per code (core/lut.py layout); the codebook is padded to KC entries.
 
 On a CUDA tensor a wrapper launches its kernel (kernels/csrc/lut_gemv.cu,
-lut_gemm.cu) on the current stream and counts the launch; on a CPU tensor it
-runs the plain version (kernels/ref.py). The kernels take the true M and N and
-mask ragged edges themselves; K must be the packing-group-padded d_in. Both
-sum over K in one fixed order, so a row's result is the same bits from either.
+lut_gemm.cu, lut_multi_gemv.cu, lut_multi_gemm.cu) on the current stream and
+counts the launch; on a CPU tensor it runs the plain version (kernels/ref.py).
+The kernels take the true M and N and mask ragged edges themselves; K must be
+the packing-group-padded d_in. All four sum over K in one fixed order, so a
+row's result is the same bits from any of them, and a projection's segment of
+a multi launch the same bits as its solo launch.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import lut_matmul_fused_ref
+from repro_torch.kernels.ref import (lut_matmul_fused_multi_ref,
+                                     lut_matmul_fused_ref)
 
 # Codebook capacity the kernels are specialized for: <= 4-bit codes. Codebooks
 # are always padded to KC entries; an nbits-wide tensor references the first
@@ -31,7 +40,12 @@ from repro_torch.kernels.ref import lut_matmul_fused_ref
 KC = 16
 
 # launches of each kernel since the last reset (plain ints; see kernels/ops.py)
-LAUNCHES = {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0}
+LAUNCHES = {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
+            "lut_matmul_fused_multi_gemv": 0, "lut_matmul_fused_multi": 0}
+
+# projections one multi launch takes (the kernels' descriptor capacity,
+# csrc/lut_common.cuh MAX_PROJ)
+MAX_PROJ = 8
 
 
 def _check_packed_shape(k: int, packed_shape, nbits: int, caller: str) -> None:
@@ -137,3 +151,116 @@ def lut_matmul_fused_gemv(
                                     quantize=quantize, nbits=nbits)
     return _launch("lut_matmul_fused_gemv", "lut_gemv_launch", x, inv_scale,
                    packed_codes, codebook, quantize, nbits)
+
+
+# ---------------------------------------------------------------------------
+# Multi-projection kernels (QKV, gate+up share one input)
+# ---------------------------------------------------------------------------
+
+def _check_multi(x, inv_stack, cb_stack, packed_list, quantize, nbits, caller):
+    """The reference's `_check_multi` errors, without its tile-width ones
+    (the kernels take the true widths), plus the operand checks of the solo
+    wrappers and the descriptor capacity."""
+    if x.ndim != 2:
+        raise ValueError(f"{caller}: x must be 2-D; got {tuple(x.shape)}")
+    m, k = x.shape
+    n_proj = len(packed_list)
+    widths = tuple(int(pk.shape[1]) if pk.ndim == 2 else -1 for pk in packed_list)
+    if not (len(quantize) == len(nbits) == n_proj > 0):
+        raise ValueError(
+            f"{caller}: {n_proj} packed operands but widths={widths}, "
+            f"quantize={quantize}, nbits={nbits}")
+    if n_proj > MAX_PROJ:
+        raise ValueError(
+            f"{caller}: {n_proj} projections; one launch takes at most "
+            f"{MAX_PROJ}")
+    if tuple(inv_stack.shape) != (n_proj, k):
+        raise ValueError(f"{caller}: inv_stack must be ({n_proj}, {k}); got "
+                         f"{tuple(inv_stack.shape)}")
+    if tuple(cb_stack.shape) != (n_proj, KC):
+        raise ValueError(f"{caller}: cb_stack must be ({n_proj}, {KC}); got "
+                         f"{tuple(cb_stack.shape)}")
+    for p, pk in enumerate(packed_list):
+        if pk.ndim != 2:
+            raise ValueError(f"{caller}: projection {p} packed codes must be "
+                             f"2-D; got {tuple(pk.shape)}")
+        _check_packed_shape(k, pk.shape, nbits[p], caller)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{caller}: x must be float32 or bfloat16; got {x.dtype}")
+    for name, t in (("inv_stack", inv_stack), ("cb_stack", cb_stack)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{caller}: {name} must be float32; got {t.dtype}")
+    tensors = [("x", x), ("inv_stack", inv_stack), ("cb_stack", cb_stack)]
+    for p, pk in enumerate(packed_list):
+        if pk.dtype != torch.uint8:
+            raise TypeError(f"{caller}: packed codes of projection {p} must be "
+                            f"uint8; got {pk.dtype}")
+        tensors.append((f"packed codes of projection {p}", pk))
+    for name, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{caller}: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{caller}: {name} must be contiguous; got strides "
+                             f"{t.stride()} for shape {tuple(t.shape)}")
+
+
+def _multi(name, c_name, x, inv_stack, cb_stack, packed_list, quantize, nbits):
+    """Check, then the plain version (CPU tensors) or the kernel (CUDA)."""
+    quantize, nbits = tuple(quantize), tuple(nbits)
+    _check_multi(x, inv_stack, cb_stack, packed_list, quantize, nbits, name)
+    if x.device.type != "cuda":
+        return torch.cat(lut_matmul_fused_multi_ref(
+            x, inv_stack, packed_list, cb_stack, [1.0] * len(packed_list),
+            quantize=quantize, nbits=nbits), dim=1)
+    m, k = x.shape
+    n_proj = len(packed_list)
+    widths = [int(pk.shape[1]) for pk in packed_list]
+    y = torch.empty((m, sum(widths)), dtype=torch.float32, device=x.device)
+
+    def ints(v):
+        return (ctypes.c_int * n_proj)(*v)
+
+    fn = getattr(_build.library(), c_name)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 inv_stack.data_ptr(), cb_stack.data_ptr(),
+                 (ctypes.c_void_p * n_proj)(*[pk.data_ptr() for pk in packed_list]),
+                 ints(widths), ints(nbits), ints([int(bool(q)) for q in quantize]),
+                 n_proj, y.data_ptr(), m, k,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, name)
+    LAUNCHES[name] += 1
+    return y
+
+
+def lut_matmul_fused_multi(
+    x: torch.Tensor,            # (M, K) RAW activations shared by all projections
+    inv_stack: torch.Tensor,    # (P, K) f32 — per-projection Eq. 11 multipliers
+    cb_stack: torch.Tensor,     # (P, KC) f32 — per-projection padded codebooks
+    *packed_list: torch.Tensor, # P × (K*nbits_p//8, n_p) uint8
+    quantize: tuple,            # per-projection Eq. 11 quantize flag
+    nbits: tuple,               # per-projection packing width
+) -> torch.Tensor:
+    """Y = concat_p(transform_p(x) @ codebook_p[codes_p]) in ONE launch,
+    (M, sum n_p) f32 at the true widths; projection p's columns are the same
+    bits as `lut_matmul_fused` on its operands. The caller splits the
+    segments and applies each projection's s_q."""
+    return _multi("lut_matmul_fused_multi", "lut_multi_gemm_launch", x,
+                  inv_stack, cb_stack, packed_list, quantize, nbits)
+
+
+def lut_matmul_fused_multi_gemv(
+    x: torch.Tensor,            # (M, K), M < 128 (decode micro-batch)
+    inv_stack: torch.Tensor,    # (P, K) f32
+    cb_stack: torch.Tensor,     # (P, KC) f32
+    *packed_list: torch.Tensor, # P × (K*nbits_p//8, n_p) uint8
+    quantize: tuple,
+    nbits: tuple,
+) -> torch.Tensor:
+    """Decode form of `lut_matmul_fused_multi`: projection p's columns are the
+    same bits as `lut_matmul_fused_gemv` on its operands."""
+    if x.ndim == 2 and x.shape[0] >= 128:
+        raise ValueError(
+            f"lut_matmul_fused_multi_gemv: M ({x.shape[0]}) must be < 128")
+    return _multi("lut_matmul_fused_multi_gemv", "lut_multi_gemv_launch", x,
+                  inv_stack, cb_stack, packed_list, quantize, nbits)

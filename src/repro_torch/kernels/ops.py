@@ -1,15 +1,15 @@
 """Model-facing wrappers around the LUT kernels: operand preparation, variant
 selection, and the launch counters.
 
-`clustered_linear(x, ct)` is the serving-path entry the models call. It runs
-the fused smooth(+quant)+LUT contraction streaming the tensor's packed codes:
-the CUDA kernels for CUDA tensors, their plain versions for CPU tensors (the
-choice is made by where the tensor lies, in the kernel wrappers, and nowhere
-else).
+`clustered_linear(x, ct)` and `clustered_linear_multi(x, cts)` are the
+serving-path entries the models call. They run the fused smooth(+quant)+LUT
+contraction streaming the tensors' packed codes: the CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors (the choice is made by where the
+tensor lies, in the kernel wrappers, and nowhere else).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +19,9 @@ from repro_torch.core.lut import packed_rows, padded_d_in
 from repro_torch.kernels import lut_matmul as _lm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels.lut_matmul import (KC, lut_matmul_fused,
-                                            lut_matmul_fused_gemv)
+                                            lut_matmul_fused_gemv,
+                                            lut_matmul_fused_multi,
+                                            lut_matmul_fused_multi_gemv)
 
 GEMV_MAX_M = 128   # M < 128 goes to the GEMV kernel, else to the GEMM kernel
 
@@ -131,3 +133,63 @@ def clustered_linear(x: torch.Tensor, ct: ClusteredTensor) -> torch.Tensor:
     y = lut_gemm_fused(x2, inv, packed_view(ct), ct.codebook, act,
                        quantize=quantize, nbits=ct.nbits)
     return y.reshape(*lead, -1).to(x.dtype)
+
+
+def lut_gemm_fused_multi(
+    x: torch.Tensor,            # (M, K) RAW activations shared by P projections
+    inv_stack: torch.Tensor,    # (P, K) f32 — per-projection Eq. 11 multipliers
+    cb_stack: torch.Tensor,     # (P, KC) f32 — padded codebooks
+    act_stack: Sequence,        # P scalars s_q (1.0 where unused)
+    *packed_list: torch.Tensor, # P × (packed_rows(K, nbits_p), n_p) uint8
+    quantize: Tuple[bool, ...],
+    nbits: Tuple[int, ...],
+) -> Tuple[torch.Tensor, ...]:
+    """Single-launch multi-projection serving GEMM: every projection's
+    smooth(+quant) and LUT contraction in ONE kernel over the shared input.
+    Returns P (M, n_p) outputs, each the same bits as `lut_gemm_fused` on that
+    projection's operands: the kernels sum K in one order whatever the tile
+    widths, so, unlike the JAX package, no width-agreement rule applies.
+
+    K pads to the widest packing group of the set; a projection whose packed
+    codes cover fewer rows (a 4-bit one beside a 3-bit one, K not a multiple
+    of 8) gets zero-code rows, which meet zero activations."""
+    m, k = x.shape
+    kc = max(padded_d_in(k, nb) for nb in nbits)
+    inv_stack = inv_stack.to(torch.float32)
+    if kc != k:
+        x = F.pad(x, (0, kc - k))
+        inv_stack = F.pad(inv_stack, (0, kc - k))
+    packed_list = [
+        pk if pk.shape[0] == kc * nb // 8 else F.pad(pk, (0, 0, 0, kc * nb // 8 - pk.shape[0]))
+        for pk, nb in zip(packed_list, nbits)]
+    kern = lut_matmul_fused_multi_gemv if m < GEMV_MAX_M else lut_matmul_fused_multi
+    y = kern(x.contiguous(), inv_stack.contiguous(), cb_stack.contiguous(),
+             *packed_list, quantize=tuple(quantize), nbits=tuple(nbits))
+    outs, off = [], 0
+    for pk, act, qz in zip(packed_list, act_stack, quantize):
+        seg = y[:, off:off + pk.shape[1]]
+        outs.append(seg * act if qz else seg)
+        off += pk.shape[1]
+    return tuple(outs)
+
+
+def clustered_linear_multi(x: torch.Tensor, cts) -> Tuple[torch.Tensor, ...]:
+    """Model-facing MULTI-projection clustered matmul: P projections sharing
+    the input x (QKV; gate+up) served by ONE kernel launch. Returns a tuple of
+    P outputs, each the same bits as `clustered_linear(x, ct)`; per-projection
+    nbits and quantize flags may differ.
+
+    A single projection, or a stacked (expert) codebook, goes through
+    per-projection `clustered_linear` calls."""
+    cts = tuple(cts)
+    if len(cts) < 2 or any(ct.codebook.ndim != 1 for ct in cts):
+        return tuple(clustered_linear(x, ct) for ct in cts)
+    params = [_transform_params(ct) for ct in cts]
+    lead = x.shape[:-1]
+    ys = lut_gemm_fused_multi(
+        x.reshape(-1, x.shape[-1]), torch.stack([inv for inv, _, _ in params]),
+        torch.stack([pad_codebook(ct.codebook) for ct in cts]),
+        [act for _, act, _ in params], *[packed_view(ct) for ct in cts],
+        quantize=tuple(qz for _, _, qz in params),
+        nbits=tuple(ct.nbits for ct in cts))
+    return tuple(y.reshape(*lead, -1).to(x.dtype) for y in ys)

@@ -37,6 +37,28 @@ def lut_matmul_fused_ref(
     return lut_matmul_dequant_ref(q, codes, codebook, act_scale)
 
 
+def lut_matmul_fused_multi_ref(
+    x: torch.Tensor,            # (M, K) raw activations shared by all projections
+    inv_list,                   # P × (K,) f32
+    packed_list,                # P × (K*nbits_p//8, N_p) uint8
+    cb_list,                    # P × (K_active,) f32
+    act_list,                   # P × scalar s_q
+    *,
+    quantize,                   # P × bool
+    nbits,                      # P × int
+):
+    """The fused multi-projection GEMM: each projection is the single-
+    projection plain version on the shared input — fusion is a scheduling
+    transform, so the definition does not change, and a projection's result
+    is the same bits as its `lut_matmul_fused_ref` call. Returns a list of P
+    (M, N_p) outputs."""
+    return [
+        lut_matmul_fused_ref(x, inv_list[p], packed_list[p], cb_list[p],
+                             act_list[p], quantize=quantize[p], nbits=nbits[p])
+        for p in range(len(packed_list))
+    ]
+
+
 def _masked_paged_softmax(q, k, v, lengths, n_new, window: int, softcap: float):
     """Masked softmax attention over per-slot ragged logical KV views:
     q (S,T,H,D) float; k/v (S,L,KV,D) float. `window` is a Python int."""

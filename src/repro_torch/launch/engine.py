@@ -1,38 +1,53 @@
-"""LCD continuous-batching serving engine with a paged KV cache.
+"""LCD serving engines: the static-batch path and the continuous-batching
+engine with a paged KV cache.
 
-`launch/serve.py` is the CLI; this module is the importable API.
+`launch/serve.py` is the CLI over both; this module is the importable API.
 
-Real traffic is requests with different prompt lengths, arrival times and
-completion times. The engine holds a fixed number of request SLOTS and a pool
-of fixed-size KV BLOCKS:
+Static batch (`serve`, `build_decode_fns`)
+    One batch of identical-length prompts starts and finishes together: one
+    batched prefill step over the prompts, then a Python loop of one-token
+    decode steps over a contiguous (L, B, S, KV, D) cache updated in place,
+    the greedy token chosen on the device and all tokens downloaded once at
+    the end. The JAX package compiles exactly two computations (prefill and a
+    scanned decode); the port runs eagerly and counts the step shapes it ran
+    in the same `traces` dict, {"prefill": 1, "decode": 1} per generation.
 
-  * a free-list `BlockAllocator` hands blocks to slots on demand, so a
-    finishing short request frees exactly its blocks for a queued long one;
-  * each scheduler `step()` packs prefilling slots (a prompt chunk), decoding
-    slots (one token) and idle slots (nothing) into ONE model step — per-slot
-    position/length/activity are data, not shapes;
-  * the step therefore comes in exactly TWO shapes: token-window width
-    `prefill_chunk` (any slot prefilling) and width 1 (pure decode).
-    `assert_bounded_traces()` enforces the contract on the set of widths the
-    engine has actually run; per-slot math is independent, so engine output
-    equals a single-request run.
+Continuous batching (`ServingEngine`)
+    Real traffic is requests with different prompt lengths, arrival times and
+    completion times. The engine holds a fixed number of request SLOTS and a
+    pool of fixed-size KV BLOCKS:
 
-Out-of-block pressure is resolved by recompute preemption: the youngest
-running request is evicted back to the queue (its blocks freed) and later
-re-prefills its prompt plus the tokens it had already generated.
+      * a free-list `BlockAllocator` hands blocks to slots on demand, so a
+        finishing short request frees exactly its blocks for a queued long one;
+      * each scheduler `step()` packs prefilling slots (a prompt chunk),
+        decoding slots (one token) and idle slots (nothing) into ONE model
+        step — per-slot position/length/activity are data, not shapes;
+      * the step therefore comes in exactly TWO shapes: token-window width
+        `prefill_chunk` (any slot prefilling) and width 1 (pure decode).
+        `assert_bounded_traces()` enforces the contract on the set of widths
+        the engine has actually run; per-slot math is independent, so engine
+        output equals a single-request run.
 
-The block pool stores either the model dtype (`EngineConfig.kv_dtype =
-"float"`) or smoothed int8 codes with per-(block-slot, kv-head) scale pools
-("int8"). The default (None) follows the model's cfg.kv_cache_dtype.
+    Out-of-block pressure is resolved by recompute preemption: the youngest
+    running request is evicted back to the queue (its blocks freed) and later
+    re-prefills its prompt plus the tokens it had already generated.
 
-One step is one upload (tokens, lengths, n_new and block tables in a single
-int32 buffer) and one download (the next token of every slot); nothing else
-crosses between host and device inside `step` or inside the layer loop.
+    The block pool stores either the model dtype (`EngineConfig.kv_dtype =
+    "float"`) or smoothed int8 codes with per-(block-slot, kv-head) scale
+    pools ("int8"), the smoothing vectors calibrated by `calibrate_kv_smooth`
+    through the static path. The default (None) follows the model's
+    cfg.kv_cache_dtype.
+
+    One step is one upload (tokens, lengths, n_new and block tables in a
+    single int32 buffer) and one download (the next token of every slot);
+    nothing else crosses between host and device inside `step` or inside the
+    layer loop.
 
 Not ported yet, and refused with NotImplementedError naming the knob:
 speculative self-drafting, the prefix cache with copy-on-write, the priority
-scheduler, chunked-prefill admission, serving meshes, and every model family
-but the dense transformer.
+scheduler, chunked-prefill admission, serving meshes, compressing real weights
+(`compress_model`, so `bits_budget` too), and every model family but the dense
+transformer.
 """
 from __future__ import annotations
 
@@ -51,6 +66,139 @@ from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
                                          CAP_PREFIX_CACHE, CAP_SPECULATIVE,
                                          Model, arch_capabilities, get_model)
 from repro_torch.utils import cdiv, human_bytes, logger, resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Static-batch path: one prefill step + a loop of decode steps
+# ---------------------------------------------------------------------------
+
+def build_decode_fns(model, cfg, gen_tokens: int):
+    """(prefill_fn, decode_fn, traces): the static path's two computations.
+
+    prefill(params, cache, prompt (B, P) int32) -> (first token (B, 1) int32,
+    cache); decode(params, cache, first_tok) -> (tokens (B, gen_tokens) int32
+    on the device, cache), the first column being `first_tok`. Nothing is
+    read back to the host inside either. `traces` counts the distinct input
+    shapes each has run, the eager counterpart of the JAX package's trace
+    counts: {"prefill": 1, "decode": 1} after a generation."""
+    traces = {"prefill": 0, "decode": 0}
+    shapes = {"prefill": set(), "decode": set()}
+
+    def count(name, shape):
+        shapes[name].add(tuple(shape))
+        traces[name] = len(shapes[name])
+
+    def greedy(logits):
+        return torch.argmax(logits[..., :cfg.vocab], dim=-1)[:, None].to(torch.int32)
+
+    @torch.no_grad()
+    def prefill(params, cache, prompt):
+        count("prefill", prompt.shape)
+        logits, cache = model.decode(params, cache, {"tokens": prompt, "pos": 0})
+        return greedy(logits), cache
+
+    @torch.no_grad()
+    def decode(params, cache, first_tok):
+        count("decode", first_tok.shape)
+        tok, toks = first_tok, []
+        for _ in range(gen_tokens):
+            logits, cache = model.decode(params, cache,
+                                         {"tokens": tok, "pos": cache["pos"]})
+            toks.append(tok[:, 0])
+            tok = greedy(logits)
+        return torch.stack(toks, dim=1), cache
+
+    return prefill, decode, traces
+
+
+def _model_and_params(arch, *, use_reduced, n_layers, fused_projections, lcd,
+                      weight_bits, seed, params, dev, caller):
+    """(model, params) for an entry point. Without `params`, dense weights are
+    drawn from `seed`; with `lcd=True`, random-but-valid clustered weights at
+    `weight_bits` instead (compressing real weights needs the compression
+    pipeline, which is not ported yet), with a log line saying so."""
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg, dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.fused_projections != fused_projections:
+        # --no-fused-projections: per-projection LUT launches; the same bits
+        cfg = dataclasses.replace(cfg, fused_projections=fused_projections)
+    model = get_model(cfg)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if lcd:
+            from repro_torch.core.clustered_params import materialize_clustered
+            params = materialize_clustered(model, gen, nbits=weight_bits, device=dev)
+            logger.info(
+                f"LCD: compress_model is not ported yet — serving "
+                f"random-but-valid {weight_bits}-bit clustered params "
+                f"(materialize_clustered, seed {seed})")
+        else:
+            params = model.init(gen, device=dev)
+    elif lcd and not _has_clustered(params):
+        raise NotImplementedError(
+            f"{caller}(lcd=True, params=<dense>): compress_model is not "
+            f"ported yet; pass clustered params")
+    return model, params
+
+
+def serve(arch: str, *, use_reduced: bool = True, lcd: bool = False,
+          target_centroids: int = 8, batch: int = 4, prompt_len: int = 16,
+          gen_tokens: int = 32, seed: int = 0, params=None, greedy=True,
+          stats: Optional[Dict[str, Any]] = None, weight_bits: int = 4,
+          bits_budget: Optional[float] = None,
+          fused_projections: bool = True, device="cuda"):
+    """Static-batch generation: `gen_tokens` per sequence for one batch of
+    random prompts of `prompt_len` tokens (from `seed`); returns (tokens
+    (B, gen) numpy, params).
+
+    The JAX package's signature: `target_centroids` and `bits_budget` belong
+    to its compression pipeline, which is not ported — materialized weights
+    use all 2^weight_bits centroids and `bits_budget` raises. Decoding is
+    greedy. Pass a dict as `stats` to receive timing and trace telemetry.
+    `device` is "cuda" unless the caller asks for the CPU. For staggered
+    multi-request traffic use `ServingEngine` instead."""
+    if bits_budget is not None:
+        raise NotImplementedError(
+            "serve(bits_budget=...): per-layer mixed precision comes from "
+            "compress_model, which is not ported yet")
+    dev = resolve_device(device)
+    model, params = _model_and_params(
+        arch, use_reduced=use_reduced, n_layers=None,
+        fused_projections=fused_projections, lcd=lcd, weight_bits=weight_bits,
+        seed=seed, params=params, dev=dev, caller="serve")
+    cfg = model.cfg
+    cache = model.init_cache(batch, prompt_len + gen_tokens, device=dev)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)
+    prefill, decode, traces = build_decode_fns(model, cfg, gen_tokens)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    first_tok, cache = prefill(params, cache, prompt)
+    sync()
+    t1 = time.perf_counter()
+    gen, cache = decode(params, cache, first_tok)
+    gen = gen.cpu().numpy()
+    t2 = time.perf_counter()
+
+    dt = t2 - t0
+    tok_s = gen.shape[1] * batch / max(t2 - t1, 1e-9)
+    logger.info(f"{arch}{' +LCD' if lcd else ''} on {dev}: generated "
+                f"{gen.shape[1]} tokens x {batch} seqs in {dt:.2f}s "
+                f"(prefill {t1 - t0:.2f}s, decode {t2 - t1:.2f}s, "
+                f"{tok_s:.1f} tok/s) — traces: {traces}")
+    if stats is not None:
+        stats.update(tokens_per_s=tok_s, prefill_s=t1 - t0, decode_s=t2 - t1,
+                     total_s=dt, traces=dict(traces),
+                     gen_tokens=int(gen.shape[1]), batch=batch)
+    return gen, params
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +833,91 @@ class ServingEngine:
 
 
 # ---------------------------------------------------------------------------
+# int8 KV cache: smoothing calibration + capacity accounting
+# ---------------------------------------------------------------------------
+
+def calibrate_kv_smooth(model: Model, params, *, n_tokens: int = 64,
+                        batch: int = 4, seed: int = 0):
+    """Per-(layer, kv-head, channel) smoothing vectors for the int8 paged KV
+    cache, picked from the paper's Eq. 9 candidate family
+    (core/smoothing.py candidate_vectors: identity, scalar strengths,
+    SmoothQuant-style alpha vectors). Candidates are scored under the
+    DEPLOYMENT quantizer — per-(token, kv-head) absmax int8, `models/layers.py
+    quantize_kv` — so the winner is the winner at serving time (identity is
+    in the family, so calibration never hurts).
+
+    A prefill of random tokens through the static path, on the device the
+    params live on, captures every layer's K and V (the (L, B, S, KV, D)
+    cache is the capture). Returns (k_smooth, v_smooth), both (L, KV, D)
+    float32 numpy — pass as `ServingEngine(..., kv_smooth=...)`."""
+    from repro_torch.core.smoothing import candidate_vectors
+    cfg = model.cfg
+    dev = params["embed"].device
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, n_tokens)).astype(np.int32)).to(dev)
+    cache = model.init_cache(batch, n_tokens, device=dev)
+    _, cache = model.decode(params, cache, {"tokens": tokens, "pos": 0})
+
+    def roundtrip_mse(x: np.ndarray, s: np.ndarray) -> float:
+        xs = x / s                                     # (n_tokens, D)
+        scale = np.maximum(np.abs(xs).max(axis=1, keepdims=True), 1e-6) / 127.0
+        q = np.clip(np.round(xs / scale), -127, 127)
+        return float(np.mean((q * scale * s - x) ** 2))
+
+    def smooth_of(key: str) -> np.ndarray:
+        kv = cache[key].to(torch.float32)              # (L, B, S, KV, D)
+        if cache[key].dtype == torch.int8:             # int8 static cache
+            kv = kv * cache[key + "_scale"][..., None]
+        kv = kv.cpu().numpy()
+        n_l, _, _, n_kv, d = kv.shape
+        out = np.ones((n_l, n_kv, d), np.float32)
+        for li in range(n_l):
+            for h in range(n_kv):
+                x = kv[li, :, :, h].reshape(-1, d)
+                cands = candidate_vectors(np.abs(x).max(axis=0))
+                out[li, h] = min(
+                    (s for _, s in cands), key=lambda s: roundtrip_mse(x, s))
+        return out
+
+    return smooth_of("k"), smooth_of("v")
+
+
+def paged_kv_bytes_per_block(cfg, block_size: int, kv_dtype: str) -> int:
+    """Device bytes ONE physical block costs across all layers: the k + v
+    pools, plus the two scale pools for int8. The (L, KV, D) smoothing
+    vectors are per engine, not per block, and are excluded."""
+    elems = cfg.n_layers * block_size * cfg.n_kv_heads * cfg.hd
+    if kv_dtype == "int8":
+        scales = cfg.n_layers * block_size * cfg.n_kv_heads * 4
+        return 2 * (elems + scales)
+    return 2 * elems * cfg.torch_dtype.itemsize
+
+
+def kv_capacity_report(cfg, ecfg: EngineConfig,
+                       tokens_per_request: int) -> Dict[str, Any]:
+    """The admission arithmetic of the kv-dtype choice: at a FIXED pool byte
+    budget (what this geometry's float pool costs), how many blocks each kv
+    dtype buys and how many requests of `tokens_per_request` tokens are
+    admissible concurrently."""
+    budget = ecfg.num_blocks * paged_kv_bytes_per_block(
+        cfg, ecfg.block_size, "float")
+    bpr = -(-tokens_per_request // ecfg.block_size)
+    out: Dict[str, Any] = {"pool_bytes_budget": budget,
+                           "tokens_per_request": tokens_per_request}
+    for dt in ("float", "int8"):
+        bb = paged_kv_bytes_per_block(cfg, ecfg.block_size, dt)
+        blocks = budget // bb
+        out[dt] = {"bytes_per_block": bb, "blocks_in_budget": int(blocks),
+                   "blocks_per_request": bpr,
+                   "max_admissible_slots": int(blocks // bpr)}
+    out["slots_ratio_int8_vs_float"] = round(
+        out["int8"]["max_admissible_slots"]
+        / max(out["float"]["max_admissible_slots"], 1), 2)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Convenience constructor shared by the CLI, the smoke script and the tests
 # ---------------------------------------------------------------------------
 
@@ -709,47 +942,27 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
     materialized at `ecfg.weight_bits` (core/clustered_params.py
     materialize_clustered — compressing real weights needs the compression
     pipeline, which is not ported yet) and a log line says so. With
-    `ecfg.kv_dtype == "int8"` the smoothing vectors must be passed as
-    `kv_smooth` (identity vectors are valid); calibrating them here is not
-    ported yet. `n_layers` cuts the model's depth (widths stay)."""
+    `ecfg.kv_dtype == "int8"` and no `kv_smooth`, the cache smoothing vectors
+    are calibrated here (`calibrate_kv_smooth`). `n_layers` cuts the model's
+    depth (widths stay)."""
     dev = resolve_device(device)
     ecfg = EngineConfig() if ecfg is None else ecfg
     if ecfg.arch is None:
         # bind the config to the arch so capability-dependent knobs fail
         # eagerly with the capability named
         ecfg = dataclasses.replace(ecfg, arch=arch)
-    cfg = get_config(arch)
-    if use_reduced:
-        cfg = reduced(cfg, dtype="float32")
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    if cfg.fused_projections != fused_projections:
-        cfg = dataclasses.replace(cfg, fused_projections=fused_projections)
-    model = get_model(cfg)
-    _refuse_unported(ecfg, model)
+    _refuse_unported(ecfg, get_model(arch))
+    model, params = _model_and_params(
+        arch, use_reduced=use_reduced, n_layers=n_layers,
+        fused_projections=fused_projections, lcd=lcd,
+        weight_bits=ecfg.weight_bits, seed=seed, params=params, dev=dev,
+        caller="build_engine")
     resolved_kv = ecfg.kv_dtype or (
-        "int8" if cfg.kv_cache_dtype == "int8" else "float")
-    if resolved_kv == "int8" and kv_smooth is None:
-        raise NotImplementedError(
-            "build_engine(kv_dtype='int8') without kv_smooth: "
-            "calibrate_kv_smooth is not ported yet; pass kv_smooth="
-            "(k_smooth, v_smooth), each (n_layers, n_kv_heads, head_dim) — "
-            "identity vectors are valid")
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if lcd:
-            from repro_torch.core.clustered_params import materialize_clustered
-            params = materialize_clustered(model, gen, nbits=ecfg.weight_bits,
-                                           device=dev)
-            logger.info(
-                f"LCD: compress_model is not ported yet — serving "
-                f"random-but-valid {ecfg.weight_bits}-bit clustered params "
-                f"(materialize_clustered, seed {seed})")
-        else:
-            params = model.init(gen, device=dev)
-    elif lcd and not _has_clustered(params):
-        raise NotImplementedError(
-            "build_engine(lcd=True, params=<dense>): compress_model is not "
-            "ported yet; pass clustered params")
+        "int8" if model.cfg.kv_cache_dtype == "int8" else "float")
+    if (resolved_kv == "int8" and kv_smooth is None
+            and model.supports(CAP_INT8_KV)):
+        kv_smooth = calibrate_kv_smooth(model, params, seed=seed)
+        logger.info("int8 KV cache: smoothing calibrated "
+                    "(Eq. 9 candidate search per layer x kv-head)")
     engine = ServingEngine(model, params, ecfg, kv_smooth=kv_smooth, device=dev)
     return engine, params

@@ -1,18 +1,23 @@
 """Serving CLI — a thin command-line front-end over `repro_torch.launch.engine`.
 
-Continuous batching (staggered requests, paged KV cache), on the GPU:
+Static batch (one batch of prompts starts and finishes together), on the GPU:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
-        --continuous --no-fused-projections --requests 6 --tokens 16
+        --batch 4 --prompt-len 64 --tokens 16
 
-and at toy size on the CPU:
+Continuous batching (staggered requests, paged KV cache):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
+        --continuous --requests 6 --tokens 16
+
+and at toy size on the CPU (`--device cpu`; add `--kv-dtype int8` for the
+int8 block pool, whose smoothing vectors are calibrated at start-up):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
-        --reduced --lcd --continuous --no-fused-projections --device cpu
+        --reduced --lcd --continuous --device cpu
 
 All engine logic lives in `repro_torch.launch.engine`; this module only parses
-flags and reports. The static-batch mode of the JAX package's CLI is not
-ported yet: `--continuous` is required.
+flags and reports.
 """
 from __future__ import annotations
 
@@ -24,11 +29,21 @@ import numpy as np
 import torch
 
 from repro_torch.launch.engine import (BlockAllocator, EngineConfig, Request,
-                                       ServingEngine, build_engine)
+                                       ServingEngine, build_decode_fns,
+                                       build_engine, serve)
 from repro_torch.utils import logger, resolve_device
 
 __all__ = ["BlockAllocator", "EngineConfig", "Request", "ServingEngine",
-           "build_engine", "main"]
+           "build_decode_fns", "build_engine", "serve", "main"]
+
+
+def _build_kernels(device) -> None:
+    """Build (or find) the kernels now, so that the timing after is serving only."""
+    if device.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.library()
+        if _build.build_seconds is not None:
+            logger.info(f"built the CUDA kernels in {_build.build_seconds:.1f}s")
 
 
 def _run_continuous(args, device) -> list:
@@ -38,20 +53,8 @@ def _run_continuous(args, device) -> list:
                         prefill_chunk=args.prefill_chunk,
                         kv_dtype=args.kv_dtype, weight_bits=args.bits,
                         arch=args.arch)
-    kv_smooth = None
-    if args.kv_dtype == "int8":
-        # identity smoothing vectors: always valid; calibrated ones come with
-        # calibrate_kv_smooth, which is not ported yet
-        from repro_torch.models.config import get_config, reduced
-        cfg = get_config(args.arch)
-        if args.reduced:
-            cfg = reduced(cfg)
-        ones = np.ones((cfg.n_layers, cfg.n_kv_heads, cfg.hd), np.float32)
-        kv_smooth = (ones, ones)
-        logger.info("int8 KV cache: identity smoothing vectors "
-                    "(calibration is not ported yet)")
     engine, _ = build_engine(args.arch, use_reduced=args.reduced, lcd=args.lcd,
-                             ecfg=ecfg, seed=args.seed, kv_smooth=kv_smooth,
+                             ecfg=ecfg, seed=args.seed,
                              fused_projections=args.fused_projections,
                              device=device)
     rng = np.random.default_rng(args.seed)
@@ -62,12 +65,7 @@ def _run_continuous(args, device) -> list:
     pending = [rng.integers(0, cfg.vocab, rng.integers(4, args.prompt_len + 1))
                for _ in range(args.requests)]
     finished = []
-    if device.type == "cuda":
-        # build (or find) the kernels now, so that the timing below is serving only
-        from repro_torch.kernels import _build
-        _build.library()
-        if _build.build_seconds is not None:
-            logger.info(f"built the CUDA kernels in {_build.build_seconds:.1f}s")
+    _build_kernels(device)
     t0 = time.perf_counter()
     while pending or engine.busy:
         if pending and engine.steps % 2 == 0:
@@ -93,19 +91,22 @@ def _run_continuous(args, device) -> list:
     return finished
 
 
-def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None) -> list:
+def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
     """Parse flags and serve. `device` (or `--device`) defaults to "cuda";
-    asking for a card that is not there raises."""
+    asking for a card that is not there raises. Returns the finished requests
+    (continuous mode) or the (batch, tokens) generated tokens (static mode)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--lcd", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="sequences of the static batch")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
                     help="run the paged continuous-batching engine with "
-                         "staggered requests (the only mode ported so far)")
+                         "staggered requests instead of one static batch")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--block-size", type=int, default=8)
@@ -114,23 +115,32 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None) -> 
     ap.add_argument("--prefill-chunk", type=int, default=8)
     ap.add_argument("--kv-dtype", choices=("float", "int8"), default=None,
                     help="paged KV block-pool dtype: int8 stores smoothed "
-                         "codes + per-(block-slot, kv-head) scales; default "
-                         "follows the model config")
+                         "codes + per-(block-slot, kv-head) scales, the "
+                         "smoothing calibrated at start-up; default follows "
+                         "the model config (continuous mode only)")
     ap.add_argument("--bits", type=int, choices=(2, 3, 4), default=4,
                     help="uniform LCD weight packing width")
     ap.add_argument("--no-fused-projections", dest="fused_projections",
                     action="store_false",
                     help="serve same-input projection groups (QKV; gate+up) "
-                         "through per-projection LUT kernel launches; "
-                         "required with --lcd until the fused multi-"
-                         "projection kernels are ported")
+                         "through per-projection LUT kernel launches instead "
+                         "of one multi-projection launch; the same bits, for "
+                         "perf triage only")
     ap.add_argument("--device", default=device or "cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        raise NotImplementedError(
-            "the static-batch serve() path is not ported yet; add --continuous")
-    return _run_continuous(args, resolve_device(args.device))
+    if args.kv_dtype and not args.continuous:
+        ap.error("--kv-dtype applies to the paged engine; add --continuous")
+    dev = resolve_device(args.device)
+    if args.continuous:
+        return _run_continuous(args, dev)
+    _build_kernels(dev)
+    gen, _ = serve(args.arch, use_reduced=args.reduced, lcd=args.lcd,
+                   batch=args.batch, prompt_len=args.prompt_len,
+                   gen_tokens=args.tokens, seed=args.seed,
+                   weight_bits=args.bits,
+                   fused_projections=args.fused_projections, device=dev)
+    return gen
 
 
 if __name__ == "__main__":

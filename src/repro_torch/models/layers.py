@@ -1,18 +1,22 @@
-"""Layer library of the dense transformer family's paged serving path.
+"""Layer library of the dense transformer family's serving paths: the paged
+attention block of the continuous-batching engine and the contiguous-cache
+attention block of the static-batch path.
 
 Everything is functional: `fn(params_subtree, inputs, cfg, ...) -> outputs`,
 on plain tensors and nested dicts of tensors. Names and conventions are those
-of the JAX package's `models/layers.py`.
+of the JAX package's `models/layers.py`; its sharding annotations
+(`maybe_shard`) have no counterpart here, the port serves on one device.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.api import _unpack_codes, is_clustered
-from repro_torch.kernels.ops import clustered_linear
+from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
 from repro_torch.kernels.paged_attention import paged_pool_attention
 from repro_torch.models.config import ModelConfig
 
@@ -47,22 +51,18 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor
 
 
 def linear_group(x: torch.Tensor, ws, bs, cfg: ModelConfig) -> Tuple[torch.Tensor, ...]:
-    """Projections sharing one input (QKV; gate+up).
+    """Projections sharing one input (QKV; gate+up), fused when possible.
 
-    With `cfg.fused_projections` on and every weight clustered, the JAX
-    package serves the group in ONE multi-projection LUT launch. That kernel
-    pair (`lut_matmul_fused_multi[_gemv]`) is not ported yet, so the
-    combination raises; with `fused_projections=False` — or any dense weight
-    in the group — each projection is an independent `linear` call, which is
-    bit-equal per projection to the fused form."""
+    With `cfg.fused_projections` on and every weight clustered, the group goes
+    through kernels.ops.clustered_linear_multi: ONE multi-projection LUT
+    launch whose outputs are the same bits as per-projection calls, so the
+    flag changes launch counts, never numerics. Otherwise — or with any dense
+    weight in the group — each projection is an independent `linear` call."""
     if (cfg.fused_projections and len(ws) > 1
             and all(is_clustered(w) for w in ws)):
-        raise NotImplementedError(
-            "linear_group: fused_projections=True over clustered weights "
-            "needs the fused_multi LUT kernels (lut_matmul_fused_multi / "
-            "lut_matmul_fused_multi_gemv), which are not ported yet; build "
-            "the model with fused_projections=False")
-    ys = tuple(linear(x, w) for w in ws)
+        ys = clustered_linear_multi(x, ws)
+    else:
+        ys = tuple(linear(x, w) for w in ws)
     return tuple(y if b is None else y + b.to(y.dtype)
                  for y, b in zip(ys, bs))
 
@@ -105,6 +105,126 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     x1, x2 = x[..., :half], x[..., half:]
     c2, s2 = cos.to(x.dtype), sin.to(x.dtype)
     return torch.cat([x1 * c2 - x2 * s2, x2 * c2 + x1 * s2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention over a contiguous cache (q-chunked, GQA, window, softcap)
+# ---------------------------------------------------------------------------
+
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(scores / cap) if cap > 0 else scores
+
+
+def _attn_chunk(q, k, v, q_pos, k_pos, *, causal, window: int, softcap: float,
+                scale: float) -> torch.Tensor:
+    """q: (B, Cq, H, D); k/v: (B, Sk, KV, D) with KV | H. Returns (B, Cq, H, D).
+
+    As in the JAX package, scores are taken in f32 and then held in bf16 on a
+    bf16 model (the row sum stays f32); the probabilities meet V in that dtype
+    with an f32 result. `window` is a Python int (0 = global);
+    `q_pos` (Cq,) and `k_pos` (Sk,) are positions on q's device."""
+    b, cq, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    cdt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    qf = q.to(torch.float32).reshape(b, cq, kv, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32)) * scale
+    scores = _softcap(scores, softcap).to(cdt)
+    qp, kp = q_pos[:, None], k_pos[None, :]
+    mask = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    scores = torch.where(mask, scores, torch.full((), -torch.inf, dtype=cdt,
+                                                  device=q.device))
+    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e30)  # fully masked rows
+    e = torch.exp(scores - m)
+    ssum = e.to(torch.float32).sum(dim=-1, keepdim=True)
+    probs = e / torch.clamp(ssum, min=1e-30).to(cdt)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(torch.float32),
+                       v.to(cdt).to(torch.float32))
+    return out.reshape(b, cq, h, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """q (B, Sq, H, D) at positions q_offset.., k/v (B, Sk, KV, D) at 0..Sk-1.
+    Queries go in chunks of at most `chunk` rows (the largest divisor of Sq
+    not above it), so the score tensor never holds Sq x Sk at once; the JAX
+    package scans the same chunks."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    k_pos = torch.arange(sk, device=q.device)
+    if sq > chunk and sq % chunk:
+        chunk = next(c for c in range(chunk, 0, -1) if sq % c == 0)
+    outs = []
+    for c0 in range(0, sq, min(sq, chunk)):
+        c1 = min(sq, c0 + chunk)
+        q_pos = q_offset + torch.arange(c0, c1, device=q.device)
+        outs.append(_attn_chunk(q[:, c0:c1], k, v, q_pos, k_pos, causal=causal,
+                                window=window, softcap=softcap, scale=scale))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _absmax_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, kv-head) absmax int8 of the static cache: (B, S, KV, D) ->
+    codes int8 and scales f32 (B, S, KV)."""
+    tf = t.to(torch.float32)
+    scale = torch.clamp(tf.abs().amax(dim=3, keepdim=True), min=1e-6) / 127.0
+    codes = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return codes, scale[..., 0]
+
+
+def attn_block(
+    p: Dict[str, Any],
+    x: torch.Tensor,              # (B, S, d_model)
+    cfg: ModelConfig,
+    *,
+    layer_window: int = 0,        # 0 = global
+    cache: Optional[Dict[str, Any]] = None,   # one layer's {"k","v","pos"[,scales]}
+    pos_offset: int = 0,
+) -> torch.Tensor:
+    """Attention block over a contiguous cache. With `cache` (the static
+    decode path) this step's K/V are written at `cache["pos"]` — a host int —
+    and the queries attend over the whole cache, later positions masked by
+    causality. UNLIKE the JAX package, which returns a new cache, the cache
+    tensors (one layer's views of the stacked cache) are UPDATED IN PLACE;
+    the caller advances `pos`. An int8 cache stores absmax codes with
+    per-(token, kv-head) scales and is dequantized in the activation dtype
+    on read."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.hd, cfg.n_heads_eff, cfg.n_kv_heads
+    base = cache["pos"] if cache is not None else pos_offset
+    q, k, v = linear_group(
+        x, (p["wq"], p["wk"], p["wv"]),
+        (p.get("bq"), p.get("bk"), p.get("bv")), cfg)
+    pos = base + torch.arange(s, device=x.device)
+    q = rope(q.reshape(b, s, nh, hd), pos, cfg.rope_theta)
+    k = rope(k.reshape(b, s, nkv, hd), pos, cfg.rope_theta)
+    v = v.reshape(b, s, nkv, hd)
+
+    if cache is not None:
+        kc, vc = cache["k"], cache["v"]
+        if kc.dtype == torch.int8:
+            kq, ks_new = _absmax_int8(k)
+            vq, vs_new = _absmax_int8(v)
+            kc.narrow(1, base, s).copy_(kq)
+            vc.narrow(1, base, s).copy_(vq)
+            cache["k_scale"].narrow(1, base, s).copy_(ks_new)
+            cache["v_scale"].narrow(1, base, s).copy_(vs_new)
+            k = kc.to(x.dtype) * cache["k_scale"][..., None].to(x.dtype)
+            v = vc.to(x.dtype) * cache["v_scale"][..., None].to(x.dtype)
+        else:
+            kc.narrow(1, base, s).copy_(k)
+            vc.narrow(1, base, s).copy_(v)
+            k, v = kc, vc
+
+    o = attention(q, k, v, causal=True, window=int(layer_window),
+                  softcap=cfg.attn_softcap, q_offset=base)
+    return linear(o.reshape(b, s, nh * hd), p["wo"])
 
 
 # ---------------------------------------------------------------------------

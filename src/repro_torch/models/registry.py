@@ -4,6 +4,8 @@
     params = model.init(generator, device)      # real tensors
     logits, caches = model.serving_step(params, caches, tokens, lengths,
                                         n_new, block_tables)
+    cache = model.init_cache(batch, max_seq, device)          # static path
+    logits, cache = model.decode(params, cache, {"tokens": t, "pos": 0})
 
 Serving surface (launch/engine.py): a family publishes the sequence caches it
 serves through, keyed by kind ("paged": a block-table pool over
@@ -70,10 +72,20 @@ class Model:
     capabilities: frozenset = frozenset()
     _init_paged_cache: Optional[Callable] = None
     _serving_step: Optional[Callable] = None
+    _decode: Optional[Callable] = None
+    _init_cache: Optional[Callable] = None
 
     def init(self, generator: torch.Generator, device="cuda"):
         return PT.init_params(generator, self.table, self.cfg.torch_dtype,
                               device)
+
+    def decode(self, params, cache, batch: Dict[str, Any]):
+        """One static-path step: batch = {"tokens": (B, S), "pos": host int}.
+        Returns (last-token logits, cache with `pos` advanced)."""
+        return self._decode(params, cache, batch, self.cfg)
+
+    def init_cache(self, batch: int, max_seq: int, device="cuda"):
+        return self._init_cache(self.cfg, batch, max_seq, device)
 
     def param_count(self) -> int:
         return PT.param_count(self.table)
@@ -103,6 +115,10 @@ def _dense_serving_step(params, caches, tokens, lengths, n_new, block_tables,
     return logits, {"paged": pool}
 
 
+def _dense_decode(params, cache, batch, cfg):
+    return transformer.decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
+
+
 def get_model(cfg: Union[ModelConfig, str]) -> Model:
     """Build the uniform Model for a config (or a registered arch-id string)."""
     if isinstance(cfg, str):
@@ -114,4 +130,5 @@ def get_model(cfg: Union[ModelConfig, str]) -> Model:
             f"yet; ported families: {', '.join(PORTED_FAMILIES)}")
     return Model(cfg, transformer.param_table(cfg), capabilities=caps,
                  _init_paged_cache=transformer.init_paged_cache,
-                 _serving_step=_dense_serving_step)
+                 _serving_step=_dense_serving_step, _decode=_dense_decode,
+                 _init_cache=transformer.init_cache)

@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer family — the paged serving path.
+"""Dense decoder-only transformer family — the paged serving path of the
+continuous-batching engine and the contiguous-cache decode of the static path.
 
 Covers llama2-7b (the paper's own subject) and qwen2-1.5b (GQA, QKV bias,
 padded heads). Parameters are stacked (L, ...) tensors under the JAX package's
@@ -17,7 +18,8 @@ import torch
 from repro_torch.core.api import is_clustered, map_arrays
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import mlp_block, norm, paged_attn_block
+from repro_torch.models.layers import (attn_block, mlp_block, norm,
+                                       paged_attn_block)
 
 D = PT.ParamDecl
 
@@ -119,6 +121,64 @@ def layer_slice(tree: Any, l: int) -> Any:
     if isinstance(tree, dict):
         return {k: layer_slice(v, l) for k, v in tree.items()}
     return tree[l]
+
+
+# ---------------------------------------------------------------------------
+# Decode over a contiguous (L, B, S, KV, D) cache (static-batch path)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> Dict[str, Any]:
+    """The static path's cache: stacked (L, B, max_seq, KV, D) K and V in the
+    model dtype, or int8 codes with (L, B, max_seq, KV) f32 scales when
+    cfg.kv_cache_dtype is "int8"; `pos`, the number of cached positions, is
+    a host int."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    int8 = cfg.kv_cache_dtype == "int8"
+    dt = torch.int8 if int8 else cfg.torch_dtype
+    c: Dict[str, Any] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                         "v": torch.zeros(shape, dtype=dt, device=device),
+                         "pos": 0}
+    if int8:
+        sshape = shape[:-1]
+        c["k_scale"] = torch.full(sshape, 1e-6, dtype=torch.float32, device=device)
+        c["v_scale"] = torch.full(sshape, 1e-6, dtype=torch.float32, device=device)
+    return c
+
+
+def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, window: int,
+           cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    h = norm(x, p["ln_attn"], cfg.norm)
+    x = x + attn_block(p["attn"], h, cfg, layer_window=window, cache=cache)
+    h = norm(x, p["ln_mlp"], cfg.norm)
+    return x + mlp_block(p["mlp"], h, cfg)
+
+
+@torch.no_grad()
+def decode_step(
+    params: Dict[str, Any],
+    cache: Dict[str, Any],
+    tokens: torch.Tensor,             # (B, S) — S=1 decode, S=prompt_len prefill
+    pos: int,                         # cached positions so far, a host int
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One step of the whole stack over the contiguous cache: the S new
+    tokens are embedded, attended and written at positions pos..pos+S-1.
+    Returns the logits of the LAST token (B, padded_vocab) and the cache with
+    `pos` advanced; its tensors were updated in place. Where the JAX package
+    scans over the layer axis, this loops over layers in Python."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "mixture-of-experts MLPs (moe_block) are not ported yet")
+    x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (B, S, d)
+    windows = layer_windows(cfg)
+    blocks = params["blocks"]
+    for l in range(cfg.n_layers):
+        lcache = {name: t[l] for name, t in cache.items() if name != "pos"}
+        lcache["pos"] = pos
+        x = _block(cfg, layer_slice(blocks, l), x, int(windows[l]), cache=lcache)
+    x = norm(x[:, -1], params["ln_final"], cfg.norm)
+    return lm_head_logits(params, x, cfg), {**cache, "pos": pos + tokens.shape[-1]}
 
 
 # ---------------------------------------------------------------------------

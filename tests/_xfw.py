@@ -144,8 +144,9 @@ def cluster_params(params, nbits: int = 4, act_scale: Optional[float] = None,
 
 
 def reference_model(arch: str, seed: int = 0, **overrides):
-    """(model, dense params) of the reference on a `reduced()` config with
-    `fused_projections=False` (the configuration the port serves)."""
+    """(model, dense params) of the reference on a `reduced()` config, f32,
+    with per-projection LUT launches (`fused_projections=False`) unless the
+    caller overrides it."""
     from repro.models.config import get_config, reduced
     from repro.models.registry import get_model
     cfg = reduced(get_config(arch), **{"dtype": "float32",

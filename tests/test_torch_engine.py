@@ -164,14 +164,11 @@ def test_other_unported_surface():
         get_model(dataclasses.replace(model.cfg, family="moe"))
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(dataclasses.replace(model.cfg, family="nope"))
-    with pytest.raises(NotImplementedError, match="calibrate_kv_smooth"):
-        port_engine.build_engine("llama2-7b", device="cpu",
-                                 ecfg=port_engine.EngineConfig(kv_dtype="int8"))
     with pytest.raises(NotImplementedError, match="compress_model"):
         port_engine.build_engine("llama2-7b", lcd=True, params=params, n_layers=1,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="--continuous"):
-        port_serve.main(["--arch", "llama2-7b", "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="compress_model"):
+        port_engine.serve("llama2-7b", bits_budget=2.5, device="cpu")
     with pytest.raises(ValueError, match="kv_smooth only applies"):
         port_engine.ServingEngine(model, params, kv_smooth=(1, 1), device="cpu")
 
@@ -184,6 +181,10 @@ def test_entry_points_default_to_cuda_and_raise_without_one():
         port_engine.build_engine("llama2-7b")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         port_serve.main(["--arch", "llama2-7b", "--reduced", "--continuous"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        port_serve.main(["--arch", "llama2-7b", "--reduced"])
+    with pytest.raises(RuntimeError, match="pass device='cpu' explicitly"):
+        port_engine.serve("llama2-7b")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         from_reference({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -419,9 +420,12 @@ def test_serve_cli_runs_on_the_cpu():
          "--no-fused-projections", "--requests", "4", "--tokens", "5", "--prompt-len", "12",
          "--kv-dtype", "int8", "--bits", "3", "--device", "cpu"])
     assert len(finished) == 4 and all(len(r.out_tokens) == 5 for r in finished)
-    with pytest.raises(NotImplementedError, match="fused_multi"):
-        port_serve.main(["--arch", "llama2-7b", "--reduced", "--lcd", "--continuous",
-                         "--requests", "1", "--tokens", "2", "--device", "cpu"])
+    # the default configuration (fused projections, calibrated int8 pool): the same tokens
+    fused = port_serve.main(
+        ["--arch", "qwen2-1.5b", "--reduced", "--lcd", "--continuous", "--requests", "4",
+         "--tokens", "5", "--prompt-len", "12", "--kv-dtype", "int8", "--bits", "3",
+         "--device", "cpu"])
+    assert [r.out_tokens for r in fused] == [r.out_tokens for r in finished]
 
 
 def test_importing_the_engine_pulls_in_no_jax():

@@ -57,6 +57,8 @@ def test_kernel_sources_exist_and_say_what_they_replace():
     assert on_disk == set(_build.SOURCES + _build.HEADERS), "a source the build does not name"
     for name, pallas in (("lut_gemv.cu", "lut_matmul_fused_gemv"),
                          ("lut_gemm.cu", "lut_matmul_fused"),
+                         ("lut_multi_gemv.cu", "lut_matmul_fused_multi_gemv"),
+                         ("lut_multi_gemm.cu", "lut_matmul_fused_multi"),
                          ("paged_attention.cu", "paged_pool_attention")):
         head = (_build.CSRC / name).read_text()[:2500]
         assert f"`{pallas}`" in head and "Replaces the Pallas TPU kernel" in head
@@ -78,3 +80,27 @@ def test_import_builds_nothing():
     import repro_torch.kernels.paged_attention  # noqa: F401
     from repro_torch.kernels import _build
     assert _build._lib is None, "the library must load at the first launch, not at import"
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__852f60fc_11_lut_gemv_cu_1eac3cc415lut_gemv_kernelILi4EfLb0EEEvPKT0_PKfPKhS5_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__852f60fc_11_lut_gemv_cu_1eac3cc415lut_gemv_kernelILi4EfLb0EEEvPKT0_PKfPKhS5_Pfiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 106 registers, used 1 barriers, 16448 bytes smem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__852f60fc_11_lut_gemv_cu_1eac3cc415lut_gemv_kernelILi2EfLb1EEEvPKT0_PKfPKhS5_Pfiiiii' for 'sm_90a'
+    24 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 104 registers, used 1 barriers, 16448 bytes smem
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__0_17_paged_attention_cu_2916paged_attn_kernelI6__halfEEvv' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 0 bytes smem
+"""
+
+
+def test_resource_usage_reads_the_ptxas_reports(tmp_path):
+    from repro_torch.kernels import _build
+    assert ("-Xptxas", "-v") == tuple(_build.NVCC_FLAGS[-2:])
+    (tmp_path / "lut_gemv.ptxas.txt").write_text(PTXAS_SAMPLE)
+    assert _build.resource_usage(tmp_path) == {
+        "lut_gemv_kernel": {"registers": [104, 106], "stack_bytes": 24, "spill_bytes": 12},
+        "paged_attn_kernel": {"registers": [40, 40], "stack_bytes": 0, "spill_bytes": 0}}
+    assert _build.resource_usage(tmp_path / "none") == {}

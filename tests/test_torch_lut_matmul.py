@@ -222,5 +222,10 @@ def test_cpu_tensors_launch_no_kernel():
     port_ops.lut_gemm_fused(torch.from_numpy(x), torch.from_numpy(1 / smooth),
                             torch.from_numpy(packed), torch.from_numpy(cb), 1.0,
                             quantize=False, nbits=4)
+    port_ops.lut_gemm_fused_multi(torch.from_numpy(x), torch.from_numpy(1 / smooth)[None],
+                                  torch.from_numpy(np.pad(cb, (0, 16 - cb.size)))[None], [1.0],
+                                  torch.from_numpy(packed), quantize=(False,), nbits=(4,))
     assert port_ops.launch_counts() == {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
+                                        "lut_matmul_fused_multi_gemv": 0,
+                                        "lut_matmul_fused_multi": 0,
                                         "paged_pool_attention": 0}

@@ -170,18 +170,6 @@ def test_scatter_rows_writes_nothing_for_padded_tokens():
     assert torch.equal(pool.view(8, 3), want), "no valid token: nothing may change"
 
 
-def test_linear_group_refuses_the_unported_fused_multi_path():
-    model, params = reference_model("llama2-7b", n_layers=1)
-    attn = port_tf.layer_slice(_port_tree(cluster_params(params)["blocks"]["attn"]), 0)
-    cfg = port_model("llama2-7b", fused_projections=True).cfg
-    x = torch.zeros(1, 2, 128)
-    with pytest.raises(NotImplementedError, match="fused_multi"):
-        port_layers.linear_group(x, (attn["wq"], attn["wk"]), (None, None), cfg)
-    dense = torch.zeros(128, 8)
-    ys = port_layers.linear_group(x, (attn["wq"], dense), (None, None), cfg)
-    assert ys[1].shape == (1, 2, 8), "a dense weight in the group: independent linears"
-
-
 # ---------------------------------------------------------------------------
 # whole paged_decode_step runs
 # ---------------------------------------------------------------------------
