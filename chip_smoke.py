@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-Builds the five hand-written CUDA kernels from the sources in this checkout,
+Builds the eight hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card at the shapes
-llama2-7b and qwen2-1.5b give it (and every projection of a multi-projection
-launch bit for bit against its solo launch), checks a 2-layer full-width
-model on the card against the same model on the CPU, then serves LCD 4-bit
-llama2-7b at full width and full depth (random weights from --seed) through
-the continuous-batching engine in the default configuration (fused
-projections) and in the per-projection one (the same tokens), and through the
-static-batch `serve()`; shows, by the kernels' launch counts, that each path
-really went through the kernels, and reads under torch.profiler where a
-prefill step's and a decode step's time goes. Every phase prints one JSON
-line; any failed phase ends the process with a non-zero exit code. The last
-line is `{"ok": true, "device": {...}}`. Without a CUDA card it prints no
-result and exits 1.
+llama2-7b and qwen2-1.5b give it (every projection of a multi-projection
+launch bit for bit against its solo launch, the §4 layer's int8 LUT GEMM bit
+for bit against the fused serving GEMM), runs the paper's §4 LUT layer at
+llama2-7b's gate_proj width (smoothing, clustering, then the online Eq. 11
+transform and the bucket LUT GEMM), checks a 2-layer full-width model on the
+card against the same model on the CPU, then serves LCD 4-bit llama2-7b at
+full width and full depth (random weights from --seed) through the
+continuous-batching engine in the default configuration (fused projections)
+and in the per-projection one (the same tokens), and through the
+static-batch `serve()`; compresses a 2-layer full-width llama2-7b with the
+LCD pipeline on the card (twice: the same bytes; under a bits budget; then
+inside `build_engine`, whose engine serves requests that decode alike
+alone); shows, by the kernels' launch counts, that each path really went
+through the kernels, and reads under torch.profiler where a prefill step's
+and a decode step's time goes. Every phase prints one JSON line; any failed
+phase ends the process with a non-zero exit code. The last line is
+`{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
+exits 1.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import torch  # noqa: E402
 
 # published peaks of one H100 SXM (dense, no sparsity), for the bounds
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 
@@ -462,20 +468,403 @@ def check_attention_kernel(gen):
     return cases, worst, headline
 
 
+# the §4 layer's kernels: B6 (float activations), B7 (int8 codes), B10
+
+PLAIN_MS = (1, 8, 127, 128, 256)
+
+
+def _plain_bound_ms(m, k, n, nbits, xdtype):
+    """Each input read once, the output written once; 2*M*K*N operations at
+    the peak rate of the activation's type (int8 codes: the int8 rate)."""
+    elt = torch.empty((), dtype=xdtype).element_size()
+    nbytes = m * k * elt + k * n * nbits // 8 + 16 * 4 + 4 + m * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * k * n / PEAK_OPS[xdtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _time_plain(gen, name, m, k, n, nbits):
+    """B6 (f32 x) or B7 and their plain versions at one shape, each walking a
+    stack of layers larger than the 50 MB L2 (cold weights)."""
+    from repro_torch.core.lut import packed_rows
+    from repro_torch.kernels.lut_matmul import lut_matmul_f32, lut_matmul_int8
+    from repro_torch.kernels.ref import lut_matmul_f32_ref, lut_matmul_int8_ref
+    dev = gen.device
+    layers = max(2, math.ceil(128e6 / (k * n * nbits // 8)))
+    packed = torch.randint(0, 255, (layers, packed_rows(k, nbits), n), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    cb = torch.sort(torch.randn((layers, 16), generator=gen, device=dev) * 0.02, dim=-1).values
+    act = torch.tensor(0.03, device=dev)
+    if name == "lut_matmul_int8":
+        x = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8, device=dev)
+        kern = lambda i: lut_matmul_int8(x, packed[i % layers], cb[i % layers], act,  # noqa: E731
+                                         nbits=nbits)
+        plain = lambda i: lut_matmul_int8_ref(x, packed[i % layers], cb[i % layers],  # noqa: E731
+                                              act, nbits=nbits)
+    else:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        kern = lambda i: lut_matmul_f32(x, packed[i % layers], cb[i % layers],  # noqa: E731
+                                        nbits=nbits)
+        plain = lambda i: lut_matmul_f32_ref(x, packed[i % layers], cb[i % layers],  # noqa: E731
+                                             nbits=nbits)
+    iters = 4 * layers if m < 128 else layers
+    bound, by = _plain_bound_ms(m, k, n, nbits, x.dtype)
+    return dict(ms=time_ms(kern, iters), plain_ms=time_ms(plain, 3, warmup=1),
+                bound_ms=bound, bound_by=by)
+
+
+def check_plain_kernels(gen):
+    """B6 and B7 against their plain versions (nbits 2/3/4, M in PLAIN_MS,
+    llama2-7b and ragged K and N, f32 and bf16 x for B6), B7 bit for bit
+    against B2/B1 through the ops wrappers wherever q = clip(round(x*inv),
+    ±127), and B10 exactly equal to its plain version at bits 8 and 4 with
+    inputs that saturate at -2^(bits-1)."""
+    from repro_torch.core.lut import packed_rows, padded_d_in, unpack_codes
+    from repro_torch.kernels.lut_matmul import lut_matmul_f32, lut_matmul_int8
+    from repro_torch.kernels.ops import lut_gemm_fused, lut_gemm_int8
+    from repro_torch.kernels.ref import (lut_matmul_f32_ref, lut_matmul_int8_ref,
+                                         smooth_quant_ref)
+    from repro_torch.kernels.smooth_quant import smooth_quant
+
+    dev = gen.device
+    names = ("lut_matmul_f32", "lut_matmul_int8", "smooth_quant")
+    cases, worst, headline = [], {n: 0.0 for n in names}, {}
+    fail = []
+    shapes = [(k, n) for k, n in LLAMA_KN] + [(130, 37)]
+    for (k, n) in shapes:
+        for nbits in (4, 3, 2):
+            kp = padded_d_in(k, nbits)          # ragged K: the group-padded width
+            packed = torch.randint(0, 255, (packed_rows(kp, nbits), n), generator=gen,
+                                   dtype=torch.uint8, device=dev)
+            cb = torch.sort(torch.randn(16, generator=gen, device=dev) * 0.02).values
+            cb[(1 << nbits):] = 0.0
+            w = cb[unpack_codes(packed, kp, nbits).long()]
+            wmax = float(w.norm(dim=0).max())
+            for m in PLAIN_MS:
+                runs = []
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, kp), generator=gen, device=dev).to(dtype)
+                    runs.append(("lut_matmul_f32", str(dtype).split(".")[-1],
+                                 lut_matmul_f32(x, packed, cb, nbits=nbits),
+                                 lut_matmul_f32_ref(x, packed, cb, nbits=nbits),
+                                 float(x.float().norm(dim=1).max())))
+                q = torch.randint(-128, 128, (m, kp), generator=gen, dtype=torch.int8,
+                                  device=dev)
+                act = torch.tensor(0.03, device=dev)
+                runs.append(("lut_matmul_int8", "int8",
+                             lut_matmul_int8(q, packed, cb, act, nbits=nbits),
+                             lut_matmul_int8_ref(q, packed, cb, act, nbits=nbits),
+                             0.03 * float(q.float().norm(dim=1).max())))
+                # B7 on q == B2 / B1 (ops wrappers, s_q included) on x, bit for bit
+                x = torch.randn((m, kp), generator=gen, device=dev)
+                inv = 1.0 / ((0.5 + torch.rand(kp, generator=gen, device=dev)) * 0.03)
+                qq = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+                same = bool(torch.equal(lut_gemm_int8(qq, packed, cb, act, nbits=nbits),
+                                        lut_gemm_fused(x, inv, packed, cb, act,
+                                                       quantize=True, nbits=nbits)))
+                torch.cuda.synchronize()
+                for name, dt, y, ref, xmax in runs:
+                    # |y - ref| <= 1e-5 * max_m ||x_m|| * max_n ||w_n|| (f32 sums of
+                    # K terms taken in another order)
+                    tol = 1e-5 * xmax * wmax
+                    err = float((y - ref).abs().max())
+                    case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits, dtype=dt,
+                                max_abs_err=err, tol=tol)
+                    if name == "lut_matmul_int8":
+                        case["equals_fused_gemm_bits"] = same
+                    if not (bool(torch.isfinite(y).all()) and err <= tol) or not same:
+                        fail.append(case)
+                    worst[name] = max(worst[name], err)
+                    cases.append(case)
+    for (m, c) in ((8, 4096), (256, 4096), (8, 11008), (256, 11008), (5, 37), (3, 4100)):
+        for bits in (8, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn((m, c), generator=gen, device=dev) * 150).to(dtype)
+                inv = 0.5 + torch.rand(c, generator=gen, device=dev)
+                q = smooth_quant(x, inv, bits=bits)
+                ref = smooth_quant_ref(x, inv, bits)
+                torch.cuda.synchronize()
+                lo = -(1 << (bits - 1))
+                case = dict(kernel="smooth_quant", m=m, c=c, bits=bits,
+                            dtype=str(dtype).split(".")[-1], equal=bool(torch.equal(q, ref)),
+                            saturated_low=int((q == lo).sum()), max_abs_err=0.0)
+                if not case["equal"] or (m * c > 1000 and case["saturated_low"] == 0):
+                    fail.append(case)
+                cases.append(case)
+    if fail:
+        emit("kernels", failed=fail[:5])
+        raise SystemExit(f"a §4 layer kernel disagrees with its plain version: {fail[:2]}")
+    # times: B6 / B7 at the projection shapes, B10 at the activation shapes
+    for name in names[:2]:
+        for (k, n) in LLAMA_KN:
+            for m in (8, 256):
+                case = dict(kernel=name, m=m, k=k, n=n, nbits=4,
+                            dtype="int8" if name == "lut_matmul_int8" else "float32")
+                case.update(_time_plain(gen, name, m, k, n, 4))
+                cases.append(case)
+                if (m, k, n) == (256, 4096, 11008):
+                    headline[name] = case
+    for (m, c) in ((8, 4096), (256, 4096), (8, 11008), (256, 11008)):
+        rows = max(m, math.ceil(64e6 / (c * 4)) // m * m)     # > L2: cold activations
+        x = torch.randn((rows, c), generator=gen, device=dev)
+        inv = 0.5 + torch.rand(c, generator=gen, device=dev)
+        reps = rows // m
+        nbytes = m * c * 4 + c * 4 + m * c
+        case = dict(kernel="smooth_quant", m=m, c=c, bits=8, dtype="float32",
+                    ms=time_ms(lambda i: smooth_quant(x[(i % reps) * m:(i % reps + 1) * m],
+                                                      inv), 4 * reps),
+                    plain_ms=time_ms(lambda i: smooth_quant_ref(
+                        x[(i % reps) * m:(i % reps + 1) * m], inv), 3, warmup=1),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        cases.append(case)
+        if (m, c) == (256, 4096):
+            headline["smooth_quant"] = case
+    return cases, worst, headline
+
+
 def phase_kernels(seed: int):
     from repro_torch.kernels.ops import launch_counts
     gen = torch.Generator(device="cuda").manual_seed(seed)
     lut_cases, lut_worst, lut_head = check_lut_kernels(gen)
     multi_cases, multi_worst, multi_head = check_multi_kernels(gen)
     att_cases, att_worst, att_head = check_attention_kernel(gen)
-    timed = [c for c in lut_cases + multi_cases + att_cases if "ms" in c]
-    emit("kernels", compared=len(lut_cases) + len(multi_cases) + len(att_cases),
-         worst_abs_err={**lut_worst, **multi_worst, "paged_pool_attention": att_worst},
-         launches_during_comparison=launch_counts(), timed=timed)
+    plain_cases, plain_worst, plain_head = check_plain_kernels(gen)
+    every = lut_cases + multi_cases + att_cases + plain_cases
+    emit("kernels", compared=len(every),
+         worst_abs_err={**lut_worst, **multi_worst, "paged_pool_attention": att_worst,
+                        **plain_worst},
+         launches_during_comparison=launch_counts(), timed=[c for c in every if "ms" in c])
     out = {name: (lut_head[name], lut_worst[name]) for name in lut_head}
     out.update({name: (multi_head[name], multi_worst[name]) for name in multi_head})
     out["paged_pool_attention"] = (att_head, att_worst)
+    out.update({name: (plain_head[name], plain_worst[name]) for name in plain_head})
     return out
+
+
+# ---------------------------------------------------------------------------
+# the paper's §4 LUT layer at llama2-7b's gate_proj width
+# ---------------------------------------------------------------------------
+
+def phase_lut_layer(seed: int) -> dict:
+    """examples/serve_lut.py layer_demo at llama2-7b's gate_proj width, port
+    only: 256 calibration tokens x 4096 with an outlier channel, W 4096 x
+    11008; offline adaptive_smooth -> fold_into_weight -> kmeans_1d(12) ->
+    assign -> build_lut_layer; online smooth_quant_input (B10) ->
+    lut_gemm_int8 (B7) at M = 256 and M = 8, and the float-activation
+    variant x/s -> lut_gemm (B6). Returns the launch counts of that online
+    run (counts set to 0 just before it)."""
+    from repro_torch.core import clustering as C
+    from repro_torch.core.lut import build_lut_layer, pack_codes_torch
+    from repro_torch.core.smoothing import (adaptive_smooth, fold_into_weight,
+                                            smooth_quant_input)
+    from repro_torch.kernels.ops import (launch_counts, lut_gemm, lut_gemm_int8,
+                                         pad_codebook, reset_launch_counts)
+    from repro_torch.kernels.ref import lut_matmul_int8_ref, smooth_quant_ref
+
+    d_in, d_out, n_tok = 4096, 11008, 256
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (n_tok, d_in)).astype(np.float32)
+    x[:, 7] *= 30                      # activation outlier channel (the LLM pathology)
+    w = torch.from_numpy(rng.normal(0, 0.04, (d_in, d_out)).astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    sres = adaptive_smooth(x)
+    ws = fold_into_weight(w, sres.s)
+    cents = C.kmeans_1d(ws, 12)
+    st = C.make_state(cents, device="cuda")
+    slot_codes = C.assign(ws, st)
+    remap = torch.zeros(C.K_MAX, dtype=torch.int32, device="cuda")
+    remap[torch.nonzero(st.active).reshape(-1)] = torch.arange(
+        int(st.k), dtype=torch.int32, device="cuda")
+    codes = remap.index_select(0, slot_codes.reshape(-1)).reshape(slot_codes.shape)
+    layer = build_lut_layer(ws, codes.to(torch.uint8).cpu().numpy(),
+                            C.active_centroids(st), sres.s, x)
+    packed = pack_codes_torch(codes, 4)
+    torch.cuda.synchronize()
+    offline_s = time.perf_counter() - t0
+
+    s_t = torch.from_numpy(layer.smooth).cuda()
+    cb = torch.from_numpy(layer.codebook).cuda()
+    act = torch.tensor(layer.act_scale, dtype=torch.float32, device="cuda")
+    xt = torch.from_numpy(x).cuda()
+    y_fp = xt @ w
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = {}
+    for m in (256, 8):
+        q = smooth_quant_input(xt[:m], s_t, act)
+        y = lut_gemm_int8(q, packed, cb, act)
+        y_f = lut_gemm(xt[:m] / s_t, packed, cb)
+        outs[m] = (q, y, y_f)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+
+    rows, ok = {}, True
+    inv = (1.0 / (s_t * act)).contiguous()
+    w_norm = float(cb[codes.long()].norm(dim=0).max())
+    for m, (q, y, y_f) in outs.items():
+        ref_q = smooth_quant_ref(xt[:m], inv)
+        ref_y = lut_matmul_int8_ref(q, packed, pad_codebook(cb), act)
+        rel = float((y - y_fp[:m]).norm() / y_fp[:m].norm())
+        rel_f = float((y_f - y_fp[:m]).norm() / y_fp[:m].norm())
+        err = float((y - ref_y).abs().max())
+        # f32 sums of K terms taken in another order, as in the kernels phase
+        tol = 1e-5 * float(act) * float(q.float().norm(dim=1).max()) * w_norm
+        x_s = (xt[:m] / s_t).contiguous()
+        rows[str(m)] = dict(
+            rel_err_int8_path=rel, rel_err_float_path=rel_f, demo_limit=0.3,
+            codes_equal_plain=bool(torch.equal(q, ref_q)), max_abs_err_vs_plain=err,
+            transform_ms=time_ms(lambda i: smooth_quant_input(xt[:m], s_t, act), 50),
+            lut_gemm_int8_ms=time_ms(lambda i: lut_gemm_int8(q, packed, cb, act), 20),
+            lut_gemm_float_ms=time_ms(lambda i: lut_gemm(x_s, packed, cb), 20))
+        rows[str(m)].update(tol=tol, demo_bound_holds=rel < 0.3)
+        # the int8 codes may cost little over the float activations; the
+        # demo's 0.3 holds at its own 512 x 256 only (ROADMAP C), so it is
+        # reported, and the error the weights' clustering leaves is not a fault
+        ok &= (rel <= rel_f + 0.02 and rows[str(m)]["codes_equal_plain"]
+               and bool(torch.isfinite(y).all()) and err <= tol)
+    dense_bytes = d_in * d_out * 2                       # bf16 weights
+    lut_bytes = packed.numel() + layer.codebook.size * 4
+    emit("lut_layer", d_in=d_in, d_out=d_out, calib_tokens=n_tok, smoothing=sres.kind,
+         centroids=layer.n_centroids, act_scale=layer.act_scale,
+         offline_s=round(offline_s, 3), by_m=rows, launches=counts,
+         weight_bytes_dense_bf16=dense_bytes, weight_bytes_packed=lut_bytes,
+         compression=round(dense_bytes / lut_bytes, 2))
+    if not ok:
+        raise SystemExit(f"lut_layer: the §4 layer is wrong: {rows}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# LCD compression on the card
+# ---------------------------------------------------------------------------
+
+def _slice_of(ct, l):
+    from repro_torch.core.api import map_arrays
+    return map_arrays(ct, lambda a: a[l])
+
+
+def phase_compress(seed: int) -> None:
+    """llama2-7b at full width (d_model 4096, d_ff 11008, 32 heads), 2 layers,
+    dense bf16 weights from the seed on the card, through compress_model:
+    at 8 centroids / 4 bits (seconds per slice, centroids per slice, relative
+    weight error), again (the packed bytes must repeat), under a 3.0 bits
+    budget, and inside build_engine(lcd=True), whose engine then serves 8
+    staggered requests that must decode alike alone. Last, one 512 x 512
+    slice compressed on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.core import api
+    from repro_torch.core.api import (_flatten_with_paths, clustered_dequant,
+                                      compress_model, is_clustered)
+    from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    model = get_model(cfg)
+    dense = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+
+    slice_s = []                        # (shape, seconds) per distilled slice
+    inner = api.distill_layer_to_k
+
+    def timed_to_k(w, *a, **kw):
+        t = time.perf_counter()
+        out = inner(w, *a, **kw)
+        torch.cuda.synchronize()
+        slice_s.append((tuple(w.shape), time.perf_counter() - t))
+        return out
+
+    api.distill_layer_to_k = timed_to_k
+    try:
+        t0 = time.perf_counter()
+        p1, r1 = compress_model(dense, target_centroids=8, nbits=4)
+        torch.cuda.synchronize()
+        total1 = time.perf_counter() - t0
+        per_slice = list(slice_s)
+        t0 = time.perf_counter()
+        p2, _ = compress_model(dense, target_centroids=8, nbits=4)
+        torch.cuda.synchronize()
+        total2 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p3, r3 = compress_model(dense, target_centroids=8, bits_budget=3.0)
+        torch.cuda.synchronize()
+        total3 = time.perf_counter() - t0
+    finally:
+        api.distill_layer_to_k = inner
+
+    leaves1 = dict(_flatten_with_paths(p1))
+    leaves2 = dict(_flatten_with_paths(p2))
+    dense_leaves = dict(_flatten_with_paths(dense))
+    same_bytes = all(torch.equal(leaves1[p].packed, leaves2[p].packed)
+                     and torch.equal(leaves1[p].codebook, leaves2[p].codebook)
+                     for p in r1.bits_assignment)
+    errs, ks = {}, {}
+    for p in r1.bits_assignment:
+        ct, w = leaves1[p], dense_leaves[p].float()
+        errs[p] = [float((clustered_dequant(_slice_of(ct, l)) - w[l]).norm() / w[l].norm())
+                   for l in range(w.shape[0])]
+        ks[p] = [len(r1.per_layer[f"{p}[{l}]"].final_centroids) for l in range(w.shape[0])]
+    mean_err = float(np.mean([e for v in errs.values() for e in v]))
+
+    # the engine compresses the same dense weights itself, then serves
+    ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                        max_blocks_per_slot=32)
+    t0 = time.perf_counter()
+    engine, served = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                                  params=dense, n_layers=2, device="cuda")
+    engine_build_s = time.perf_counter() - t0
+    leaves_e = dict(_flatten_with_paths(served))
+    engine_same_bytes = all(torch.equal(leaves_e[p].packed, leaves1[p].packed)
+                            for p in r1.bits_assignment)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(8)]
+    requests = _drive(engine, prompts, 16)
+    tokens = [list(r.out_tokens) for r in requests]
+    solo_same = {}
+    for rid, prompt in enumerate(prompts):
+        solo = ServingEngine(engine.model, served, ecfg, device="cuda")
+        r = solo.submit(prompt, max_new_tokens=16)
+        solo.run()
+        solo_same[rid] = r.out_tokens == tokens[rid]
+        del solo
+
+    # one slice on the card and on the CPU
+    w512 = dense["blocks"]["attn"]["wq"][0, :512, :512].float().contiguous()
+    pc, _ = compress_model({"w": w512}, target_centroids=8)
+    pcpu, _ = compress_model({"w": w512.cpu()}, target_centroids=8, device="cpu")
+    codes_c, codes_h = pc["w"].codes.long().cpu(), pcpu["w"].codes.long()
+    differ = int((codes_c != codes_h).sum())
+    detail = {}
+    if differ:
+        # each differing weight's distance to the midpoint of its two codes
+        cb = pcpu["w"].codebook
+        i = torch.nonzero(codes_c != codes_h)[:8]
+        ws = w512.cpu()[i[:, 0], i[:, 1]]
+        a, b = cb[codes_c[i[:, 0], i[:, 1]]], cb[codes_h[i[:, 0], i[:, 1]]]
+        detail = dict(weight_to_midpoint=(ws - (a + b) / 2).abs().tolist(),
+                      codebook_max_abs_diff=float((pc["w"].codebook.cpu() - cb).abs().max()))
+
+    budget_ok = r3.mean_packed_bits <= 3.0 + 1e-9
+    all_clustered = all(is_clustered(leaves1[p]) for p in r1.bits_assignment)
+    emit("compress", arch="llama2-7b", layers=2, d_model=cfg.d_model, d_ff=cfg.d_ff,
+         n_heads=cfg.n_heads, dtype=cfg.dtype, target_centroids=8, nbits=4,
+         seconds_total=round(total1, 3), seconds_again=round(total2, 3),
+         seconds_per_slice=[dict(shape=list(sh), s=round(t, 3)) for sh, t in per_slice],
+         centroids_per_slice=ks, rel_weight_err_mean=mean_err,
+         rel_weight_err_per_slice={p: [round(e, 5) for e in v] for p, v in errs.items()},
+         packed_bytes_repeat=same_bytes, summary=r1.summary(),
+         bits_budget=dict(budget=3.0, seconds=round(total3, 3),
+                          assignment=r3.bits_assignment,
+                          mean_packed_bits=r3.mean_packed_bits),
+         engine=dict(build_s=round(engine_build_s, 3), same_bytes_as_compress=engine_same_bytes,
+                     requests=len(requests), new_tokens_each=16,
+                     solo_redecode_same_tokens=solo_same, traces=dict(engine.traces)),
+         slice_512_card_vs_cpu=dict(codes_differ=differ, **detail))
+    if not (same_bytes and engine_same_bytes and all_clustered and budget_ok
+            and mean_err < 0.3 and all(solo_same.values())
+            and all(len(t) == 16 for t in tokens)):
+        raise SystemExit("compress: compression or the engine on its output is wrong")
 
 
 # ---------------------------------------------------------------------------
@@ -626,6 +1015,10 @@ def _served_params(arch, seed, n_layers, fused=True):
     return model, calibrate(materialize_clustered(model, gen, nbits=4, device="cuda"))
 
 
+# the §4 layer's kernels: never launched by a serving step
+NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0}
+
+
 def _expected_launches(fused, n_layers, widths):
     """LUT and attention launches of the engine's steps: per layer 2 multi
     launches (QKV, gate+up) + 2 solo (wo, w_down) fused, 7 solo unfused."""
@@ -635,7 +1028,7 @@ def _expected_launches(fused, n_layers, widths):
             "lut_matmul_fused_multi": per[0] * n_layers * w32,
             "lut_matmul_fused_gemv": per[1] * n_layers * w1,
             "lut_matmul_fused": per[1] * n_layers * w32,
-            "paged_pool_attention": n_layers * (w1 + w32)}
+            "paged_pool_attention": n_layers * (w1 + w32), **NOT_SERVING}
 
 
 def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids,
@@ -681,7 +1074,8 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     expected = _expected_launches(fused, n_layers, widths)
     ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
           and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
-          and counts == expected and all(c > 0 for c in expected.values() if fused))
+          and counts == expected
+          and all(c > 0 for n, c in expected.items() if fused and n not in NOT_SERVING))
 
     # engine-vs-solo token identity: the same request alone, same engine geometry
     tokens = [list(r.out_tokens) for r in requests]
@@ -743,7 +1137,7 @@ def phase_serve_static(seed: int, params) -> None:
     expected = {"lut_matmul_fused_multi": 2 * n_layers, "lut_matmul_fused": 2 * n_layers,
                 "lut_matmul_fused_multi_gemv": 2 * n_layers * gen_tokens,
                 "lut_matmul_fused_gemv": 2 * n_layers * gen_tokens,
-                "paged_pool_attention": 0}
+                "paged_pool_attention": 0, **NOT_SERVING}
     vocab = get_config("llama2-7b").vocab
     ok = (stats["traces"] == {"prefill": 1, "decode": 1} and counts == expected
           and gen.shape == (batch, gen_tokens) and bool(((gen >= 0) & (gen < vocab)).all()))
@@ -884,8 +1278,8 @@ def phase_profile(seed: int, params) -> None:
 
 # ---------------------------------------------------------------------------
 
-ALL_PHASES = ("kernels", "model_parity", "serve", "serve_unfused", "serve_static",
-              "serve_int8", "serve_gqa", "profile")
+ALL_PHASES = ("kernels", "lut_layer", "model_parity", "serve", "serve_unfused",
+              "serve_static", "serve_int8", "serve_gqa", "compress", "profile")
 
 
 def main() -> int:
@@ -915,6 +1309,8 @@ def main() -> int:
     smi = timed("env", phase_env)
     timed("build", phase_build)
     checked = timed("kernels", phase_kernels, args.seed) if "kernels" in phases else {}
+    # the §4 layer's path: its own launch counts
+    layer_counts = timed("lut_layer", phase_lut_layer, args.seed) if "lut_layer" in phases else {}
     if "model_parity" in phases:
         timed("model_parity", phase_model_parity, args.seed)
     # llama2-7b, full width and depth: one set of weights for every phase below
@@ -939,6 +1335,8 @@ def main() -> int:
         # K = 1536 / 8960, so 256 query rows per (slot, kv head) on a prefill step
         timed("serve_gqa", _serve, "serve_gqa", "qwen2-1.5b", args.seed, 4, 4, 24, None,
               solo_ids=(0, 2))
+    if "compress" in phases:
+        timed("compress", phase_compress, args.seed)
     if "profile" in phases:
         timed("profile", phase_profile, args.seed, params)
     emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1))
@@ -954,20 +1352,30 @@ def main() -> int:
                                    "src/repro/kernels/lut_matmul.py:583"),
         "paged_pool_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                  "src/repro/kernels/paged_attention.py:419"),
+        "lut_matmul_f32": ("src/repro_torch/kernels/csrc/lut_plain.cu",
+                           "src/repro/kernels/lut_matmul.py:187"),
+        "lut_matmul_int8": ("src/repro_torch/kernels/csrc/lut_plain.cu",
+                            "src/repro/kernels/lut_matmul.py:234"),
+        "smooth_quant": ("src/repro_torch/kernels/csrc/smooth_quant.cu",
+                         "src/repro/kernels/smooth_quant.py:46"),
     }
+    # launches: the serving path's run for B1-B5, the §4 layer's for B6, B7, B10
+    launches = {**{n: counts.get(n, 0) for n in meta},
+                **{n: layer_counts.get(n, 0) for n in ("lut_matmul_f32", "lut_matmul_int8",
+                                                       "smooth_quant")}}
     kernels = []
     for name, (source, replaces) in meta.items():
         head, worst = checked.get(name, ({}, None))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts.get(name, 0), "max_abs_err": worst,
+            "launches": launches[name], "max_abs_err": worst,
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
             "library_ms": None,      # no single PyTorch call computes this function
             "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
             "solo_sum_ms": head.get("solo_sum_ms"),
-            "shape": {k: head[k] for k in ("group", "m", "k", "n", "widths", "nbits", "t",
-                                           "h", "kv", "pool") if k in head},
+            "shape": {k: head[k] for k in ("group", "m", "k", "n", "c", "widths", "nbits",
+                                           "t", "h", "kv", "pool", "dtype") if k in head},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     complete = set(phases) >= set(ALL_PHASES)

@@ -1,4 +1,4 @@
-"""repro_torch — the PyTorch/CUDA port of the LCD serving system.
+"""repro_torch — the PyTorch/CUDA port of the LCD system (compression and serving).
 
 Same sub-layout and function names as the JAX package `repro` beside it, so
 the counterpart of a module is found by path. The package imports `torch`,

@@ -4,13 +4,14 @@ For smoke tests of the serve path we need the *shape* of an LCD-compressed
 model without running distillation on it: this module maps a model's
 parameter table to the equivalent ClusteredTensor tree (sub-byte packed codes
 + codebook + smoothing vector per eligible weight) and fills it with
-random-but-valid values.
+random-but-valid values. `packed_weight_bytes` counts what a clustered tree
+streams.
 """
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -108,3 +109,16 @@ def materialize_clustered(model: Model, generator: torch.Generator,
 
     return walk(shapes)
 
+
+
+def packed_weight_bytes(params, nbits: Optional[int] = None) -> int:
+    """Total serving-stream bytes of every clustered leaf's packed codes —
+    the operand the decode GEMV reads from device memory. With `nbits`
+    given, the byte count of repacking the same codes at that width."""
+    if isinstance(params, dict):
+        return sum(packed_weight_bytes(v, nbits) for v in params.values())
+    if not is_clustered(params):
+        return 0
+    d_in, d_out = params.smooth.shape[-1], params.codes.shape[-1]
+    lead = math.prod(params.codes.shape[:-2])
+    return lead * packed_rows(d_in, params.nbits if nbits is None else nbits) * d_out

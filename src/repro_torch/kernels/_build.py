@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "lut_multi_gemv.cu", "lut_multi_gemm.cu",
-           "paged_attention.cu")
+           "paged_attention.cu", "lut_plain.cu", "smooth_quant.cu")
 HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,6 +109,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         # widths[P], nbits[P], quantize[P] (host int arrays), P, y, M, K, stream
         fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, p]
         fn.restype = i
+    fn = lib.lut_f32_launch
+    # x, x_is_bf16, packed, cb, y, M, K, N, packed_rows, nbits, stream
+    fn.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.lut_int8_launch
+    # q, packed, cb, s_q, y, M, K, N, packed_rows, nbits, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.smooth_quant_launch
+    # x, x_is_bf16, inv, q, M, C, bits, stream
+    fn.argtypes = [p, i, p, p, ctypes.c_longlong, i, i, p]
+    fn.restype = i
     fn = lib.paged_attn_launch
     # q, q_is_bf16, k_pool, v_pool, pool_kind, k_scale, v_scale, k_smooth,
     # v_smooth, block_tables, lengths, n_new, out, S, T, H, KV, D, nb, bs, NB,

@@ -33,13 +33,23 @@ constexpr int KC = 16;     // codebook capacity
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
 
-// Eq. 11 input transform on one element: x * inv, and when quantizing
-// round-half-to-even then the symmetric clip to [-127, 127].
-template <bool QUANT>
+// What happens to an activation on its way into the contraction. The fused
+// kernels (B1-B4) take a bool where a Mode is expected: false is SMOOTH,
+// true is QUANT.
+enum Mode : int {
+  SMOOTH = 0,  // Eq. 11 without quantization: x * inv
+  QUANT = 1,   // Eq. 11: rint(x * inv), then the symmetric clip to [-127, 127]
+  NONE = 2,    // the activation as it is (B6: already smoothed; B7: int8 codes)
+};
+
+// The transform of one element; `inv` is not read in mode NONE.
+template <int MODE>
 __device__ __forceinline__ float transform(float x, float inv) {
+  if constexpr (MODE == NONE) return x;
   float xs = __fmul_rn(x, inv);
-  if (QUANT) xs = fminf(fmaxf(rintf(xs), -127.0f), 127.0f);
+  if constexpr (MODE == QUANT) xs = fminf(fmaxf(rintf(xs), -127.0f), 127.0f);
   return xs;
 }
 

@@ -28,13 +28,15 @@ struct __align__(16) Smem {
 };
 
 // Tile (nblock, mblock) of Y for one (x, inv, packed, cb) operand set of
-// width N; its element (m, n) is written to y[m * y_stride + y_col0 + n].
-template <int NBITS, typename XT, bool QUANT>
+// width N; its element (m, n) is written to y[m * y_stride + y_col0 + n],
+// times *out_scale when that is given (one rounded multiply).
+template <int NBITS, typename XT, int MODE>
 __device__ __forceinline__ void tile(const XT* __restrict__ x, const float* __restrict__ inv,
                                      const uint8_t* __restrict__ packed,
                                      const float* __restrict__ cb, float* __restrict__ y, int M,
                                      int K, int N, int packed_rows, int nblock, int mblock,
-                                     int64_t y_stride, int y_col0, Smem& sm) {
+                                     int64_t y_stride, int y_col0, Smem& sm,
+                                     const float* __restrict__ out_scale = nullptr) {
   float(*xs)[BM] = sm.xs;
   float(*ws)[BN] = sm.ws;
   float* cb_s = sm.cb;
@@ -75,7 +77,8 @@ __device__ __forceinline__ void tile(const XT* __restrict__ x, const float* __re
             const int k = b * KB + kk;
             float v = 0.0f;
             if (k < K && m0 + row < M)
-              v = transform<QUANT>(to_float(x[(int64_t)(m0 + row) * K + k]), inv[k]);
+              v = transform<MODE>(to_float(x[(int64_t)(m0 + row) * K + k]),
+                                  MODE == NONE ? 0.0f : inv[k]);
             xs[i * KB + kk][row] = v;
           }
         }
@@ -123,6 +126,7 @@ __device__ __forceinline__ void tile(const XT* __restrict__ x, const float* __re
       for (int c = 0; c < TN; ++c) total[r][c] += acc[r][c];
   }
 
+  const float sc = out_scale ? *out_scale : 1.0f;
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int m = m0 + ty * TM + r;
@@ -130,7 +134,9 @@ __device__ __forceinline__ void tile(const XT* __restrict__ x, const float* __re
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
       const int n = n0 + tx * TN + c;
-      if (n < N) y[(int64_t)m * y_stride + y_col0 + n] = total[r][c];
+      if (n < N)
+        y[(int64_t)m * y_stride + y_col0 + n] =
+            out_scale ? __fmul_rn(total[r][c], sc) : total[r][c];
     }
   }
 }

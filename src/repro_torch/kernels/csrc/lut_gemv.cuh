@@ -28,13 +28,15 @@ struct __align__(16) Smem {
 };
 
 // Strip (nblock, mblock) of Y for one (x, inv, packed, cb) operand set of
-// width N; its element (m, n) is written to y[m * y_stride + y_col0 + n].
-template <int NBITS, typename XT, bool QUANT>
+// width N; its element (m, n) is written to y[m * y_stride + y_col0 + n],
+// times *out_scale when that is given (one rounded multiply).
+template <int NBITS, typename XT, int MODE>
 __device__ __forceinline__ void strip(const XT* __restrict__ x, const float* __restrict__ inv,
                                       const uint8_t* __restrict__ packed,
                                       const float* __restrict__ cb, float* __restrict__ y, int M,
                                       int K, int N, int packed_rows, int vec_ok, int nblock,
-                                      int mblock, int64_t y_stride, int y_col0, Smem& sm) {
+                                      int mblock, int64_t y_stride, int y_col0, Smem& sm,
+                                      const float* __restrict__ out_scale = nullptr) {
   float* buf = sm.buf;
   float* cb_s = sm.cb;
   const int tid = threadIdx.x;
@@ -66,7 +68,7 @@ __device__ __forceinline__ void strip(const XT* __restrict__ x, const float* __r
   auto fetch = [&](int r) {
     const int k = r * KROUND + tid;
     if (k < K) {
-      iv = inv[k];
+      if constexpr (MODE != NONE) iv = inv[k];
 #pragma unroll
       for (int m = 0; m < MT; ++m)
         if (m0 + m < M) xraw[m] = x[(int64_t)(m0 + m) * K + k];
@@ -96,7 +98,7 @@ __device__ __forceinline__ void strip(const XT* __restrict__ x, const float* __r
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         float v = 0.0f;
-        if (k < K && m0 + m < M) v = transform<QUANT>(to_float(xraw[m]), iv);
+        if (k < K && m0 + m < M) v = transform<MODE>(to_float(xraw[m]), iv);
         buf[m * KROUND + tid] = v;
       }
     }
@@ -165,7 +167,8 @@ __device__ __forceinline__ void strip(const XT* __restrict__ x, const float* __r
     }
   }
   if (tid < MT * BN && m0 + om < M && nblock0 + oc < N)
-    y[(int64_t)(m0 + om) * y_stride + y_col0 + nblock0 + oc] = total;
+    y[(int64_t)(m0 + om) * y_stride + y_col0 + nblock0 + oc] =
+        out_scale ? __fmul_rn(total, *out_scale) : total;
 }
 
 // 4-byte column loads need N % 4 == 0 and a 4-byte aligned code stream.

@@ -1,7 +1,12 @@
-"""Fused sub-byte-code dequant + matmul — the LCD serving GEMM, for Hopper.
+"""Sub-byte-code dequant + matmul — the LCD LUT GEMMs, for Hopper.
 
-Four entry points, the counterparts of the JAX package's Pallas kernels of
+Six entry points, the counterparts of the JAX package's Pallas kernels of
 the same names:
+
+  lut_matmul_f32              — Y = x @ codebook[codes], x already smoothed;
+  lut_matmul_int8             — Y = s_q * (q @ codebook[codes]), q the int8
+                                Eq. 11 codes (the paper's §4 bucket
+                                accumulation);
 
   lut_matmul_fused            — Y = T(x) @ codebook[codes], any M (used for
                                 M >= 128);
@@ -15,13 +20,14 @@ clip(round(·), ±127) with round-half-to-even. The caller applies the trailing
 s_q rescale. Weights arrive as packed centroid codes at `nbits` in {2, 3, 4}
 per code (core/lut.py layout); the codebook is padded to KC entries.
 
-On a CUDA tensor a wrapper launches its kernel (kernels/csrc/lut_gemv.cu,
-lut_gemm.cu, lut_multi_gemv.cu, lut_multi_gemm.cu) on the current stream and
-counts the launch; on a CPU tensor it runs the plain version (kernels/ref.py).
+On a CUDA tensor a wrapper launches its kernel (kernels/csrc/lut_plain.cu,
+lut_gemv.cu, lut_gemm.cu, lut_multi_gemv.cu, lut_multi_gemm.cu) on the
+current stream and counts the launch; on a CPU tensor it runs the plain version (kernels/ref.py).
 The kernels take the true M and N and mask ragged edges themselves; K must be
-the packing-group-padded d_in. All four sum over K in one fixed order, so a
-row's result is the same bits from any of them, and a projection's segment of
-a multi launch the same bits as its solo launch.
+the packing-group-padded d_in. All six sum over K in one fixed order, so a
+row's result is the same bits from any of them (lut_matmul_int8 on q equals
+lut_matmul_fused on x times s_q wherever q = clip(round(x * inv), ±127)), and
+a projection's segment of a multi launch the same bits as its solo launch.
 """
 from __future__ import annotations
 
@@ -31,8 +37,9 @@ import torch
 
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (lut_matmul_fused_multi_ref,
-                                     lut_matmul_fused_ref)
+from repro_torch.kernels.ref import (lut_matmul_f32_ref,
+                                     lut_matmul_fused_multi_ref,
+                                     lut_matmul_fused_ref, lut_matmul_int8_ref)
 
 # Codebook capacity the kernels are specialized for: <= 4-bit codes. Codebooks
 # are always padded to KC entries; an nbits-wide tensor references the first
@@ -41,7 +48,8 @@ KC = 16
 
 # launches of each kernel since the last reset (plain ints; see kernels/ops.py)
 LAUNCHES = {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
-            "lut_matmul_fused_multi_gemv": 0, "lut_matmul_fused_multi": 0}
+            "lut_matmul_fused_multi_gemv": 0, "lut_matmul_fused_multi": 0,
+            "lut_matmul_f32": 0, "lut_matmul_int8": 0}
 
 # projections one multi launch takes (the kernels' descriptor capacity,
 # csrc/lut_common.cuh MAX_PROJ)
@@ -64,27 +72,33 @@ def _check_packed_shape(k: int, packed_shape, nbits: int, caller: str) -> None:
             f"the packed tensor disagree on the packing width?")
 
 
-def _check_operands(x, inv_scale, packed_codes, codebook, nbits, caller):
+def _check_operands(x, inv_scale, packed_codes, codebook, nbits, caller,
+                    x_dtypes=(torch.float32, torch.bfloat16)):
+    """Shapes, dtypes, devices and contiguity; `inv_scale` is None for the
+    kernels without an input transform."""
     if x.ndim != 2 or packed_codes.ndim != 2:
         raise ValueError(f"{caller}: x and packed_codes must be 2-D; got "
                          f"{tuple(x.shape)} and {tuple(packed_codes.shape)}")
     m, k = x.shape
     _check_packed_shape(k, packed_codes.shape, nbits, caller)
-    if tuple(inv_scale.shape) != (k,):
+    if inv_scale is not None and tuple(inv_scale.shape) != (k,):
         raise ValueError(f"inv_scale must be ({k},); got {tuple(inv_scale.shape)}")
     if tuple(codebook.shape) != (KC,):
         raise ValueError(f"codebook must be padded to ({KC},); got "
                          f"{tuple(codebook.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{caller}: x must be float32 or bfloat16; got {x.dtype}")
+    if x.dtype not in x_dtypes:
+        names = " or ".join(str(d).split(".")[-1] for d in x_dtypes)
+        raise TypeError(f"{caller}: x must be {names}; got {x.dtype}")
     if packed_codes.dtype != torch.uint8:
         raise TypeError(f"{caller}: packed_codes must be uint8; got "
                         f"{packed_codes.dtype}")
-    for name, t in (("inv_scale", inv_scale), ("codebook", codebook)):
+    named = [("x", x), ("packed_codes", packed_codes), ("codebook", codebook)]
+    if inv_scale is not None:
+        named.append(("inv_scale", inv_scale))
+    for name, t in named[2:]:
         if t.dtype != torch.float32:
             raise TypeError(f"{caller}: {name} must be float32; got {t.dtype}")
-    for name, t in (("x", x), ("inv_scale", inv_scale),
-                    ("packed_codes", packed_codes), ("codebook", codebook)):
+    for name, t in named:
         if t.device != x.device:
             raise ValueError(f"{caller}: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -151,6 +165,62 @@ def lut_matmul_fused_gemv(
                                     quantize=quantize, nbits=nbits)
     return _launch("lut_matmul_fused_gemv", "lut_gemv_launch", x, inv_scale,
                    packed_codes, codebook, quantize, nbits)
+
+
+# ---------------------------------------------------------------------------
+# The paper's §4 layer: activations that need no transform
+# ---------------------------------------------------------------------------
+
+def lut_matmul_f32(
+    x: torch.Tensor,            # (M, K) float (bf16/f32) — pre-smoothed activations
+    packed_codes: torch.Tensor, # (K*nbits//8, N) uint8 — packed centroid codes
+    codebook: torch.Tensor,     # (KC,) f32 — padded with zeros beyond the active K
+    *,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """Y = x @ codebook[codes] in f32, codes streamed packed at `nbits`/code."""
+    _check_operands(x, None, packed_codes, codebook, nbits, "lut_matmul_f32")
+    if x.device.type != "cuda":
+        return lut_matmul_f32_ref(x, packed_codes, codebook, nbits=nbits)
+    m, k = x.shape
+    n = packed_codes.shape[1]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().lut_f32_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), packed_codes.data_ptr(),
+            codebook.data_ptr(), y.data_ptr(), m, k, n, packed_codes.shape[0], nbits,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "lut_matmul_f32")
+    LAUNCHES["lut_matmul_f32"] += 1
+    return y
+
+
+def lut_matmul_int8(
+    q: torch.Tensor,            # (M, K) int8 — Eq. 11 activation indices
+    packed_codes: torch.Tensor, # (K*nbits//8, N) uint8
+    codebook: torch.Tensor,     # (KC,) f32 centroids of the smoothed weights
+    act_scale,                  # s_q: a one-element f32 tensor, or a float
+    *,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """Y = s_q * (q @ codebook[codes]) — the paper's bucket accumulation, in
+    f32; the kernel applies s_q in its epilogue."""
+    _check_operands(q, None, packed_codes, codebook, nbits, "lut_matmul_int8",
+                    x_dtypes=(torch.int8,))
+    act = torch.as_tensor(act_scale, dtype=torch.float32, device=q.device).reshape(())
+    if q.device.type != "cuda":
+        return lut_matmul_int8_ref(q, packed_codes, codebook, act, nbits=nbits)
+    m, k = q.shape
+    n = packed_codes.shape[1]
+    y = torch.empty((m, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.library().lut_int8_launch(
+            q.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(),
+            act.data_ptr(), y.data_ptr(), m, k, n, packed_codes.shape[0],
+            nbits, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "lut_matmul_int8")
+    LAUNCHES["lut_matmul_int8"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------

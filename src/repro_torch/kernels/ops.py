@@ -5,7 +5,9 @@ selection, and the launch counters.
 serving-path entries the models call. They run the fused smooth(+quant)+LUT
 contraction streaming the tensors' packed codes: the CUDA kernels for CUDA
 tensors, their plain versions for CPU tensors (the choice is made by where the
-tensor lies, in the kernel wrappers, and nowhere else).
+tensor lies, in the kernel wrappers, and nowhere else). `lut_gemm` and
+`lut_gemm_int8` serve the paper's §4 layer: already-smoothed float
+activations, and int8 Eq. 11 codes.
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ from repro_torch.core.api import ClusteredTensor
 from repro_torch.core.lut import packed_rows, padded_d_in
 from repro_torch.kernels import lut_matmul as _lm
 from repro_torch.kernels import paged_attention as _pa
-from repro_torch.kernels.lut_matmul import (KC, lut_matmul_fused,
+from repro_torch.kernels import smooth_quant as _sq
+from repro_torch.kernels.lut_matmul import (KC, lut_matmul_f32, lut_matmul_fused,
                                             lut_matmul_fused_gemv,
                                             lut_matmul_fused_multi,
-                                            lut_matmul_fused_multi_gemv)
+                                            lut_matmul_fused_multi_gemv,
+                                            lut_matmul_int8)
 
 GEMV_MAX_M = 128   # M < 128 goes to the GEMV kernel, else to the GEMM kernel
 
@@ -34,11 +38,11 @@ def launch_counts() -> Dict[str, int]:
     """Launches of every kernel since the last `reset_launch_counts()`. A
     wrapper adds one where it launches its kernel and nowhere else; the plain
     versions that serve CPU tensors are not counted."""
-    return {**_lm.LAUNCHES, **_pa.LAUNCHES}
+    return {**_lm.LAUNCHES, **_pa.LAUNCHES, **_sq.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_lm.LAUNCHES, _pa.LAUNCHES):
+    for counts in (_lm.LAUNCHES, _pa.LAUNCHES, _sq.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -88,6 +92,43 @@ def _transform_params(ct: ClusteredTensor):
             inv = inv / ct.act_scale
     act = ct.act_scale if quantize else 1.0
     return inv.to(torch.float32), act, quantize
+
+
+def _pad_k(a: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Zero columns up to a whole packing group of K (the packed codes carry
+    zero-code tail rows there)."""
+    k = a.shape[1]
+    kc = padded_d_in(k, nbits)
+    return (F.pad(a, (0, kc - k)) if kc != k else a).contiguous()
+
+
+def lut_gemm(
+    x: torch.Tensor,            # (M, K) float activations, already smoothed
+    packed_codes: torch.Tensor, # (packed_rows(K), N) uint8
+    codebook: torch.Tensor,     # (K_active,) f32
+    *,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """Float-activation LUT GEMM, Y = x @ codebook[codes] (f32): the codebook
+    padded to KC, K to a whole packing group; ragged M and N are the
+    kernel's."""
+    return lut_matmul_f32(_pad_k(x, nbits), packed_codes, pad_codebook(codebook),
+                          nbits=nbits)
+
+
+def lut_gemm_int8(
+    q: torch.Tensor,            # (M, K) int8 Eq. 11 codes
+    packed_codes: torch.Tensor, # (packed_rows(K), N) uint8
+    codebook: torch.Tensor,     # (K_active,) f32
+    act_scale,                  # () f32 s_q
+    *,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """The paper's §4 LUT GEMM, Y = s_q * (q @ codebook[codes]) (f32), s_q
+    applied inside the kernel as the reference applies it inside
+    `lut_matmul_int8`; padding as `lut_gemm`."""
+    return lut_matmul_int8(_pad_k(q, nbits), packed_codes, pad_codebook(codebook),
+                           act_scale, nbits=nbits)
 
 
 def lut_gemm_fused(

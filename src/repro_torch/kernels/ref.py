@@ -15,6 +15,26 @@ from repro_torch.core.lut import lut_matmul_dequant_ref, unpack_codes
 KC = 16
 
 
+def lut_matmul_f32_ref(x: torch.Tensor, packed_codes: torch.Tensor,
+                       codebook: torch.Tensor, *, nbits: int = 4) -> torch.Tensor:
+    """Y = x @ codebook[codes], codes stored packed at `nbits` per code."""
+    k = x.shape[-1]
+    codes = unpack_codes(packed_codes, k, nbits)        # (K, N) int32
+    w = codebook[codes.long()]                          # (K, N) f32
+    return x.to(torch.float32) @ w
+
+
+def lut_matmul_int8_ref(q: torch.Tensor, packed_codes: torch.Tensor,
+                        codebook: torch.Tensor, act_scale, *,
+                        nbits: int = 4) -> torch.Tensor:
+    """Paper §4.2 semantics: signed bucket-table accumulation, then one
+    rescale — act_scale * (q @ codebook[codes])."""
+    k = q.shape[-1]
+    codes = unpack_codes(packed_codes, k, nbits)
+    w = codebook[codes.long()]
+    return (q.to(torch.float32) @ w) * act_scale
+
+
 def lut_matmul_fused_ref(
     x: torch.Tensor,            # (M, K) raw activations
     inv_scale: torch.Tensor,    # (K,) = 1/(s_m·s_q)  (or 1/s_m when quantize=False)
@@ -57,6 +77,18 @@ def lut_matmul_fused_multi_ref(
                              act_list[p], quantize=quantize[p], nbits=nbits[p])
         for p in range(len(packed_list))
     ]
+
+
+def smooth_quant_ref(x: torch.Tensor, inv_scale: torch.Tensor,
+                     bits: int = 8) -> torch.Tensor:
+    """int8(clip(round(x * inv_scale), -2^(b-1), 2^(b-1)-1)): the standalone
+    Eq. 11 transform. Unlike the fused kernels' symmetric ±127 clip it keeps
+    -128 (at 8 bits), as the reference's kernel does. `torch.round` rounds
+    half to even, as the kernel's `rintf` does."""
+    qmin = -(2.0 ** (bits - 1))
+    qmax = 2.0 ** (bits - 1) - 1
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv_scale), qmin, qmax)
+    return q.to(torch.int8)
 
 
 def _masked_paged_softmax(q, k, v, lengths, n_new, window: int, softcap: float):

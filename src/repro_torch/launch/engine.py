@@ -43,11 +43,14 @@ Continuous batching (`ServingEngine`)
     nothing else crosses between host and device inside `step` or inside the
     layer loop.
 
+With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
+from `seed`, or passed in) go through `compress_model` (core/api.py) on their
+device first, at `weight_bits` or under a `bits_budget`, as in the reference.
+
 Not ported yet, and refused with NotImplementedError naming the knob:
 speculative self-drafting, the prefix cache with copy-on-write, the priority
-scheduler, chunked-prefill admission, serving meshes, compressing real weights
-(`compress_model`, so `bits_budget` too), and every model family but the dense
-transformer.
+scheduler, chunked-prefill admission, serving meshes, and every model family
+but the dense transformer.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.api import is_clustered
+from repro_torch.core.api import CT_ARRAY_FIELDS, compress_model, is_clustered
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.models.config import get_config, reduced
 from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
@@ -112,11 +115,13 @@ def build_decode_fns(model, cfg, gen_tokens: int):
 
 
 def _model_and_params(arch, *, use_reduced, n_layers, fused_projections, lcd,
-                      weight_bits, seed, params, dev, caller):
-    """(model, params) for an entry point. Without `params`, dense weights are
-    drawn from `seed`; with `lcd=True`, random-but-valid clustered weights at
-    `weight_bits` instead (compressing real weights needs the compression
-    pipeline, which is not ported yet), with a log line saying so."""
+                      target_centroids, weight_bits, bits_budget, seed, params, dev):
+    """(model, params, compress report or None) for an entry point. Without
+    `params`, dense weights are drawn from `seed` on `dev`. With `lcd=True`
+    and no clustered leaf among them, the dense weights are compressed where
+    they lie, as the reference does: `compress_model` at
+    min(target_centroids, 2**weight_bits) centroids and `weight_bits` packing,
+    or under `bits_budget`."""
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg, dtype="float32")
@@ -127,21 +132,17 @@ def _model_and_params(arch, *, use_reduced, n_layers, fused_projections, lcd,
         cfg = dataclasses.replace(cfg, fused_projections=fused_projections)
     model = get_model(cfg)
     if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if lcd:
-            from repro_torch.core.clustered_params import materialize_clustered
-            params = materialize_clustered(model, gen, nbits=weight_bits, device=dev)
-            logger.info(
-                f"LCD: compress_model is not ported yet — serving "
-                f"random-but-valid {weight_bits}-bit clustered params "
-                f"(materialize_clustered, seed {seed})")
-        else:
-            params = model.init(gen, device=dev)
-    elif lcd and not _has_clustered(params):
-        raise NotImplementedError(
-            f"{caller}(lcd=True, params=<dense>): compress_model is not "
-            f"ported yet; pass clustered params")
-    return model, params
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    report = None
+    if lcd and not _has_clustered(params):
+        dense_bytes = _tree_bytes(params)
+        params, report = compress_model(
+            params, target_centroids=min(target_centroids, 1 << weight_bits),
+            nbits=weight_bits, bits_budget=bits_budget, device=dev)
+        logger.info("LCD: " + report.summary())
+        logger.info(f"weights: {human_bytes(dense_bytes)} dense -> "
+                    f"{human_bytes(_tree_bytes(params))} clustered")
+    return model, params, report
 
 
 def serve(arch: str, *, use_reduced: bool = True, lcd: bool = False,
@@ -154,21 +155,22 @@ def serve(arch: str, *, use_reduced: bool = True, lcd: bool = False,
     random prompts of `prompt_len` tokens (from `seed`); returns (tokens
     (B, gen) numpy, params).
 
-    The JAX package's signature: `target_centroids` and `bits_budget` belong
-    to its compression pipeline, which is not ported — materialized weights
-    use all 2^weight_bits centroids and `bits_budget` raises. Decoding is
-    greedy. Pass a dict as `stats` to receive timing and trace telemetry.
+    With `lcd=True`, dense params (drawn from `seed` when not given) are
+    LCD-compressed first: `weight_bits` is the uniform packing width,
+    `bits_budget` the Fisher-scored per-layer mix under a global mean, and
+    `stats` then receives `bits_assignment` and `mean_packed_bits`. Decoding
+    is greedy. Pass a dict as `stats` to receive timing and trace telemetry.
     `device` is "cuda" unless the caller asks for the CPU. For staggered
     multi-request traffic use `ServingEngine` instead."""
-    if bits_budget is not None:
-        raise NotImplementedError(
-            "serve(bits_budget=...): per-layer mixed precision comes from "
-            "compress_model, which is not ported yet")
     dev = resolve_device(device)
-    model, params = _model_and_params(
+    model, params, report = _model_and_params(
         arch, use_reduced=use_reduced, n_layers=None,
-        fused_projections=fused_projections, lcd=lcd, weight_bits=weight_bits,
-        seed=seed, params=params, dev=dev, caller="serve")
+        fused_projections=fused_projections, lcd=lcd,
+        target_centroids=target_centroids, weight_bits=weight_bits,
+        bits_budget=bits_budget, seed=seed, params=params, dev=dev)
+    if stats is not None and report is not None:
+        stats["bits_assignment"] = dict(report.bits_assignment)
+        stats["mean_packed_bits"] = report.mean_packed_bits
     cfg = model.cfg
     cache = model.init_cache(batch, prompt_len + gen_tokens, device=dev)
     rng = np.random.default_rng(seed)
@@ -588,6 +590,8 @@ class ServingEngine:
         if kv_smooth is not None and self.kv_dtype != "int8":
             raise ValueError("kv_smooth only applies to the int8 KV cache")
         self.model, self.params, self.ecfg = model, params, ecfg
+        # the CompressReport of the params, when build_engine compressed them
+        self.compress_report = None
         self.clock = clock
         self.alloc = BlockAllocator(ecfg.num_blocks)
         self.slots: List[Optional[Request]] = [None] * ecfg.num_slots
@@ -929,19 +933,33 @@ def _has_clustered(tree) -> bool:
     return False
 
 
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor in a parameter tree (a ClusteredTensor's fields
+    included)."""
+    if is_clustered(tree):
+        return sum(_tree_bytes(getattr(tree, f)) for f in CT_ARRAY_FIELDS)
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
-                 ecfg: Optional[EngineConfig] = None, seed: int = 0,
-                 params=None, kv_smooth=None, fused_projections: bool = True,
-                 n_layers: Optional[int] = None, device="cuda"):
+                 target_centroids: int = 8, ecfg: Optional[EngineConfig] = None,
+                 seed: int = 0, params=None, kv_smooth=None,
+                 fused_projections: bool = True, n_layers: Optional[int] = None,
+                 device="cuda"):
     """(engine, params): model + params wrapped in a ready ServingEngine on
     `device` ("cuda" unless the caller asks for the CPU; asking for a card
     that is not there raises).
 
-    Without `params`, dense weights are drawn from `seed`; with `lcd=True`
-    and no clustered `params`, random-but-valid clustered params are
-    materialized at `ecfg.weight_bits` (core/clustered_params.py
-    materialize_clustered — compressing real weights needs the compression
-    pipeline, which is not ported yet) and a log line says so. With
+    Without `params`, dense weights are drawn from `seed`. With `lcd=True` and
+    no clustered leaf among the params, the dense weights are LCD-compressed
+    (`compress_model`; `ecfg.weight_bits` / `ecfg.bits_budget` set the packing
+    policy) and the report lands on the engine as `compress_report` (None
+    when nothing was compressed). Clustered params without a compression run
+    come from `core/clustered_params.py materialize_clustered`. With
     `ecfg.kv_dtype == "int8"` and no `kv_smooth`, the cache smoothing vectors
     are calibrated here (`calibrate_kv_smooth`). `n_layers` cuts the model's
     depth (widths stay)."""
@@ -952,11 +970,11 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
         # eagerly with the capability named
         ecfg = dataclasses.replace(ecfg, arch=arch)
     _refuse_unported(ecfg, get_model(arch))
-    model, params = _model_and_params(
+    model, params, report = _model_and_params(
         arch, use_reduced=use_reduced, n_layers=n_layers,
         fused_projections=fused_projections, lcd=lcd,
-        weight_bits=ecfg.weight_bits, seed=seed, params=params, dev=dev,
-        caller="build_engine")
+        target_centroids=target_centroids, weight_bits=ecfg.weight_bits,
+        bits_budget=ecfg.bits_budget, seed=seed, params=params, dev=dev)
     resolved_kv = ecfg.kv_dtype or (
         "int8" if model.cfg.kv_cache_dtype == "int8" else "float")
     if (resolved_kv == "int8" and kv_smooth is None
@@ -965,4 +983,5 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
         logger.info("int8 KV cache: smoothing calibrated "
                     "(Eq. 9 candidate search per layer x kv-head)")
     engine = ServingEngine(model, params, ecfg, kv_smooth=kv_smooth, device=dev)
+    engine.compress_report = report
     return engine, params

@@ -10,6 +10,11 @@ Continuous batching (staggered requests, paged KV cache):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
         --continuous --requests 6 --tokens 16
 
+`--lcd` compresses the dense weights drawn from `--seed` with the LCD pipeline
+(`compress_model`) before serving: `--bits` packs every layer at one width,
+`--bits-budget` mixes widths per layer under a global mean, `--describe`
+prints the per-layer inventory and exits (continuous mode).
+
 and at toy size on the CPU (`--device cpu`; add `--kv-dtype int8` for the
 int8 block pool, whose smoothing vectors are calibrated at start-up):
 
@@ -37,6 +42,18 @@ __all__ = ["BlockAllocator", "EngineConfig", "Request", "ServingEngine",
            "build_decode_fns", "build_engine", "serve", "main"]
 
 
+def _describe(engine) -> None:
+    """Deployment inventory: per-layer packing width and centroid count of the
+    compressed weights, their packed bytes, and the KV pool dtype."""
+    from repro_torch.core.clustered_params import packed_weight_bytes
+    if engine.compress_report is None:
+        logger.info("describe: params are not LCD-compressed (run with --lcd)")
+    else:
+        logger.info("target bits assignment:\n" + engine.compress_report.bits_table())
+        logger.info(f"target packed weight bytes: {packed_weight_bytes(engine.params)}")
+    logger.info(f"kv_dtype: {engine.kv_dtype}")
+
+
 def _build_kernels(device) -> None:
     """Build (or find) the kernels now, so that the timing after is serving only."""
     if device.type == "cuda":
@@ -52,11 +69,14 @@ def _run_continuous(args, device) -> list:
                         max_blocks_per_slot=args.blocks_per_slot,
                         prefill_chunk=args.prefill_chunk,
                         kv_dtype=args.kv_dtype, weight_bits=args.bits,
-                        arch=args.arch)
+                        bits_budget=args.bits_budget, arch=args.arch)
     engine, _ = build_engine(args.arch, use_reduced=args.reduced, lcd=args.lcd,
-                             ecfg=ecfg, seed=args.seed,
-                             fused_projections=args.fused_projections,
+                             target_centroids=args.centroids, ecfg=ecfg,
+                             seed=args.seed, fused_projections=args.fused_projections,
                              device=device)
+    if args.describe:
+        _describe(engine)
+        return []
     rng = np.random.default_rng(args.seed)
     cfg = engine.model.cfg
     # staggered submissions: a fresh request every other scheduler step, with
@@ -98,7 +118,11 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--lcd", action="store_true")
+    ap.add_argument("--lcd", action="store_true",
+                    help="LCD-compress the dense weights (compress_model) and "
+                         "serve them through the LUT kernels")
+    ap.add_argument("--centroids", type=int, default=8,
+                    help="target centroid count per layer (capped at 2^bits)")
     ap.add_argument("--batch", type=int, default=4,
                     help="sequences of the static batch")
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -120,25 +144,36 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
                          "the model config (continuous mode only)")
     ap.add_argument("--bits", type=int, choices=(2, 3, 4), default=4,
                     help="uniform LCD weight packing width")
+    ap.add_argument("--bits-budget", type=float, default=None,
+                    help="per-layer mixed precision under a global "
+                         "element-weighted mean-bits cap (e.g. 3.0): "
+                         "empirical-Fisher scores keep sensitive layers at "
+                         "4-bit and drop the rest to 3/2 (overrides --bits)")
     ap.add_argument("--no-fused-projections", dest="fused_projections",
                     action="store_false",
                     help="serve same-input projection groups (QKV; gate+up) "
                          "through per-projection LUT kernel launches instead "
                          "of one multi-projection launch; the same bits, for "
                          "perf triage only")
+    ap.add_argument("--describe", action="store_true",
+                    help="print the deployment inventory (per-layer bits "
+                         "assignment, packed weight bytes, kv dtype) and "
+                         "exit without serving (continuous mode)")
     ap.add_argument("--device", default=device or "cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.kv_dtype and not args.continuous:
         ap.error("--kv-dtype applies to the paged engine; add --continuous")
+    if args.describe and not args.continuous:
+        ap.error("--describe inspects the paged engine; add --continuous")
     dev = resolve_device(args.device)
     if args.continuous:
         return _run_continuous(args, dev)
     _build_kernels(dev)
     gen, _ = serve(args.arch, use_reduced=args.reduced, lcd=args.lcd,
-                   batch=args.batch, prompt_len=args.prompt_len,
-                   gen_tokens=args.tokens, seed=args.seed,
-                   weight_bits=args.bits,
+                   target_centroids=args.centroids, batch=args.batch,
+                   prompt_len=args.prompt_len, gen_tokens=args.tokens, seed=args.seed,
+                   weight_bits=args.bits, bits_budget=args.bits_budget,
                    fused_projections=args.fused_projections, device=dev)
     return gen
 

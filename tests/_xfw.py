@@ -12,7 +12,9 @@ its PyTorch port `repro_torch` fed the same numpy inputs.
   * `cluster_params`  — a fast, deterministic stand-in for `compress_model`
                         (quantile clustering through the reference's own
                         ClusteredTensor layout) so whole-model tests get LCD
-                        weights in milliseconds.
+                        weights in milliseconds;
+  * `one_torch_thread` — a fixture for tests that run the compression
+                        pipeline on the CPU.
 
 Only tests import this module: it imports both frameworks.
 """
@@ -23,6 +25,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core.api import ClusteredTensor as RefClusteredTensor
@@ -169,3 +172,15 @@ def port_model(arch: str, **overrides):
     from repro_torch.models.registry import get_model
     return get_model(reduced(get_config(arch), **{
         "dtype": "float32", "fused_projections": False, **overrides}))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one intra-op thread for the test. The compression pipeline
+    runs thousands of small ops; with the suite's workers sharing the cores,
+    each of torch's parallel regions waits on descheduled threads, and a
+    reduced llama2-7b compression takes ~57 s instead of ~4 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

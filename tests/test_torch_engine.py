@@ -20,6 +20,7 @@ from repro_torch.core.api import dense_to_clustered, is_clustered
 from repro_torch.launch import engine as port_engine
 from repro_torch.launch import serve as port_serve
 
+from _xfw import one_torch_thread  # noqa: F401  (fixture)
 from _xfw import (assert_equal, cluster_params, np_of, port_model,
                   reference_model, to_numpy_tree, with_act_scale)
 
@@ -151,6 +152,7 @@ def test_unported_knobs_raise_not_implemented_naming_the_knob(kw, knob):
         port_engine.build_engine("llama2-7b", ecfg=ecfg, device="cpu")
 
 
+@pytest.mark.usefixtures("one_torch_thread")   # --lcd compresses on the CPU
 def test_other_unported_surface():
     import dataclasses
     from repro_torch.models.registry import get_model
@@ -164,11 +166,15 @@ def test_other_unported_surface():
         get_model(dataclasses.replace(model.cfg, family="moe"))
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(dataclasses.replace(model.cfg, family="nope"))
-    with pytest.raises(NotImplementedError, match="compress_model"):
-        port_engine.build_engine("llama2-7b", lcd=True, params=params, n_layers=1,
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="compress_model"):
-        port_engine.serve("llama2-7b", bits_budget=2.5, device="cpu")
+    # compress_model is ported: dense params with lcd=True are compressed,
+    # and bits_budget without lcd serves the dense weights, as in the reference
+    engine, clustered = port_engine.build_engine("llama2-7b", lcd=True, params=params,
+                                                 n_layers=1, device="cpu")
+    assert engine.compress_report is not None
+    assert is_clustered(clustered["blocks"]["mlp"]["w_up"])
+    gen, dense = port_engine.serve("llama2-7b", bits_budget=2.5, batch=1, prompt_len=3,
+                                   gen_tokens=2, device="cpu")
+    assert gen.shape == (1, 2) and not is_clustered(dense["blocks"]["mlp"]["w_up"])
     with pytest.raises(ValueError, match="kv_smooth only applies"):
         port_engine.ServingEngine(model, params, kv_smooth=(1, 1), device="cpu")
 
@@ -414,6 +420,7 @@ def test_eligibility_rule_matches_reference():
     assert got == want and sum(got.values()) == 7
 
 
+@pytest.mark.usefixtures("one_torch_thread")   # --lcd compresses on the CPU
 def test_serve_cli_runs_on_the_cpu():
     finished = port_serve.main(
         ["--arch", "qwen2-1.5b", "--reduced", "--lcd", "--continuous",

@@ -59,7 +59,10 @@ def test_kernel_sources_exist_and_say_what_they_replace():
                          ("lut_gemm.cu", "lut_matmul_fused"),
                          ("lut_multi_gemv.cu", "lut_matmul_fused_multi_gemv"),
                          ("lut_multi_gemm.cu", "lut_matmul_fused_multi"),
-                         ("paged_attention.cu", "paged_pool_attention")):
+                         ("paged_attention.cu", "paged_pool_attention"),
+                         ("lut_plain.cu", "lut_matmul_f32"),
+                         ("lut_plain.cu", "lut_matmul_int8"),
+                         ("smooth_quant.cu", "smooth_quant")):
         head = (_build.CSRC / name).read_text()[:2500]
         assert f"`{pallas}`" in head and "Replaces the Pallas TPU kernel" in head
         assert "What bounds it" in head
@@ -76,8 +79,11 @@ def test_build_directory_is_ignored_and_keyed_by_the_sources():
 
 
 def test_import_builds_nothing():
+    import repro_torch.core.api  # noqa: F401
+    import repro_torch.core.smoothing  # noqa: F401
     import repro_torch.kernels.lut_matmul  # noqa: F401
     import repro_torch.kernels.paged_attention  # noqa: F401
+    import repro_torch.kernels.smooth_quant  # noqa: F401
     from repro_torch.kernels import _build
     assert _build._lib is None, "the library must load at the first launch, not at import"
 

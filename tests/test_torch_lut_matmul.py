@@ -228,4 +228,5 @@ def test_cpu_tensors_launch_no_kernel():
     assert port_ops.launch_counts() == {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
                                         "lut_matmul_fused_multi_gemv": 0,
                                         "lut_matmul_fused_multi": 0,
-                                        "paged_pool_attention": 0}
+                                        "paged_pool_attention": 0, "lut_matmul_f32": 0,
+                                        "lut_matmul_int8": 0, "smooth_quant": 0}

@@ -30,6 +30,7 @@ from repro_torch.launch import serve as port_serve
 from repro_torch.models import layers as port_layers
 from repro_torch.models import transformer as port_tf
 
+from _xfw import one_torch_thread  # noqa: F401  (fixture)
 from _xfw import (assert_close, assert_equal, cluster_params, np_of, port_model,
                   reference_model, to_numpy_tree, with_act_scale)
 
@@ -255,6 +256,7 @@ def test_kv_capacity_report_equals_reference():
                         == ref_engine.paged_kv_bytes_per_block(rcfg, 16, dt))
 
 
+@pytest.mark.usefixtures("one_torch_thread")   # --lcd compresses on the CPU
 def test_build_engine_calibrates_the_int8_pool():
     engine, params = port_engine.build_engine(
         "llama2-7b", lcd=True, n_layers=2, device="cpu",
@@ -294,6 +296,7 @@ def test_serve_equals_the_reference_static_path_on_the_same_dense_params(arch):
     assert stats["batch"] == 2 and stats["gen_tokens"] == 4 and stats["tokens_per_s"] > 0
 
 
+@pytest.mark.usefixtures("one_torch_thread")   # --lcd compresses on the CPU
 def test_serve_lcd_and_the_static_cli_on_the_cpu():
     gen, params = port_engine.serve("llama2-7b", lcd=True, batch=2, prompt_len=5,
                                     gen_tokens=3, weight_bits=3, device="cpu")
@@ -311,10 +314,16 @@ def test_serve_lcd_and_the_static_cli_on_the_cpu():
                          "--device", "cpu"])
 
 
+@pytest.mark.usefixtures("one_torch_thread")   # --lcd compresses on the CPU
 def test_serve_refuses_what_needs_the_compression_pipeline():
-    with pytest.raises(NotImplementedError, match="compress_model"):
-        port_engine.serve("llama2-7b", bits_budget=3.0, device="cpu")
-    model = port_model("llama2-7b", n_layers=1)
+    """What used to be refused for want of the compression pipeline now runs
+    through it: a bits budget, and dense params with lcd=True."""
+    stats = {}
+    gen, params = port_engine.serve("llama2-7b", lcd=True, bits_budget=3.0, batch=1,
+                                    prompt_len=4, gen_tokens=2, stats=stats, device="cpu")
+    assert gen.shape == (1, 2) and stats["mean_packed_bits"] <= 3.0
+    model = port_model("llama2-7b", fused_projections=True)
     dense = model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="compress_model"):
-        port_engine.serve("llama2-7b", lcd=True, params=dense, device="cpu")
+    gen, params = port_engine.serve("llama2-7b", lcd=True, params=dense, batch=1,
+                                    prompt_len=4, gen_tokens=2, device="cpu")
+    assert gen.shape == (1, 2) and params["blocks"]["attn"]["wq"].nbits == 4
