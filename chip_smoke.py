@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-Builds the eight hand-written CUDA kernels from the sources in this checkout,
+Builds the ten hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card at the shapes
 llama2-7b and qwen2-1.5b give it (every projection of a multi-projection
 launch bit for bit against its solo launch, the §4 layer's int8 LUT GEMM bit
-for bit against the fused serving GEMM), runs the paper's §4 LUT layer at
+for bit against the fused serving GEMM, the dequantizing attention over a
+gathered int8 view bit for bit against the pool-direct one), calls the two
+attention kernels with their tiles left to the tuner on a fresh cache (every
+candidate measured once, nothing on a hit or after a reload), runs the
+paper's §4 LUT layer at
 llama2-7b's gate_proj width (smoothing, clustering, then the online Eq. 11
 transform and the bucket LUT GEMM), checks a 2-layer full-width model on the
 card against the same model on the CPU, then serves LCD 4-bit llama2-7b at
@@ -622,6 +626,326 @@ def check_plain_kernels(gen):
     return cases, worst, headline
 
 
+# ---------------------------------------------------------------------------
+# the attention kernels B8 (gathered int8 view) and B9 (flash), and the
+# library yardstick timed beside them
+# ---------------------------------------------------------------------------
+
+def _attention_close(out, ref):
+    """(ok, max |out - ref|, the worst ratio of an element's error to its
+    limit) for an attention output against its plain version on the same
+    inputs. f32 is held to the reference's 2e-5. bf16 is held per element:
+    both sides round an f32 result to bf16, so an element may differ by one
+    bf16 ulp, at most 2^-7 |ref|, plus 2^-7 rms(ref) for elements near zero.
+    A flat limit would be as large as a typical output: at Sk = 4096 most
+    rows average thousands of values and |out| is about 0.04."""
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        lim = torch.full_like(err, 2e-5)
+    else:
+        r = ref.float()
+        lim = 2.0 ** -7 * (r.abs() + r.square().mean().sqrt())
+    ratio = float((err / lim).max())
+    ok = bool(torch.isfinite(out.float()).all()) and out.dtype == ref.dtype and ratio <= 1.0
+    return ok, float(err.max()), ratio
+
+
+def _sdpa_yardstick_ms(q, k, v, *, is_causal=False, attn_mask=None, iters=10) -> float:
+    """Milliseconds of one PyTorch library attention call on (B, H, S, D)
+    operands: the yardstick beside B8 and B9, timed here and used nowhere in
+    the port."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(lambda i: f(q, k, v, attn_mask=attn_mask, is_causal=is_causal), iters)
+
+
+def _dequant_case(gen, t, h, kv, qdtype, window):
+    """An int8 block pool at llama2-7b's engine shape (`EngineConfig` of the
+    serve phase: 8 slots, 32 blocks of 16 per slot, so L = 512), its view
+    gathered through random block tables, random lengths <= L - T, an idle
+    slot, a slot with no new tokens and one with n_new < T."""
+    from repro_torch.models.layers import quantize_kv
+    dev = gen.device
+    s, d, bs, nb, nbw = 8, 128, 16, 256, 32
+    l = nbw * bs
+    host = torch.Generator().manual_seed(7 * t + h)
+    lengths = torch.randint(0, l - t + 1, (s,), generator=host, dtype=torch.int32)
+    n_new = torch.full((s,), t, dtype=torch.int32)
+    lengths[2], n_new[2] = 0, 0                        # idle: nothing visible
+    n_new[5] = 0                                       # cached tokens, none new
+    n_new[6] = max(t // 2, 1)
+    tables = torch.randperm(nb, generator=host)[:s * nbw].reshape(s, nbw).to(torch.int32)
+    ksm = 0.5 + torch.rand((kv, d), generator=gen, device=dev)
+    vsm = 0.5 + torch.rand((kv, d), generator=gen, device=dev)
+    kp, ks = quantize_kv(torch.randn((nb, bs, kv, d), generator=gen, device=dev), ksm)
+    vp, vs = quantize_kv(torch.randn((nb, bs, kv, d), generator=gen, device=dev), vsm)
+    kp, ks, vp, vs = (x.contiguous() for x in (kp, ks, vp, vs))
+    q = torch.randn((s, t, h, d), generator=gen, device=dev).to(qdtype)
+    tables, lengths, n_new = tables.to(dev), lengths.to(dev), n_new.to(dev)
+
+    def view(pool):
+        return pool[tables.long()].reshape(s, l, *pool.shape[2:]).contiguous()
+
+    dq = (q, view(kp), view(ks), view(vp), view(vs), ksm, vsm, lengths, n_new, window)
+    pool = ((q, kp, vp, tables, lengths, n_new, window),
+            dict(k_scale=ks, v_scale=vs, k_smooth=ksm, v_smooth=vsm))
+    # what this data needs: for a slot with new tokens, the K and V codes and
+    # scales of the keys its queries can see (length + n_new, narrowed by the
+    # window) and the q / out rows of its new tokens
+    seen = rows = 0
+    for a, b in zip(lengths.tolist(), n_new.tolist()):
+        if b:
+            seen += a + b - (max(0, a - window + 1) if window > 0 else 0)
+            rows += b
+    nbytes = (2 * seen * kv * (d + 4) + 2 * kv * d * 4 + 2 * rows * h * d * q.element_size()
+              + 2 * s * 4)
+    bound = dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return dq, pool, bound
+
+
+def check_dequant_attention(gen):
+    """B8 against its plain version at llama2-7b's engine shape (H = KV = 32)
+    and qwen2-1.5b's GQA (12 heads over 2), D 128, L 512, T in {1, 32}, with a
+    window of 64 and a softcap of 50; B8 on the gathered view torch.equal to
+    B5 on the pool, and l_pad 128 torch.equal to l_pad 256."""
+    from repro_torch.kernels.paged_attention import (paged_dequant_attention,
+                                                     paged_pool_attention)
+    from repro_torch.kernels.ref import paged_dequant_attention_ref
+    cases, worst = [], 0.0
+    for t in (1, 32):
+        for (h, kv) in ((32, 32), (12, 2)):
+            for qdtype in (torch.bfloat16, torch.float32):
+                for window, softcap in ((0, 0.0), (64, 0.0), (0, 50.0)):
+                    dq, (pa, pkw), _ = _dequant_case(gen, t, h, kv, qdtype, window)
+                    out = paged_dequant_attention(*dq, softcap=softcap, l_pad=128)
+                    out256 = paged_dequant_attention(*dq, softcap=softcap, l_pad=256)
+                    pool = paged_pool_attention(*pa, softcap=softcap, **pkw)
+                    ref = paged_dequant_attention_ref(*dq, softcap=softcap)
+                    torch.cuda.synchronize()
+                    # as for B5: f32 rows differ by f32 rounding; bf16 elements by
+                    # one ulp each (_attention_close)
+                    if qdtype == torch.float32:
+                        tol = 5e-5 * max(float(ref.abs().max()), 1.0)
+                        err = float((out - ref).abs().max())
+                        close, ratio = err <= tol, err / tol
+                    else:
+                        tol = "2^-7 (|ref| + rms(ref)) per element"
+                        close, err, ratio = _attention_close(out, ref)
+                    case = dict(kernel="paged_dequant_attention", t=t, h=h, kv=kv,
+                                q=str(qdtype).split(".")[-1], window=window, softcap=softcap,
+                                max_abs_err=err, tol=tol, err_over_limit=ratio,
+                                equals_pool_attention_bits=bool(torch.equal(out, pool)),
+                                l_pad_128_equals_256=bool(torch.equal(out, out256)),
+                                idle_slot_zero=bool((out[2] == 0).all()))
+                    if not (bool(torch.isfinite(out.float()).all()) and close
+                            and case["equals_pool_attention_bits"]
+                            and case["l_pad_128_equals_256"] and case["idle_slot_zero"]):
+                        emit("kernels", failed=case)
+                        raise SystemExit(f"paged_dequant_attention disagrees: {case}")
+                    worst = max(worst, err)
+                    cases.append(case)
+    return cases, worst
+
+
+# B9's shapes: llama2-7b's prefill attention (one sequence x 32 heads, 4096
+# tokens, D 128), its gemma2-style masks, a decode window and a padded cache
+FLASH_CASES = (
+    ("prefill causal", dict(bh=32, sq=4096, sk=4096, dtype=torch.bfloat16), {}),
+    ("window 1024 softcap 50", dict(bh=32, sq=4096, sk=4096, dtype=torch.bfloat16),
+     dict(window=1024, softcap=50.0)),
+    ("decode window", dict(bh=32, sq=128, sk=4096, dtype=torch.bfloat16),
+     dict(q_offset=3968)),
+    ("padded cache k_len 3000", dict(bh=32, sq=4096, sk=4096, dtype=torch.bfloat16),
+     dict(k_len=3000)),
+    ("f32 causal", dict(bh=32, sq=1024, sk=1024, dtype=torch.float32), {}),
+    # at the heuristic tile (256, 512) the window is narrower than bk: a row's
+    # first step can be all masked (the finite -1e30 keeps it NaN-free)
+    ("f32 window 256 softcap 30", dict(bh=32, sq=1024, sk=1024, dtype=torch.float32),
+     dict(window=256, softcap=30.0)),
+    ("f32 non-causal", dict(bh=32, sq=256, sk=1024, dtype=torch.float32),
+     dict(causal=False)),
+)
+
+
+def _flash_operands(gen, bh, sq, sk, dtype, d=128):
+    return [torch.randn((bh, s, d), generator=gen, device=gen.device).to(dtype)
+            for s in (sq, sk, sk)]
+
+
+def _flash_bound(bh, sq, sk, d, dtype, causal=True, window=0, q_offset=0, k_len=0):
+    """max(bytes of q, k, v and out once over the memory rate, 4 * D
+    operations per visible (query, key) pair over the peak of the type)."""
+    qp = q_offset + np.arange(sq, dtype=np.int64)
+    klim = min(k_len, sk) if k_len > 0 else sk
+    kmin = np.maximum(0, qp - window + 1) if window > 0 else np.zeros_like(qp)
+    kmax = np.minimum(qp if causal else sk - 1, klim - 1)
+    pairs = int(np.maximum(kmax - kmin + 1, 0).sum()) * bh
+    elt = torch.empty((), dtype=dtype).element_size()
+    t_b = (2 * bh * sq * d + 2 * bh * sk * d) * elt / HBM_BYTES_PER_S
+    t_o = 4.0 * d * pairs / PEAK_OPS[dtype]
+    return dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations",
+                visible_pairs=pairs)
+
+
+def check_flash_attention(gen):
+    """B9 against its plain version at every FLASH_CASES shape: at the bf16
+    prefill and the f32 causal case every (bq, bk) the tuner may pick, so each
+    rows-per-pass variant of the kernel is held at f32's 2e-5 too; elsewhere
+    the heuristic and the smallest tile. f32 within 2e-5, bf16 per element
+    (_attention_close)."""
+    from repro_torch.kernels.autotune import flash_candidates, flash_heuristic
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    cases, worst = [], 0.0
+    for name, shape, kw in FLASH_CASES:
+        q, k, v = _flash_operands(gen, shape["bh"], shape["sq"], shape["sk"], shape["dtype"])
+        ref = flash_attention_ref(q, k, v, **kw)
+        tiles = (flash_candidates(shape["sq"], shape["sk"])
+                 if name in ("prefill causal", "f32 causal")
+                 else [flash_heuristic(shape["sq"], shape["sk"]), (64, 128)])
+        tol = (2e-5 if shape["dtype"] == torch.float32
+               else "2^-7 (|ref| + rms(ref)) per element")
+        for bq, bk in tiles:
+            out = flash_attention(q, k, v, bq=bq, bk=bk, **kw)
+            torch.cuda.synchronize()
+            close, err, ratio = _attention_close(out, ref)
+            case = dict(kernel="flash_attention", case=name, bq=bq, bk=bk,
+                        dtype=str(shape["dtype"]).split(".")[-1], max_abs_err=err, tol=tol,
+                        err_over_limit=ratio, **{x: shape[x] for x in ("bh", "sq", "sk")}, **kw)
+            if not close:
+                emit("kernels", failed=case)
+                raise SystemExit(f"flash_attention disagrees with its plain version: {case}")
+            worst = max(worst, err)
+            cases.append(case)
+        del q, k, v, ref
+    return cases, worst
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels' tuner
+# ---------------------------------------------------------------------------
+
+def phase_autotune(seed: int):
+    """The path that runs B8 and B9: their public entry points with the tile
+    left as None, as the reference's wrappers run on a compiled backend. On a
+    fresh cache file each call measures every candidate tile through the
+    kernel and runs the winner; called again, the wrappers measure nothing
+    and give the same outputs; the cache reloaded from its JSON file, again
+    nothing. Returns (launch counts of the path, B8 / B9 headline rows)."""
+    import tempfile
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels.paged_attention import paged_dequant_attention
+    from repro_torch.kernels.ref import flash_attention_ref, paged_dequant_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    flash_calls = {"prefill causal": FLASH_CASES[0], "decode window": FLASH_CASES[2]}
+    flash_ops = {n: _flash_operands(gen, c[1]["bh"], c[1]["sq"], c[1]["sk"], c[1]["dtype"])
+                 for n, c in flash_calls.items()}
+    dequant_calls = {"llama2-7b T=1": (1, 32, 32), "llama2-7b T=32": (32, 32, 32),
+                     "qwen2-1.5b T=32": (32, 12, 2)}
+    dequant_ops = {n: _dequant_case(gen, t, h, kv, torch.bfloat16, 0)
+                   for n, (t, h, kv) in dequant_calls.items()}
+
+    def run_path():
+        outs = {}
+        for n, (q, k, v) in flash_ops.items():
+            outs["flash " + n] = flash_attention(q, k, v, **flash_calls[n][2])
+        for n, (dq, _, _) in dequant_ops.items():
+            outs["paged " + n] = paged_dequant_attention(*dq)
+        torch.cuda.synchronize()
+        return outs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        cache = autotune.reset_cache(path)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = run_path()
+        tune_s = time.perf_counter() - t0
+        counts = launch_counts()
+        measured = dict(cache.measured)
+        again = run_path()
+        hit_measured = {v: cache.measured[v] - measured[v] for v in measured}
+        reloaded_cache = autotune.reset_cache(path)    # as a new process would read it
+        reloaded = run_path()
+        reload_measured = dict(reloaded_cache.measured)
+    autotune.reset_cache()
+
+    tuned, whole = {}, True
+    for key, log in cache.log.items():
+        variant, _, geom, _ = key.split("|")
+        m, k, n = (int(x[1:]) for x in geom.split(","))
+        cands = (autotune.flash_candidates(m, k) if variant == "flash"
+                 else autotune.paged_candidates(k))
+        us = {"x".join(map(str, c)): round(t, 2) for c, t in log["us"].items()}
+        winner = tuple(cache.entries[key]["blocks"])
+        whole &= (set(log["us"]) | set(log["refused"]) == {tuple(c) for c in cands}
+                  and bool(log["us"]) and winner == min(log["us"], key=log["us"].get))
+        tuned[key] = dict(candidates_us=us, winner="x".join(map(str, winner)),
+                          refused={"x".join(map(str, c)): why
+                                   for c, why in log["refused"].items()})
+    same_hit = all(torch.equal(first[n], again[n]) for n in first)
+    same_reload = all(torch.equal(first[n], reloaded[n]) for n in first)
+    ok = (whole and same_hit and same_reload and len(tuned) == len(first)
+          and not any(hit_measured.values()) and not any(reload_measured.values())
+          and all(bool(torch.isfinite(o.float()).all()) for o in first.values())
+          and counts["flash_attention"] > 0 and counts["paged_dequant_attention"] > 0)
+
+    # outputs of the tuned path against the plain versions
+    errs, ratios = {}, {}
+    for n, (q, k, v) in flash_ops.items():
+        close, errs["flash " + n], ratios["flash " + n] = _attention_close(
+            first["flash " + n], flash_attention_ref(q, k, v, **flash_calls[n][2]))
+        ok &= close
+    for n, (dq, _, _) in dequant_ops.items():
+        close, errs["paged " + n], ratios["paged " + n] = _attention_close(
+            first["paged " + n], paged_dequant_attention_ref(*dq))
+        ok &= close
+
+    # times at the winning tiles (after the counts were read: these launches
+    # are not the path's)
+    heads = {}
+    backend = autotune.backend_name("cuda")
+    q, k, v = flash_ops["prefill causal"]
+    bq, bk = cache.entries[autotune.normalize_key(4096, 4096, 128, 0, "flash",
+                                                  backend)]["blocks"]
+    heads["flash_attention"] = dict(
+        case="prefill causal", bh=32, sq=4096, sk=4096, d=128, dtype="bfloat16", bq=bq, bk=bk,
+        ms=time_ms(lambda i: flash_attention(q, k, v, bq=bq, bk=bk), 5, warmup=1),
+        plain_ms=time_ms(lambda i: flash_attention_ref(q, k, v), 3, warmup=1),
+        library_ms=_sdpa_yardstick_ms(q[None], k[None], v[None], is_causal=True),
+        **_flash_bound(32, 4096, 4096, 128, torch.bfloat16))
+    heads["flash_attention"]["heuristic_ms"] = time_ms(
+        lambda i: flash_attention(q, k, v, bq=256, bk=512), 5, warmup=1)
+    dq, _, bound = dequant_ops["llama2-7b T=1"]
+    l_pad = cache.entries[autotune.normalize_key(1, 512, 128, 8, "paged", backend)]["blocks"][0]
+    # the yardstick: the library attention over the view dequantized to bf16
+    # beforehand, the same mask as a boolean tensor
+    qd, kq, ks, vq, vs, ksm, vsm, lengths, n_new, _ = dq
+    kd = (kq.float() * ks[..., None] * ksm).to(torch.bfloat16).transpose(1, 2)
+    vd = (vq.float() * vs[..., None] * vsm).to(torch.bfloat16).transpose(1, 2)
+    cols = torch.arange(512, device="cuda")
+    mask = (cols[None, :] < (lengths + n_new)[:, None])[:, None, None, :]
+    heads["paged_dequant_attention"] = dict(
+        case="llama2-7b T=1", s=8, t=1, h=32, kv=32, d=128, l=512, dtype="bfloat16",
+        l_pad=l_pad,
+        ms=time_ms(lambda i: paged_dequant_attention(*dq, l_pad=l_pad), 50),
+        plain_ms=time_ms(lambda i: paged_dequant_attention_ref(*dq), 5, warmup=1),
+        sdpa_dense_bf16_ms=_sdpa_yardstick_ms(qd.transpose(1, 2), kd, vd, attn_mask=mask,
+                                              iters=50),
+        **bound)
+    emit("autotune", tuned=tuned, tune_s=round(tune_s, 2), measured=measured,
+         measured_on_hit=hit_measured, measured_after_reload=reload_measured,
+         outputs_equal_on_hit=same_hit, outputs_equal_after_reload=same_reload,
+         every_admissible_candidate_measured=whole, launches=counts,
+         max_abs_err_vs_plain=errs, err_over_limit=ratios, timed=heads)
+    if not ok:
+        raise SystemExit("autotune: the tuned attention path is wrong")
+    return counts, heads
+
+
 def phase_kernels(seed: int):
     from repro_torch.kernels.ops import launch_counts
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -629,15 +953,28 @@ def phase_kernels(seed: int):
     multi_cases, multi_worst, multi_head = check_multi_kernels(gen)
     att_cases, att_worst, att_head = check_attention_kernel(gen)
     plain_cases, plain_worst, plain_head = check_plain_kernels(gen)
-    every = lut_cases + multi_cases + att_cases + plain_cases
+    dq_cases, dq_worst = check_dequant_attention(gen)
+    fa_cases, fa_worst = check_flash_attention(gen)
+    every = lut_cases + multi_cases + att_cases + plain_cases + dq_cases + fa_cases
+    # B8 / B9: per kernel and dtype, the cases held and the worst ratio of an
+    # element's error to its limit (_attention_close; B8 f32: 5e-5 * scale)
+    held = {}
+    for c in dq_cases + fa_cases:
+        key = f'{c["kernel"]} {c.get("dtype", c.get("q"))}'
+        n, r = held.get(key, (0, 0.0))
+        held[key] = (n + 1, max(r, c["err_over_limit"]))
     emit("kernels", compared=len(every),
+         attention_cases_worst_err_over_limit=held,
          worst_abs_err={**lut_worst, **multi_worst, "paged_pool_attention": att_worst,
-                        **plain_worst},
+                        **plain_worst, "paged_dequant_attention": dq_worst,
+                        "flash_attention": fa_worst},
          launches_during_comparison=launch_counts(), timed=[c for c in every if "ms" in c])
     out = {name: (lut_head[name], lut_worst[name]) for name in lut_head}
     out.update({name: (multi_head[name], multi_worst[name]) for name in multi_head})
     out["paged_pool_attention"] = (att_head, att_worst)
     out.update({name: (plain_head[name], plain_worst[name]) for name in plain_head})
+    out["paged_dequant_attention"] = ({}, dq_worst)
+    out["flash_attention"] = ({}, fa_worst)
     return out
 
 
@@ -904,6 +1241,26 @@ def to_device(tree, device):
     return tree.to(device)
 
 
+def _parity_diagnosis(logits, diff) -> dict:
+    """What a miss of model_parity prints: the host's CPU and the CPU kernels
+    torch picked for it, and both sides' top-5 logits of the worst row."""
+    model = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), "")
+    except OSError:
+        pass
+    worst = divmod(int(diff.amax(dim=-1).argmax()), diff.shape[1])    # (step, row)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        top = logits[dev][worst].topk(5)
+        sides[dev] = dict(values=top.values.tolist(), indices=top.indices.tolist())
+    return dict(host_cpu=model, torch_cpu_capability=torch.backends.cpu.get_cpu_capability(),
+                torch_threads=torch.get_num_threads(), worst_step_row=list(worst),
+                worst_row_max_abs_err=float(diff[worst].max()), top5=sides)
+
+
 def phase_model_parity(seed: int) -> None:
     """llama2-7b at full width: the same params and the same steps (one
     prefill chunk, two decode steps) on the card (kernels) and on the CPU
@@ -982,6 +1339,8 @@ def phase_model_parity(seed: int) -> None:
                      and row["mean_abs_logit_err"] <= tol_mean
                      and bool(same[clear].all()) and int(clear.sum()) > 0)
         report.append(row)
+        if not row["ok"]:
+            row["diagnosis"] = _parity_diagnosis(logits, diff)
     emit("model_parity", arch="llama2-7b", steps=len(steps), variants=report)
     if not all(r["ok"] for r in report):
         raise SystemExit(f"model_parity: card and CPU logits disagree: {report}")
@@ -1015,8 +1374,10 @@ def _served_params(arch, seed, n_layers, fused=True):
     return model, calibrate(materialize_clustered(model, gen, nbits=4, device="cuda"))
 
 
-# the §4 layer's kernels: never launched by a serving step
-NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0}
+# the §4 layer's kernels and the attention kernels B8, B9: never launched by a
+# serving step
+NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0,
+               "paged_dequant_attention": 0, "flash_attention": 0}
 
 
 def _expected_launches(fused, n_layers, widths):
@@ -1278,8 +1639,9 @@ def phase_profile(seed: int, params) -> None:
 
 # ---------------------------------------------------------------------------
 
-ALL_PHASES = ("kernels", "lut_layer", "model_parity", "serve", "serve_unfused",
-              "serve_static", "serve_int8", "serve_gqa", "compress", "profile")
+ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
+              "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "compress",
+              "profile")
 
 
 def main() -> int:
@@ -1309,6 +1671,9 @@ def main() -> int:
     smi = timed("env", phase_env)
     timed("build", phase_build)
     checked = timed("kernels", phase_kernels, args.seed) if "kernels" in phases else {}
+    # the attention kernels' path: their entry points with the tile left to the tuner
+    tune_counts, tune_heads = (timed("autotune", phase_autotune, args.seed)
+                               if "autotune" in phases else ({}, {}))
     # the §4 layer's path: its own launch counts
     layer_counts = timed("lut_layer", phase_lut_layer, args.seed) if "lut_layer" in phases else {}
     if "model_parity" in phases:
@@ -1358,24 +1723,37 @@ def main() -> int:
                             "src/repro/kernels/lut_matmul.py:234"),
         "smooth_quant": ("src/repro_torch/kernels/csrc/smooth_quant.cu",
                          "src/repro/kernels/smooth_quant.py:46"),
+        "paged_dequant_attention": ("src/repro_torch/kernels/csrc/paged_dequant.cu",
+                                    "src/repro/kernels/paged_attention.py:151"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:108"),
     }
-    # launches: the serving path's run for B1-B5, the §4 layer's for B6, B7, B10
+    # launches: the serving path's run for B1-B5, the §4 layer's for B6, B7,
+    # B10, the tuned attention path's for B8, B9
     launches = {**{n: counts.get(n, 0) for n in meta},
                 **{n: layer_counts.get(n, 0) for n in ("lut_matmul_f32", "lut_matmul_int8",
-                                                       "smooth_quant")}}
+                                                       "smooth_quant")},
+                **{n: tune_counts.get(n, 0) for n in ("paged_dequant_attention",
+                                                      "flash_attention")}}
     kernels = []
     for name, (source, replaces) in meta.items():
         head, worst = checked.get(name, ({}, None))
+        head = tune_heads.get(name, head)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst,
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
-            "library_ms": None,      # no single PyTorch call computes this function
+            # one PyTorch call computes the same function only for B9 (the
+            # library attention); for the others there is none
+            "library_ms": head.get("library_ms"),
             "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
+            "sdpa_dense_bf16_ms": head.get("sdpa_dense_bf16_ms"),
             "solo_sum_ms": head.get("solo_sum_ms"),
-            "shape": {k: head[k] for k in ("group", "m", "k", "n", "c", "widths", "nbits",
-                                           "t", "h", "kv", "pool", "dtype") if k in head},
+            "shape": {k: head[k] for k in ("group", "case", "m", "k", "n", "c", "widths",
+                                           "nbits", "s", "t", "h", "kv", "l", "l_pad", "bh",
+                                           "sq", "sk", "d", "bq", "bk", "pool", "dtype")
+                      if k in head},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     complete = set(phases) >= set(ALL_PHASES)

@@ -23,8 +23,9 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "lut_multi_gemv.cu", "lut_multi_gemm.cu",
-           "paged_attention.cu", "lut_plain.cu", "smooth_quant.cu")
-HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh")
+           "paged_attention.cu", "lut_plain.cu", "smooth_quant.cu", "paged_dequant.cu",
+           "flash_attention.cu")
+HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh", "paged_attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -127,6 +128,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     # window, softcap, stream
     fn.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p, p,
                    i, i, i, i, i, i, i, i, i, f, p]
+    fn.restype = i
+    fn = lib.paged_dequant_launch
+    # q, q_is_bf16, kq, k_scale, vq, v_scale, k_smooth, v_smooth, lengths,
+    # n_new, window_ptr (or null), window, out, S, T, H, KV, D, L, l_pad,
+    # softcap, stream
+    fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, p]
+    fn.restype = i
+    fn = lib.flash_attn_launch
+    # q, k, v, out, is_bf16, BH, Sq, Sk, D, bq, bk, causal, window, softcap,
+    # q_offset, k_len, stream
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, p]
     fn.restype = i
 
 

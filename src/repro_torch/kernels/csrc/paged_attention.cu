@@ -16,24 +16,15 @@
 // shuffle tree sums a score), a thread block of 8 warps shares each KV block
 // through shared memory, already dequantized. A row's result depends on that
 // row, its slot's length and the pools alone — not on T — so a decoding slot
-// reads the same bits from a width-1 step and from a mixed prefill step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// reads the same bits from a width-1 step and from a mixed prefill step. The
+// per-row body (paged_attention.cuh) is shared with paged_dequant.cu (B8).
+#include "paged_attention.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_DV = 8;  // D <= 256, D % 32 == 0
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+using pattn::MAX_DV;
+using pattn::THREADS;
+using pattn::WARPS;
 
 template <typename QT, typename PT, bool INT8>
 __global__ void __launch_bounds__(THREADS)
@@ -67,13 +58,8 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
   const int q_pos = length + t;
 
   const int64_t q_off = (((int64_t)s * T + t) * H + (h * g + gi)) * D;
-  float qr[MAX_DV], acc[MAX_DV];
-#pragma unroll
-  for (int i = 0; i < MAX_DV; ++i) {
-    acc[i] = 0.0f;
-    qr[i] = (active && i < nd) ? to_float(q[q_off + lane + 32 * i]) : 0.0f;
-  }
-  float m_run = -1e30f, l_run = 0.0f;
+  pattn::Row r;
+  pattn::load_row(r, q + q_off, active, nd, lane);
 
   for (int j = 0; j < live; ++j) {
     int bid = block_tables[s * NB + j];
@@ -83,11 +69,11 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
       const int tok = idx / D;
       const int d = idx % D;
       const int64_t slot = ((int64_t)bid * bs + tok) * KV + h;
-      float kv_k = to_float(k_pool[slot * D + d]);
-      float kv_v = to_float(v_pool[slot * D + d]);
+      float kv_k = pattn::to_float(k_pool[slot * D + d]);
+      float kv_v = pattn::to_float(v_pool[slot * D + d]);
       if (INT8) {
-        kv_k = __fmul_rn(__fmul_rn(kv_k, k_scale[slot]), k_smooth[h * D + d]);
-        kv_v = __fmul_rn(__fmul_rn(kv_v, v_scale[slot]), v_smooth[h * D + d]);
+        kv_k = pattn::dequant(kv_k, k_scale[slot], k_smooth[h * D + d]);
+        kv_v = pattn::dequant(kv_v, v_scale[slot], v_smooth[h * D + d]);
       }
       ks[idx] = kv_k;
       vs[idx] = kv_v;
@@ -96,34 +82,15 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
     if (!active) continue;
 
     for (int c = 0; c < bs; ++c) {
-      const int col = j * bs + c;
-      const bool visible = col < total && q_pos >= col && (window <= 0 || q_pos - col < window);
-      if (!visible) continue;  // uniform across the warp
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < MAX_DV; ++i)
-        if (i < nd) part = fmaf(qr[i], ks[c * D + lane + 32 * i], part);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      float sc = part * scale;
-      if (softcap > 0.0f) sc = softcap * tanhf(sc / softcap);
-      const float m_new = fmaxf(m_run, sc);
-      const float alpha = expf(m_run - m_new);
-      const float p = expf(sc - m_new);
-      l_run = l_run * alpha + p;
-#pragma unroll
-      for (int i = 0; i < MAX_DV; ++i)
-        if (i < nd) acc[i] = acc[i] * alpha + p * vs[c * D + lane + 32 * i];
-      m_run = m_new;
+      if (!pattn::visible(j * bs + c, total, q_pos, window)) continue;  // uniform across the warp
+      const float* kc = ks + c * D + lane;
+      const float* vc = vs + c * D + lane;
+      pattn::attend(r, nd, scale, softcap, [&](int i) { return kc[32 * i]; },
+                    [&](int i) { return vc[32 * i]; });
     }
   }
 
-  if (active) {
-    const float denom = fmaxf(l_run, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < MAX_DV; ++i)
-      if (i < nd) store(out + q_off + lane + 32 * i, acc[i] / denom);
-  }
+  if (active) pattn::store_row(r, out + q_off, nd, lane);
 }
 
 template <typename QT, typename PT, bool INT8>

@@ -21,6 +21,8 @@ from repro_torch.core.lut import packed_rows, padded_d_in
 from repro_torch.kernels import lut_matmul as _lm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import smooth_quant as _sq
+# by name: the package's attribute `flash_attention` is the function (__init__)
+from repro_torch.kernels.flash_attention import LAUNCHES as _FA_LAUNCHES
 from repro_torch.kernels.lut_matmul import (KC, lut_matmul_f32, lut_matmul_fused,
                                             lut_matmul_fused_gemv,
                                             lut_matmul_fused_multi,
@@ -38,11 +40,11 @@ def launch_counts() -> Dict[str, int]:
     """Launches of every kernel since the last `reset_launch_counts()`. A
     wrapper adds one where it launches its kernel and nowhere else; the plain
     versions that serve CPU tensors are not counted."""
-    return {**_lm.LAUNCHES, **_pa.LAUNCHES, **_sq.LAUNCHES}
+    return {**_lm.LAUNCHES, **_pa.LAUNCHES, **_sq.LAUNCHES, **_FA_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_lm.LAUNCHES, _pa.LAUNCHES, _sq.LAUNCHES):
+    for counts in (_lm.LAUNCHES, _pa.LAUNCHES, _sq.LAUNCHES, _FA_LAUNCHES):
         for name in counts:
             counts[name] = 0
 

@@ -1,5 +1,5 @@
-"""Pool-direct paged attention for Hopper — the counterpart of the JAX
-package's Pallas kernel `paged_pool_attention`.
+"""Paged attention for Hopper — the counterparts of the JAX package's Pallas
+kernels `paged_pool_attention` (B5) and `paged_dequant_attention` (B8).
 
 The kernel (kernels/csrc/paged_attention.cu) reads the paged KV pools in
 place through the block tables: per decode step the cache traffic is each
@@ -8,6 +8,13 @@ float (f32 / bf16) and int8 pools; int8 pools dequantize on chip as
 codes · scale[token, head] · smooth[head, :]. On a CUDA tensor the wrapper
 launches the kernel on the current stream and counts the launch; on a CPU
 tensor it runs the plain version (kernels/ref.py paged_pool_attention_ref).
+
+`paged_dequant_attention` (kernels/csrc/paged_dequant.cu) attends over an
+already-gathered int8 view (S, L, KV, D) with the same per-row body, so on a
+view gathered from a pool it gives the same bits as `paged_pool_attention` on
+that pool. Its `l_pad` (keys staged in shared memory at a time) comes from
+the tuner (kernels/autotune.py) when left as None; every `l_pad` gives the
+same bits.
 """
 from __future__ import annotations
 
@@ -15,14 +22,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_pool_attention_ref
+from repro_torch.kernels import _build, autotune
+from repro_torch.kernels.ref import paged_dequant_attention_ref, paged_pool_attention_ref
 
-# launches of the kernel since the last reset (a plain int; see kernels/ops.py)
-LAUNCHES = {"paged_pool_attention": 0}
+# launches of each kernel since the last reset (plain ints; see kernels/ops.py)
+LAUNCHES = {"paged_pool_attention": 0, "paged_dequant_attention": 0}
 
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_D = 256
+_MAX_SMEM = 232448          # bytes of shared memory one thread block may use
 
 
 def _check_operands(q, k_pool, v_pool, block_tables, lengths, n_new, k_scale,
@@ -134,3 +142,148 @@ def paged_pool_attention(
     _build.check_launch(err, "paged_pool_attention")
     LAUNCHES["paged_pool_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# B8: dequantizing attention over a gathered int8 view
+# ---------------------------------------------------------------------------
+
+def _check_dequant_operands(q, kq, k_scale, vq, v_scale, k_smooth, v_smooth, lengths,
+                            n_new, window):
+    name = "paged_dequant_attention"
+    if q.ndim != 4 or kq.ndim != 4:
+        raise ValueError(f"{name}: q must be (S,T,H,D) and kq (S,L,KV,D); got "
+                         f"{tuple(q.shape)} and {tuple(kq.shape)}")
+    s_slots, _, h, d = q.shape
+    _, l, kv, _ = kq.shape
+    if tuple(kq.shape[::3]) != (s_slots, d) or h % kv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match kq "
+                         f"{tuple(kq.shape)} (S and D equal, KV | H)")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be float32 or bfloat16; got {q.dtype}")
+    for nm, t in (("kq", kq), ("vq", vq)):
+        if t.dtype != torch.int8 or t.shape != kq.shape:
+            raise ValueError(f"{name}: {nm} must be int8 {tuple(kq.shape)}; got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    tensors = [("q", q), ("kq", kq), ("vq", vq)]
+    for nm, t, shape in (("k_scale", k_scale, (s_slots, l, kv)),
+                         ("v_scale", v_scale, (s_slots, l, kv)),
+                         ("k_smooth", k_smooth, (kv, d)), ("v_smooth", v_smooth, (kv, d))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {nm} must be float32 {shape}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        tensors.append((nm, t))
+    for nm, t in (("lengths", lengths), ("n_new", n_new)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {nm} must be int32; got {t.dtype}")
+        if tuple(t.shape) != (s_slots,):
+            raise ValueError(f"{name}: {nm} must be ({s_slots},); got {tuple(t.shape)}")
+        tensors.append((nm, t))
+    if isinstance(window, torch.Tensor):
+        if window.ndim != 0 or window.dtype != torch.int32:
+            raise ValueError(f"{name}: a window tensor must be 0-d int32; got "
+                             f"{window.dtype} {tuple(window.shape)}")
+        tensors.append(("window", window))
+    for nm, t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name}: {nm} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous; got strides "
+                             f"{t.stride()} for shape {tuple(t.shape)}")
+
+
+def _check_dequant_card(q, kq, vq, l_pad):
+    """What the card's kernel takes beyond the operands' shapes: raised before
+    anything is launched (the tuner counts such a tile as refused)."""
+    name = "paged_dequant_attention"
+    d = q.shape[-1]
+    if d % 32 or d > _MAX_D:
+        raise ValueError(f"{name}: on the card the head dim must be a multiple of 32 "
+                         f"and <= {_MAX_D}; got {d}")
+    smem = 2 * l_pad * d + 2 * l_pad * 4
+    if l_pad < 1 or smem > _MAX_SMEM:
+        raise ValueError(f"{name}: l_pad {l_pad} at D {d} stages {smem} bytes; one "
+                         f"thread block holds at most {_MAX_SMEM}")
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise ValueError(f"{name}: kq and vq must be 16-byte aligned for the kernel's "
+                         f"vector loads")
+
+
+def _paged_measure_fn(s_slots: int, t: int, h: int, d: int, l: int, kv: int, dtype,
+                      softcap: float, device):
+    """measure(l_pad) -> seconds on a synthetic int8 view on the card, made
+    from a seeded generator at the first measurement; timing depends on
+    shapes, not on the cache contents."""
+    ops = []
+
+    def measure(l_pad: int) -> float:
+        if not ops:
+            g = torch.Generator(device=device).manual_seed(0)
+            codes = lambda: torch.randint(-127, 128, (s_slots, l, kv, d), generator=g,  # noqa: E731
+                                          dtype=torch.int8, device=device)
+            sc = torch.full((s_slots, l, kv), 0.01, device=device)
+            sm = torch.ones((kv, d), device=device)
+            ops.extend([
+                torch.randn((s_slots, t, h, d), generator=g, device=device).to(dtype),
+                codes(), sc, codes(), sc, sm, sm,
+                torch.full((s_slots,), max(l - t, 0), dtype=torch.int32, device=device),
+                torch.full((s_slots,), t, dtype=torch.int32, device=device)])
+        return autotune.measure_candidate(
+            lambda: paged_dequant_attention(*ops, 0, softcap=softcap, l_pad=l_pad))
+
+    return measure
+
+
+def paged_dequant_attention(
+    q: torch.Tensor,          # (S, T, H, D) float — post-rope queries
+    kq: torch.Tensor,         # (S, L, KV, D) int8 — gathered logical K view
+    k_scale: torch.Tensor,    # (S, L, KV) f32 — per-(token, kv-head) scales
+    vq: torch.Tensor,         # (S, L, KV, D) int8
+    v_scale: torch.Tensor,    # (S, L, KV) f32
+    k_smooth: torch.Tensor,   # (KV, D) f32 — calibrated smoothing vector
+    v_smooth: torch.Tensor,   # (KV, D) f32
+    lengths: torch.Tensor,    # (S,) int32 — cached tokens per slot
+    n_new: torch.Tensor,      # (S,) int32 — valid tokens in this window
+    window,                   # sliding window (0 = global): int or 0-d int32 tensor
+    *,
+    softcap: float = 0.0,
+    l_pad: Optional[int] = None,   # keys staged at a time; None -> tuned
+) -> torch.Tensor:
+    """Fused dequantize + masked attention over a slot's gathered int8 view.
+
+    Query row r of a (slot, kv-head) is (group r // T, token r % T) at
+    position lengths[s] + r % T; it sees column c iff c <= position,
+    position - c < window (window > 0) and c < lengths[s] + n_new[s] (and
+    c < L). A row with nothing visible gives zeros. Returns (S, T, H, D) in
+    q's dtype. On the card a window tensor is read by the kernel, never by
+    the host. With `l_pad` None a cache miss on the card measures every
+    candidate, which synchronises: not inside CUDA-graph capture or a
+    sync-debug region."""
+    _check_dequant_operands(q, kq, k_scale, vq, v_scale, k_smooth, v_smooth, lengths, n_new,
+                            window)
+    s_slots, t, h, d = q.shape
+    l, kv = kq.shape[1], kq.shape[2]
+    gt = (h // kv) * t
+    if l_pad is None:
+        measure = None
+        if q.device.type == "cuda":
+            measure = _paged_measure_fn(s_slots, t, h, d, l, kv, q.dtype, softcap, q.device)
+        l_pad = autotune.pick_paged_pad(gt, l, d, device=q.device, measure=measure)
+    if q.device.type != "cuda":
+        return paged_dequant_attention_ref(q, kq, k_scale, vq, v_scale, k_smooth, v_smooth,
+                                           lengths, n_new, window, softcap=softcap)
+    _check_dequant_card(q, kq, vq, l_pad)
+    win_t = window if isinstance(window, torch.Tensor) else None
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _build.library().paged_dequant_launch(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), kq.data_ptr(), k_scale.data_ptr(),
+            vq.data_ptr(), v_scale.data_ptr(), k_smooth.data_ptr(), v_smooth.data_ptr(),
+            lengths.data_ptr(), n_new.data_ptr(),
+            None if win_t is None else win_t.data_ptr(), 0 if win_t is not None else int(window),
+            out.data_ptr(), s_slots, t, h, kv, d, l, int(l_pad), float(softcap),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "paged_dequant_attention")
+    LAUNCHES["paged_dequant_attention"] += 1
+    return out
+

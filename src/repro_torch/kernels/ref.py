@@ -143,3 +143,43 @@ def paged_pool_attention_ref(q, k_pool, v_pool, block_tables, lengths, n_new,
     else:
         k, v = kg, vg
     return _masked_paged_softmax(q, k, v, lengths, n_new, int(window), softcap)
+
+
+def paged_dequant_attention_ref(q, kq, k_scale, vq, v_scale, k_smooth, v_smooth,
+                                lengths, n_new, window, *, softcap: float = 0.0):
+    """Dequantizing paged attention over an already-gathered int8 view, the
+    plain way: k = codes · scale[token, head] · smooth[head, :] materialized,
+    then the masked softmax. q (S,T,H,D); kq/vq (S,L,KV,D) int8; scales
+    (S,L,KV) f32; smooth (KV,D) f32; lengths/n_new (S,) int32; window a
+    Python int or a 0-d tensor (read back to the host here)."""
+    k = (kq.to(torch.float32) * k_scale[..., None]
+         * k_smooth[None, None].to(torch.float32))             # (S, L, KV, D)
+    v = (vq.to(torch.float32) * v_scale[..., None]
+         * v_smooth[None, None].to(torch.float32))
+    return _masked_paged_softmax(q, k, v, lengths, n_new, int(window), softcap)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0, k_len: int = 0):
+    """Plain materialized softmax attention over (BH, S, D): query row i sits
+    at position q_offset + i and sees key j iff j <= it (causal), it - j <
+    window (window > 0) and j < k_len (k_len > 0). Masked scores are -1e30, so
+    a row that sees no key averages every value, as the online kernel's does.
+    Returns q's dtype."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qp = q_offset + torch.arange(q.shape[1], device=q.device)
+    kp = torch.arange(k.shape[1], device=q.device)
+    m = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= qp[:, None] >= kp[None, :]
+    if window:
+        m &= (qp[:, None] - kp[None, :]) < window
+    if k_len > 0:
+        m &= kp[None, :] < k_len
+    s = torch.where(m[None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)

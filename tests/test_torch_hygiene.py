@@ -1,7 +1,9 @@
 """What the port may import and where it builds: an AST walk over
 `src/repro_torch/**/*.py` and `chip_smoke.py` (no `jax`, no `repro` anywhere;
-no `triton` at module level), the kernel sources the build names, the build
-directory in `.gitignore`, and the notes every CUDA source opens with."""
+no `triton` at module level; no library attention or `torch.compile`, except
+the smoke script's one timed yardstick), the kernel sources the build names,
+the build directory in `.gitignore`, and the notes every CUDA source opens
+with."""
 import ast
 import pathlib
 import re
@@ -45,7 +47,14 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path}: module-level import of {bad}; import it where it is launched"
     text = path.read_text()
     assert not re.search(r"import_module\(\s*['\"](jax|repro)\b", text)
-    assert "torch.compile" not in text and "scaled_dot_product_attention" not in text
+    assert "torch.compile" not in text
+    if path.name == "chip_smoke.py":
+        # the library attention is timed beside B8 / B9 as a yardstick, in one
+        # function, and computes nothing the script checks or serves
+        text = text.replace(ast.get_source_segment(text, next(
+            n for n in tree.body
+            if isinstance(n, ast.FunctionDef) and n.name == "_sdpa_yardstick_ms")), "")
+    assert "scaled_dot_product_attention" not in text
 
 
 def test_kernel_sources_exist_and_say_what_they_replace():
@@ -62,7 +71,9 @@ def test_kernel_sources_exist_and_say_what_they_replace():
                          ("paged_attention.cu", "paged_pool_attention"),
                          ("lut_plain.cu", "lut_matmul_f32"),
                          ("lut_plain.cu", "lut_matmul_int8"),
-                         ("smooth_quant.cu", "smooth_quant")):
+                         ("smooth_quant.cu", "smooth_quant"),
+                         ("paged_dequant.cu", "paged_dequant_attention"),
+                         ("flash_attention.cu", "flash_attention")):
         head = (_build.CSRC / name).read_text()[:2500]
         assert f"`{pallas}`" in head and "Replaces the Pallas TPU kernel" in head
         assert "What bounds it" in head
@@ -84,6 +95,8 @@ def test_import_builds_nothing():
     import repro_torch.kernels.lut_matmul  # noqa: F401
     import repro_torch.kernels.paged_attention  # noqa: F401
     import repro_torch.kernels.smooth_quant  # noqa: F401
+    import repro_torch.kernels.autotune  # noqa: F401
+    import repro_torch.kernels.flash_attention  # noqa: F401
     from repro_torch.kernels import _build
     assert _build._lib is None, "the library must load at the first launch, not at import"
 

@@ -229,4 +229,5 @@ def test_cpu_tensors_launch_no_kernel():
                                         "lut_matmul_fused_multi_gemv": 0,
                                         "lut_matmul_fused_multi": 0,
                                         "paged_pool_attention": 0, "lut_matmul_f32": 0,
-                                        "lut_matmul_int8": 0, "smooth_quant": 0}
+                                        "lut_matmul_int8": 0, "smooth_quant": 0,
+                                        "paged_dequant_attention": 0, "flash_attention": 0}
