@@ -171,16 +171,23 @@ def check_lut_kernels(gen):
                     tol = 1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max())
                     err = float((y - ref).abs().max())
                     ok = bool(torch.isfinite(y).all()) and err <= tol
-                    # a row's bits must not depend on which kernel served it
-                    same = True
+                    # a row's bits must not depend on which kernel served it:
+                    # below 128 rows the GEMM on the same rows; from 128 rows on
+                    # the GEMV on the first and the last 8 rows
+                    same = rows_same = True
                     if m < 128:
                         y2 = lut_matmul_fused(x, inv[l], packed[l], cb[l],
                                               quantize=quantize, nbits=nbits)
                         same = bool(torch.equal(y, y2))
+                    else:
+                        rows_same = all(bool(torch.equal(y[sl], lut_matmul_fused_gemv(
+                            x[sl], inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)))
+                            for sl in (slice(0, 8), slice(m - 8, m)))
                     case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits,
                                 dtype=str(dtype).split(".")[-1], quantize=quantize,
-                                max_abs_err=err, tol=tol, gemv_equals_gemm_bits=same)
-                    if not (ok and same):
+                                max_abs_err=err, tol=tol, gemv_equals_gemm_bits=same,
+                                first_last_8_rows_equal_gemv_bits=rows_same)
+                    if not (ok and same and rows_same):
                         emit("kernels", failed=case)
                         raise SystemExit(f"LUT kernel disagrees with its plain version: {case}")
                     worst[name] = max(worst[name], err)
@@ -296,6 +303,10 @@ def check_multi_kernels(gen):
         wrapped = lut_gemm_fused_multi(x, inv[0], cb[0], acts, *pk, quantize=quantize,
                                        nbits=nbits)
         same, errs, tols = True, [], []
+        # from 128 rows on, the first and the last 8 rows are the multi GEMV's bits
+        rows_same = gemv or all(bool(torch.equal(y[sl], lut_matmul_fused_multi_gemv(
+            x[sl], inv[0], cb[0], *pk, quantize=quantize, nbits=nbits)))
+            for sl in (slice(0, 8), slice(m - 8, m)))
         for i, (seg, r) in enumerate(zip(segs, ref)):
             same &= bool(torch.equal(seg, solo(x, inv[0, i], pk[i], cb[0, i],
                                                quantize=quantize[i], nbits=nbits[i])))
@@ -314,8 +325,9 @@ def check_multi_kernels(gen):
         err = max(errs)
         case = dict(kernel=name, group=group, m=m, k=k, widths=list(widths), nbits=list(nbits),
                     quantize=list(quantize), dtype=str(dtype).split(".")[-1],
-                    max_abs_err=err, tol=min(tols), segments_equal_solo_bits=same)
-        if not (same and bool(torch.isfinite(y).all())
+                    max_abs_err=err, tol=min(tols), segments_equal_solo_bits=same,
+                    first_last_8_rows_equal_gemv_bits=rows_same)
+        if not (same and rows_same and bool(torch.isfinite(y).all())
                 and all(e <= t for e, t in zip(errs, tols))):
             emit("kernels", failed=case)
             raise SystemExit(f"multi-projection kernel disagrees: {case}")
@@ -814,6 +826,11 @@ def check_flash_attention(gen):
             if not close:
                 emit("kernels", failed=case)
                 raise SystemExit(f"flash_attention disagrees with its plain version: {case}")
+            if name == "prefill causal":
+                # device time of every tile of the tuner's grid (the tuner itself
+                # times on the host's clock)
+                case["ms"] = time_ms(lambda i: flash_attention(q, k, v, bq=bq, bk=bk, **kw), 5,
+                                     warmup=1)
             worst = max(worst, err)
             cases.append(case)
         del q, k, v, ref
@@ -919,6 +936,20 @@ def phase_autotune(seed: int):
         **_flash_bound(32, 4096, 4096, 128, torch.bfloat16))
     heads["flash_attention"]["heuristic_ms"] = time_ms(
         lambda i: flash_attention(q, k, v, bq=256, bk=512), 5, warmup=1)
+    # the decode window (128 rows at positions 3968.. over 4096 keys) at its
+    # tuned tile, beside the library attention given the same mask as a tensor
+    q, k, v = flash_ops["decode window"]
+    kw = flash_calls["decode window"][2]
+    bq, bk = cache.entries[autotune.normalize_key(128, 4096, 128, 0, "flash",
+                                                  backend)]["blocks"]
+    qp = kw["q_offset"] + torch.arange(128, device="cuda")
+    mask = qp[:, None] >= torch.arange(4096, device="cuda")[None, :]
+    heads["flash_attention"]["decode_window"] = dict(
+        bh=32, sq=128, sk=4096, d=128, q_offset=kw["q_offset"], dtype="bfloat16", bq=bq, bk=bk,
+        ms=time_ms(lambda i: flash_attention(q, k, v, bq=bq, bk=bk, **kw), 20, warmup=1),
+        plain_ms=time_ms(lambda i: flash_attention_ref(q, k, v, **kw), 3, warmup=1),
+        library_ms=_sdpa_yardstick_ms(q[None], k[None], v[None], attn_mask=mask),
+        **_flash_bound(32, 128, 4096, 128, torch.bfloat16, q_offset=kw["q_offset"]))
     dq, _, bound = dequant_ops["llama2-7b T=1"]
     l_pad = cache.entries[autotune.normalize_key(1, 512, 128, 8, "paged", backend)]["blocks"][0]
     # the yardstick: the library attention over the view dequantized to bf16
@@ -1750,6 +1781,7 @@ def main() -> int:
             "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
             "sdpa_dense_bf16_ms": head.get("sdpa_dense_bf16_ms"),
             "solo_sum_ms": head.get("solo_sum_ms"),
+            "decode_window": head.get("decode_window"),
             "shape": {k: head[k] for k in ("group", "case", "m", "k", "n", "c", "widths",
                                            "nbits", "s", "t", "h", "kv", "l", "l_pad", "bh",
                                            "sq", "sk", "d", "bq", "bk", "pool", "dtype")

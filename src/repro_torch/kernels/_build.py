@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "lut_multi_gemv.cu", "lut_multi_gemm.cu",
            "paged_attention.cu", "lut_plain.cu", "smooth_quant.cu", "paged_dequant.cu",
            "flash_attention.cu")
-HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh", "paged_attention.cuh")
+HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh", "paged_attention.cuh",
+           "cp_async.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -99,24 +100,34 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("lut_gemv_launch", "lut_gemm_launch"):
-        fn = getattr(lib, name)
-        # x, x_is_bf16, inv, packed, cb, y, M, K, N, packed_rows, nbits, quantize, stream
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
-        fn.restype = i
-    for name in ("lut_multi_gemv_launch", "lut_multi_gemm_launch"):
-        fn = getattr(lib, name)
-        # x, x_is_bf16, inv_stack, cb_stack, packed[P] (host array of pointers),
-        # widths[P], nbits[P], quantize[P] (host int arrays), P, y, M, K, stream
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, p]
-        fn.restype = i
+    fn = lib.lut_gemv_launch
+    # x, x_is_bf16, inv, packed, cb, y, M, K, N, packed_rows, nbits, quantize, stream
+    fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.lut_gemm_launch
+    # the same, then the scratch xt before the stream
+    fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p, p]
+    fn.restype = i
+    fn = lib.lut_gemm_scratch_floats
+    # M, K -> floats of the GEMM's scratch per operand set
+    fn.argtypes = [i, i]
+    fn.restype = ctypes.c_longlong
+    fn = lib.lut_multi_gemv_launch
+    # x, x_is_bf16, inv_stack, cb_stack, packed[P] (host array of pointers),
+    # widths[P], nbits[P], quantize[P] (host int arrays), P, y, M, K, stream
+    fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, p]
+    fn.restype = i
+    fn = lib.lut_multi_gemm_launch
+    # the same, then the scratch xt (P operand sets) before the stream
+    fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, p, p]
+    fn.restype = i
     fn = lib.lut_f32_launch
-    # x, x_is_bf16, packed, cb, y, M, K, N, packed_rows, nbits, stream
-    fn.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
+    # x, x_is_bf16, packed, cb, y, M, K, N, packed_rows, nbits, xt, stream
+    fn.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p]
     fn.restype = i
     fn = lib.lut_int8_launch
-    # q, packed, cb, s_q, y, M, K, N, packed_rows, nbits, stream
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    # q, packed, cb, s_q, y, M, K, N, packed_rows, nbits, xt, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
     fn.restype = i
     fn = lib.smooth_quant_launch
     # x, x_is_bf16, inv, q, M, C, bits, stream

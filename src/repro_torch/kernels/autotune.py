@@ -45,7 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-CACHE_SCHEMA_VERSION = 1
+CACHE_SCHEMA_VERSION = 2   # 2: B9 bf16 on the tensor cores (a winner of the old kernel is stale)
 _ENV_CACHE = "REPRO_TORCH_AUTOTUNE_CACHE"
 _ENV_ENABLE = "REPRO_AUTOTUNE"
 

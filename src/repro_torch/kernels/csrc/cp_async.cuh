@@ -1,0 +1,33 @@
+// Asynchronous global -> shared copies (`cp.async`, sm_80 and later), shared
+// by the kernels that stream their operands through a ring of stages in
+// shared memory (flash_attention.cu, lut_gemm.cuh). A copy is issued by each
+// thread, grouped with cp_commit(), and waited for with cp_wait<N>(), which
+// returns once at most N of the thread's groups are still in flight; a
+// __syncthreads() after it makes every thread's copies visible to the block.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; zeros where !valid (the source is
+// then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace hopper

@@ -3,8 +3,12 @@ kernel `flash_attention`.
 
 Online-softmax attention over (BH, S, D) with causal, sliding-window,
 softcap, `q_offset` and `k_len` masks (kernels/csrc/flash_attention.cu): one
-thread block owns `bq` query rows of one (batch * head), and each softmax
-step takes `bk` keys, streamed through shared memory. On a CUDA tensor the
+thread block owns `bq` query rows of one (batch * head). The kernel is
+chosen by dtype: bf16 runs both products on the tensor cores (`mma.sync`,
+passes of 128 rows, softmax steps of the kernel's own 32-key chunks, so `bk`
+only has to divide Sk); f32 runs on the CUDA cores in f32, each softmax step
+taking `bk` keys. `card_tile` holds the card's rules for a tile and is
+checked before every launch. On a CUDA tensor the
 wrapper launches the kernel on the current stream and counts the launch; on
 a CPU tensor it runs the plain version (kernels/ref.py flash_attention_ref).
 With `bq` or `bk` left as None the tile comes from the tuner
@@ -23,8 +27,47 @@ from repro_torch.kernels.ref import flash_attention_ref
 # launches of the kernel since the last reset (a plain int; see kernels/ops.py)
 LAUNCHES = {"flash_attention": 0}
 
-_MAX_D = 256            # the kernel keeps a row's channels in 8 registers per lane
-_SCORE_TILE = 8192      # floats of the shared score tile: bk may not exceed it
+_MAX_D = 256            # both kernels size their register arrays for D <= 256
+_SCORE_TILE = 8192      # f32: floats of the shared score tile, bk may not exceed it
+_MMA_ROWS = 128         # bf16: query rows per pass (8 warps of 16)
+_MMA_KEYS = 32          # bf16: keys per chunk, the softmax step
+_MMA_STAGES = 3         # bf16: stages of the K / V ring
+_MMA_PAD = 8            # bf16: padding of a shared-memory row, in elements
+_SMEM_LIMIT = 232448    # shared memory one thread block may use on an H100
+
+
+def card_tile(d: int, bq: int, bk: int, dtype) -> dict:
+    """The card's rules for a (bq, bk) tile at head width `d` and `dtype`,
+    the same arithmetic as the kernels' launchers: raises ValueError for a
+    tile the card cannot run (so the tuner lets it lose before anything
+    launches), TypeError for a dtype it has no kernel for. Returns the
+    kernel the tile runs and its shape: bf16 pads D to 16 in shared memory,
+    walks bq rows in passes of 128 and steps the softmax in chunks of 32
+    keys (bk only has to divide Sk); f32 keeps bk as the softmax step in a
+    shared score tile of <= 8192 floats."""
+    if not 1 <= d <= _MAX_D:
+        raise ValueError(f"flash_attention: on the card 1 <= D <= {_MAX_D}; got D {d}")
+    if bq < 1 or bk < 1:
+        raise ValueError(f"flash_attention: bq and bk must be >= 1; got {bq}, {bk}")
+    if dtype == torch.bfloat16:
+        d_pad = -(-d // 16) * 16
+        smem = 2 * (_MMA_ROWS + 2 * _MMA_STAGES * _MMA_KEYS) * (d_pad + _MMA_PAD)
+        out = dict(kernel="tensor_cores", d_pad=d_pad, rows_per_pass=_MMA_ROWS,
+                   key_step=_MMA_KEYS, smem_bytes=smem)
+    elif dtype == torch.float32:
+        if bk > _SCORE_TILE:
+            raise ValueError(f"flash_attention: on the card an f32 step takes bk <= "
+                             f"{_SCORE_TILE} keys; got bk {bk}")
+        rows = min(bq, 64, _SCORE_TILE // bk)
+        d_pad = -(-d // 4) * 4
+        out = dict(kernel="cuda_cores", d_pad=d_pad, rows_per_pass=rows, key_step=bk,
+                   smem_bytes=4 * (rows * d_pad + rows * bk + d_pad * 65))
+    else:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    if out["smem_bytes"] > _SMEM_LIMIT:
+        raise ValueError(f"flash_attention: the tile needs {out['smem_bytes']} bytes of "
+                         f"shared memory, one thread block holds at most {_SMEM_LIMIT}")
+    return out
 
 
 def _check_operands(q, k, v):
@@ -70,7 +113,7 @@ def flash_attention(
     v: torch.Tensor,          # (BH, Sk, D)
     *,
     bq: Optional[int] = None,  # query rows per thread block; None -> tuned
-    bk: Optional[int] = None,  # keys per softmax step; None -> tuned
+    bk: Optional[int] = None,  # keys per softmax step (f32); None -> tuned
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
@@ -99,9 +142,7 @@ def flash_attention(
                          f"bq {bq}, Sk {sk} % bk {bk}")
     if q.device.type != "cuda":
         return flash_attention_ref(q, k, v, **kw)
-    if d > _MAX_D or bk > _SCORE_TILE:
-        raise ValueError(f"flash_attention: on the card D <= {_MAX_D} and bk <= "
-                         f"{_SCORE_TILE}; got D {d}, bk {bk}")
+    card_tile(d, bq, bk, q.dtype)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _build.library().flash_attn_launch(

@@ -23,6 +23,9 @@ per code (core/lut.py layout); the codebook is padded to KC entries.
 On a CUDA tensor a wrapper launches its kernel (kernels/csrc/lut_plain.cu,
 lut_gemv.cu, lut_gemm.cu, lut_multi_gemv.cu, lut_multi_gemm.cu) on the
 current stream and counts the launch; on a CPU tensor it runs the plain version (kernels/ref.py).
+The GEMM's launches (B2, B4, and B6 / B7 from 128 rows on) take a scratch
+the wrapper allocates, into which their pre-pass writes the transformed
+activations once.
 The kernels take the true M and N and mask ragged edges themselves; K must be
 the packing-group-padded d_in. All six sum over K in one fixed order, so a
 row's result is the same bits from any of them (lut_matmul_int8 on q equals
@@ -106,17 +109,29 @@ def _check_operands(x, inv_scale, packed_codes, codebook, nbits, caller,
                              f"{t.stride()} for shape {tuple(t.shape)}")
 
 
+def _scratch(m: int, k: int, sets: int, device):
+    """The GEMM's scratch for `sets` operand sets of an (m, k) launch: the
+    transformed activations, which its pre-pass writes once and its tiles
+    read (csrc/lut_gemm.cuh)."""
+    floats = _build.library().lut_gemm_scratch_floats(m, k)
+    return torch.empty((sets * floats,), dtype=torch.float32, device=device)
+
+
 def _launch(name: str, c_name: str, x, inv_scale, packed_codes, codebook,
             quantize, nbits):
     m, k = x.shape
     n = packed_codes.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.library(), c_name)
+    lib = _build.library()
+    fn = getattr(lib, c_name)
+    # the GEMM takes its scratch before the stream; the GEMV takes none
+    scratch = _scratch(m, k, 1, x.device) if c_name == "lut_gemm_launch" else None
+    extra = () if scratch is None else (scratch.data_ptr(),)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                  inv_scale.data_ptr(), packed_codes.data_ptr(),
                  codebook.data_ptr(), y.data_ptr(), m, k, n,
-                 packed_codes.shape[0], nbits, int(bool(quantize)),
+                 packed_codes.shape[0], nbits, int(bool(quantize)), *extra,
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name)
     LAUNCHES[name] += 1
@@ -185,10 +200,12 @@ def lut_matmul_f32(
     m, k = x.shape
     n = packed_codes.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    scratch = _scratch(m, k, 1, x.device) if m >= 128 else None
+    xt = None if scratch is None else scratch.data_ptr()
     with torch.cuda.device(x.device):
         err = _build.library().lut_f32_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), packed_codes.data_ptr(),
-            codebook.data_ptr(), y.data_ptr(), m, k, n, packed_codes.shape[0], nbits,
+            codebook.data_ptr(), y.data_ptr(), m, k, n, packed_codes.shape[0], nbits, xt,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "lut_matmul_f32")
     LAUNCHES["lut_matmul_f32"] += 1
@@ -213,11 +230,13 @@ def lut_matmul_int8(
     m, k = q.shape
     n = packed_codes.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=q.device)
+    scratch = _scratch(m, k, 1, q.device) if m >= 128 else None
+    xt = None if scratch is None else scratch.data_ptr()
     with torch.cuda.device(q.device):
         err = _build.library().lut_int8_launch(
             q.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(),
             act.data_ptr(), y.data_ptr(), m, k, n, packed_codes.shape[0],
-            nbits, torch.cuda.current_stream().cuda_stream)
+            nbits, xt, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "lut_matmul_int8")
     LAUNCHES["lut_matmul_int8"] += 1
     return y
@@ -291,12 +310,15 @@ def _multi(name, c_name, x, inv_stack, cb_stack, packed_list, quantize, nbits):
         return (ctypes.c_int * n_proj)(*v)
 
     fn = getattr(_build.library(), c_name)
+    # the GEMM takes its scratch (one operand set per projection) before the stream
+    scratch = _scratch(m, k, n_proj, x.device) if c_name == "lut_multi_gemm_launch" else None
+    extra = () if scratch is None else (scratch.data_ptr(),)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                  inv_stack.data_ptr(), cb_stack.data_ptr(),
                  (ctypes.c_void_p * n_proj)(*[pk.data_ptr() for pk in packed_list]),
                  ints(widths), ints(nbits), ints([int(bool(q)) for q in quantize]),
-                 n_proj, y.data_ptr(), m, k,
+                 n_proj, y.data_ptr(), m, k, *extra,
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name)
     LAUNCHES[name] += 1

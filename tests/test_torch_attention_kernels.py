@@ -265,3 +265,51 @@ def test_flash_cpu_route_takes_the_cached_tile_or_the_heuristic_never_measures()
         _port_flash(arrays)
     assert port_at.get_cache().measured == {"flash": 0, "paged": 0}
     assert port_ops.launch_counts()["flash_attention"] == 0
+
+
+# the card's tile rules (kernels/flash_attention.py card_tile), checked on the
+# CPU: every tile the tuner proposes at the prefill geometry runs at every D the
+# kernels take, in both dtypes
+PREFILL_TILES = port_at.flash_candidates(4096, 4096)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("bq,bk", PREFILL_TILES, ids=[f"{a}x{b}" for a, b in PREFILL_TILES])
+def test_flash_card_admits_every_candidate_tile(bq, bk, d, dtype):
+    from repro_torch.kernels.flash_attention import card_tile
+    got = card_tile(d, bq, bk, dtype)
+    assert got["smem_bytes"] <= 232448
+    if dtype == torch.bfloat16:
+        # tensor cores: D padded to 16, the softmax in the kernel's own key chunks
+        assert got["kernel"] == "tensor_cores"
+        assert got["d_pad"] % 16 == 0 and d <= got["d_pad"] < d + 16
+        assert got["rows_per_pass"] == 128 and got["key_step"] == 32
+    else:
+        assert got["kernel"] == "cuda_cores" and got["key_step"] == bk
+        assert got["rows_per_pass"] == min(bq, 64, 8192 // bk)
+
+
+def test_flash_card_tile_rules():
+    from repro_torch.kernels.flash_attention import card_tile
+    for dtype in (torch.bfloat16, torch.float32):
+        # the heuristic and the smallest tile are what the tuner returns unmeasured
+        assert (256, 512) in PREFILL_TILES and (64, 128) in PREFILL_TILES
+        card_tile(128, 256, 512, dtype)
+        card_tile(128, 64, 128, dtype)
+        card_tile(1, 1, 1, dtype)
+        with pytest.raises(ValueError, match="D <= 256; got D 272"):
+            card_tile(272, 64, 128, dtype)
+        with pytest.raises(ValueError, match="bq and bk must be >= 1"):
+            card_tile(64, 0, 128, dtype)
+    # only the f32 kernel keeps bk as its step in a shared score tile
+    assert card_tile(64, 64, 16384, torch.bfloat16)["key_step"] == 32
+    with pytest.raises(ValueError, match="bk <= 8192 keys; got bk 16384"):
+        card_tile(64, 64, 16384, torch.float32)
+    with pytest.raises(TypeError, match="no kernel for torch.float16"):
+        card_tile(64, 64, 128, torch.float16)
+    # the bf16 kernel's shared memory: a 128-row Q tile and three stages of 32
+    # keys of K and V, rows padded by 8 elements
+    assert card_tile(128, 64, 128, torch.bfloat16)["smem_bytes"] == 2 * (128 + 192) * 136
+    assert card_tile(256, 64, 128, torch.bfloat16)["smem_bytes"] == 2 * (128 + 192) * 264
+

@@ -202,7 +202,7 @@ class TestPersistentCache:
     @pytest.mark.parametrize("payload", [
         "", "{not json", '{"version": 99, "entries": {}}', "[1, 2, 3]",
         '{"version": 1, "entries": {"k": {"blocks": "bad"}}}',
-        '{"version": 2, "entries": {"k": {"blocks": [1]}}}'])
+        '{"version": 3, "entries": {"k": {"blocks": [1]}}}'])
     def test_corrupt_or_wrong_version_file_reads_empty(self, tmp_path, payload):
         path = tmp_path / "autotune.json"
         path.write_text(payload)
@@ -210,6 +210,21 @@ class TestPersistentCache:
         assert c.entries == {}
         assert port_at.pick_flash_blocks(512, 1024, 64, device="cpu", cache=c) == \
             port_at.flash_heuristic(512, 1024)
+
+    def test_a_version_1_file_reads_empty(self, cache, tmp_path):
+        """Version 1 holds winners measured on the CUDA-core bf16 flash kernel;
+        the tensor-core kernel must be measured again, not served those."""
+        assert port_at.CACHE_SCHEMA_VERSION == 2
+        key = port_at.normalize_key(4096, 4096, 128, 0, "flash", CARD)
+        path = tmp_path / "v1.json"
+        path.write_text(json.dumps({"version": 1, "entries": {
+            key: {"blocks": [64, 128], "us": 13639.0, "source": "measured"}}}))
+        c = AutotuneCache(str(path))
+        assert c.entries == {} and c.get(key) is None
+        m = Counter()
+        assert port_at.pick_flash_blocks(4096, 4096, 128, device="cuda", measure=m,
+                                         cache=c) in port_at.flash_candidates(4096, 4096)
+        assert len(m.calls) == len(port_at.flash_candidates(4096, 4096)), "measured anew"
 
     def test_save_is_versioned_sorted_and_atomic(self, tmp_path):
         path = str(tmp_path / "sub" / "autotune.json")
