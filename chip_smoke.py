@@ -8,7 +8,8 @@ holds each against its plain PyTorch version on the card at the shapes
 llama2-7b and qwen2-1.5b give it (every projection of a multi-projection
 launch bit for bit against its solo launch, the §4 layer's int8 LUT GEMM bit
 for bit against the fused serving GEMM, the dequantizing attention over a
-gathered int8 view bit for bit against the pool-direct one), calls the two
+gathered int8 view bit for bit against the pool-direct one, a query row's
+bits from a width-32 launch against a width-1 one), calls the two
 attention kernels with their tiles left to the tuner on a fresh cache (every
 candidate measured once, nothing on a hit or after a reload), runs the
 paper's §4 LUT layer at
@@ -98,14 +99,52 @@ def phase_env() -> str:
     return smi
 
 
+def _pool_plan_matches_launchers(lib) -> int:
+    """kernels/paged_attention.py pool_plan against the C make_plan the B5 /
+    B8 launchers run (paged_attn_plan), for every row count a block can hold
+    (1..32, which covers every T and GQA group the script launches), every
+    admissible D, each pool type and every stage the wrappers pass (the
+    default, and B8's l_pad): the same geometry and shared-memory bytes, and
+    a plan refused on the host exceeds the card's limit in C as well.
+    Returns the plans compared."""
+    import ctypes
+    from repro_torch.kernels.paged_attention import _MAX_SMEM, _POOL_KIND, pool_plan
+    geom = (ctypes.c_int * 4)()
+    n = 0
+    for rows in range(1, 33):
+        for d in range(32, 257, 32):
+            for dtype, kind in _POOL_KIND.items():
+                for sk in (None, 32, 64, 96, 128, 256, 512):
+                    try:
+                        plan = pool_plan(rows, 1, 1, d, dtype, stage_keys=sk)
+                    except ValueError:
+                        plan = None
+                    stage = plan["stage_keys"] if plan is not None else sk or 32
+                    smem = lib.paged_attn_plan(rows, stage, d, kind, geom)
+                    if plan is None:
+                        ok = sk is None or smem > _MAX_SMEM
+                    else:
+                        ok = (smem == plan["smem_bytes"] and list(geom) == [
+                            plan["rows_per_warp"], plan["groups"], plan["warps_per_row"],
+                            plan["row_bytes"]])
+                    if not ok:
+                        raise SystemExit(
+                            f"build: pool_plan and the launchers' make_plan disagree at rows "
+                            f"{rows}, D {d}, {dtype}, stage {sk}: {plan} vs smem {smem}, "
+                            f"geometry {list(geom)}")
+                    n += 1
+    return n
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          compiled=_build.build_seconds is not None,
          sources=[f"src/repro_torch/kernels/csrc/{s}" for s in _build.SOURCES],
-         ptxas=_build.resource_usage())
+         ptxas=_build.resource_usage(),
+         pool_plans_equal_to_launchers=_pool_plan_matches_launchers(lib))
 
 
 # ---------------------------------------------------------------------------
@@ -390,13 +429,15 @@ def _time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype):
                 bound_ms=bound, bound_by=by)
 
 
-def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap):
+def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths=None, n_new=None,
+               d=128):
     from repro_torch.models.layers import quantize_kv
     dev = gen.device
-    s, d, bs, nb, nbw = 8, 128, 16, 256, 32
+    s, bs, nb, nbw = 8, 16, 256, 32
     # ragged: a long slot, short ones, one idle slot, one chunk with n_new < T
-    lengths = torch.tensor([200, 37, 0, 95, 16, 0, 130, 63], dtype=torch.int32)
-    n_new = torch.tensor([t, t, 0, max(t // 2, 1), t, t, 1, t], dtype=torch.int32)
+    if lengths is None:
+        lengths = torch.tensor([200, 37, 0, 95, 16, 0, 130, 63], dtype=torch.int32)
+        n_new = torch.tensor([t, t, 0, max(t // 2, 1), t, t, 1, t], dtype=torch.int32)
     perm = torch.randperm(nb, generator=torch.Generator().manual_seed(1))[:s * nbw]
     tables = perm.reshape(s, nbw).to(torch.int32)
     kf = torch.randn((nb, bs, kv, d), generator=gen, device=dev)
@@ -437,8 +478,78 @@ def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap):
         nbytes += 2 * seen * kv * 4 + 2 * kv * d * 4
     ops = 4.0 * pairs * g * kv * d
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[qdtype]
-    bound = dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations")
+    # the kernel computes in f32 on the CUDA cores: the same operations at
+    # that rate are the least time its arithmetic can take
+    bound = dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations",
+                 f32_core_bound_ms=ops / PEAK_OPS[torch.float32] * 1e3)
     return args, kw, bound
+
+
+def _attn_row_bits_do_not_depend_on_t(gen):
+    """A row's bits do not depend on T (csrc/paged_attention.cuh, the
+    canonical per-row key order): a width-T launch in which some slots decode
+    (n_new = 1) beside prefill chunks, and the T = 1 launch over the same
+    pools, tables and first query rows; row 0 of every slot with new tokens
+    must be torch.equal. This is what engine = solo tokens rests on. T runs
+    over every block shape of pool_plan: at H = KV (g = 1) T = 32 gives 4
+    rows a warp, 16 (the engine's prefill chunk) 2, 8 one row a warp, 4 and 2
+    the warps splitting the chunks of 4 and 2 rows; with qwen2-1.5b's group
+    of 6 the T = 1 launch has 6 rows and every wider one 2 or 4 a warp."""
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    lengths = torch.tensor([200, 37, 0, 95, 16, 480, 130, 63], dtype=torch.int32)
+    held = []
+    for t in (32, 16, 8, 4, 2):
+        n_new = torch.tensor([1, t, 0, 1, t, 1, 1, t // 2 + 1], dtype=torch.int32)
+        for (h, kv) in ((32, 32), (12, 2)):
+            for qdtype, pool in ((torch.bfloat16, "bf16"), (torch.float32, "f32"),
+                                 (torch.bfloat16, "int8")):
+                for window, softcap in ((0, 0.0), (64, 0.0), (0, 30.0)):
+                    held.append(_row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap,
+                                               lengths, n_new))
+    return held
+
+
+def _row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths, n_new):
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    args, kw, _ = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap,
+                             lengths=lengths, n_new=n_new)
+    q, kp, vp, tables, lens, nn, win = args
+    wide = paged_pool_attention(*args, **kw)
+    one = paged_pool_attention(q[:, :1].contiguous(), kp, vp, tables, lens,
+                               torch.clamp(nn, max=1), win, **kw)
+    torch.cuda.synchronize()
+    live = [i for i, n in enumerate(n_new.tolist()) if n > 0]
+    decoding = [i for i, n in enumerate(n_new.tolist()) if n == 1]
+    case = dict(t=t, h=h, kv=kv, pool=pool, q=str(qdtype).split(".")[-1],
+                window=window, softcap=softcap, decoding_slots=decoding,
+                row0_equal=all(torch.equal(wide[i, 0], one[i, 0]) for i in live))
+    if not case["row0_equal"]:
+        emit("kernels", failed=case)
+        raise SystemExit(f"paged_pool_attention: a row's bits depend on T: {case}")
+    return case
+
+
+def _attn_vs_plain(gen, t, h, kv, qdtype, pool, window, softcap, d=128):
+    """One B5 case against its plain version; fails the run on a miss."""
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    from repro_torch.kernels.ref import paged_pool_attention_ref
+    args, kw, bound = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap, d=d)
+    out = paged_pool_attention(*args, **kw)
+    ref = paged_pool_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    # f32 rows: online vs materialized softmax, f32 rounding only.
+    # bf16 rows: both round an f32 result to bf16 — one bf16 ulp.
+    scale = float(ref.float().abs().max())
+    tol = 5e-5 * max(scale, 1.0) if qdtype == torch.float32 else 2.0 ** -7 * max(scale, 1.0)
+    err = float((out.float() - ref.float()).abs().max())
+    idle_zero = bool((out[2] == 0).all())     # slot 2: nothing visible
+    case = dict(kernel="paged_pool_attention", t=t, h=h, kv=kv, d=d, pool=pool,
+                q=str(qdtype).split(".")[-1], window=window, softcap=softcap,
+                max_abs_err=err, tol=tol, idle_slot_zero=idle_zero)
+    if not (bool(torch.isfinite(out.float()).all()) and err <= tol and idle_zero):
+        emit("kernels", failed=case)
+        raise SystemExit(f"attention kernel disagrees with its plain version: {case}")
+    return case, args, kw, bound
 
 
 def check_attention_kernel(gen):
@@ -451,37 +562,60 @@ def check_attention_kernel(gen):
                                  (torch.bfloat16, "int8"), (torch.float32, "int8"),
                                  (torch.float32, "bf16")):
                 for window, softcap in ((0, 0.0), (64, 0.0), (0, 30.0)):
-                    args, kw, bound = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap)
-                    out = paged_pool_attention(*args, **kw)
-                    ref = paged_pool_attention_ref(*args, **kw)
-                    torch.cuda.synchronize()
-                    # f32 rows: online vs materialized softmax, f32 rounding only.
-                    # bf16 rows: both round an f32 result to bf16 — one bf16 ulp.
-                    scale = float(ref.float().abs().max())
-                    tol = 5e-5 * max(scale, 1.0) if qdtype == torch.float32 \
-                        else 2.0 ** -7 * max(scale, 1.0)
-                    err = float((out.float() - ref.float()).abs().max())
-                    idle_zero = bool((out[2] == 0).all())     # slot 2: nothing visible
-                    case = dict(kernel="paged_pool_attention", t=t, h=h, kv=kv, pool=pool,
-                                q=str(qdtype).split(".")[-1], window=window,
-                                softcap=softcap, max_abs_err=err, tol=tol,
-                                idle_slot_zero=idle_zero)
-                    if not (bool(torch.isfinite(out.float()).all()) and err <= tol
-                            and idle_zero):
-                        emit("kernels", failed=case)
-                        raise SystemExit(
-                            f"attention kernel disagrees with its plain version: {case}")
-                    worst = max(worst, err)
+                    case, args, kw, bound = _attn_vs_plain(gen, t, h, kv, qdtype, pool,
+                                                           window, softcap)
+                    worst = max(worst, case["max_abs_err"])
                     if (h, kv) == (32, 32) and pool == "bf16" and window == 0 \
                             and softcap == 0.0 and qdtype == torch.bfloat16:
-                        case["ms"] = time_ms(lambda i: paged_pool_attention(*args, **kw), 50)
-                        case["plain_ms"] = time_ms(
-                            lambda i: paged_pool_attention_ref(*args, **kw), 5, warmup=1)
-                        case.update(bound)
+                        _time_attn(case, args, kw, bound)
                         if t == 1:
                             headline = case
                     cases.append(case)
+    # the instances for a D other than 128 (D / 32 read at run time): the
+    # reduced configurations' D = 32, and 64 and 256, at every rows-a-warp
+    # plan (T = 1 with its split warps, 16, 32), under the same tolerances
+    for d in (32, 64, 256):
+        for t, (h, kv) in ((1, (32, 32)), (16, (32, 32)), (32, (16, 2))):
+            for qdtype, pool in ((torch.bfloat16, "bf16"), (torch.float32, "f32"),
+                                 (torch.bfloat16, "int8")):
+                for window, softcap in ((0, 0.0), (64, 30.0)):
+                    case = _attn_vs_plain(gen, t, h, kv, qdtype, pool, window, softcap,
+                                          d=d)[0]
+                    worst = max(worst, case["max_abs_err"])
+                    cases.append(case)
+    # two more timed shapes: qwen2-1.5b's GQA (12 heads over 2) at T = 32, and
+    # every slot at 480 cached tokens (the engine's full 32-block table) at T = 1
+    for label, t, h, kv, lens, nn in (
+            ("qwen2-1.5b gqa", 32, 12, 2, None, None),
+            ("full table", 1, 32, 32, torch.full((8,), 480, dtype=torch.int32),
+             torch.ones(8, dtype=torch.int32))):
+        args, kw, bound = _attn_case(gen, t, h, kv, torch.bfloat16, "bf16", 0, 0.0,
+                                     lengths=lens, n_new=nn)
+        out = paged_pool_attention(*args, **kw)
+        ref = paged_pool_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -7 * max(float(ref.float().abs().max()), 1.0)
+        err = float((out.float() - ref.float()).abs().max())
+        case = dict(kernel="paged_pool_attention", case=label, t=t, h=h, kv=kv, pool="bf16",
+                    q="bfloat16", window=0, softcap=0.0, max_abs_err=err, tol=tol)
+        if not (bool(torch.isfinite(out.float()).all()) and err <= tol):
+            emit("kernels", failed=case)
+            raise SystemExit(f"attention kernel disagrees with its plain version: {case}")
+        worst = max(worst, err)
+        _time_attn(case, args, kw, bound)
+        cases.append(case)
     return cases, worst, headline
+
+
+def _time_attn(case, args, kw, bound):
+    from repro_torch.kernels.paged_attention import paged_pool_attention, pool_plan
+    from repro_torch.kernels.ref import paged_pool_attention_ref
+    q, kp = args[0], args[1]
+    case["plan"] = pool_plan(q.shape[1], q.shape[2], kp.shape[2], q.shape[3], kp.dtype,
+                             s_slots=q.shape[0])
+    case["ms"] = time_ms(lambda i: paged_pool_attention(*args, **kw), 50)
+    case["plain_ms"] = time_ms(lambda i: paged_pool_attention_ref(*args, **kw), 5, warmup=1)
+    case.update(bound)
 
 
 # the §4 layer's kernels: B6 (float activations), B7 (int8 codes), B10
@@ -670,14 +804,14 @@ def _sdpa_yardstick_ms(q, k, v, *, is_causal=False, attn_mask=None, iters=10) ->
     return time_ms(lambda i: f(q, k, v, attn_mask=attn_mask, is_causal=is_causal), iters)
 
 
-def _dequant_case(gen, t, h, kv, qdtype, window):
+def _dequant_case(gen, t, h, kv, qdtype, window, d=128):
     """An int8 block pool at llama2-7b's engine shape (`EngineConfig` of the
     serve phase: 8 slots, 32 blocks of 16 per slot, so L = 512), its view
     gathered through random block tables, random lengths <= L - T, an idle
     slot, a slot with no new tokens and one with n_new < T."""
     from repro_torch.models.layers import quantize_kv
     dev = gen.device
-    s, d, bs, nb, nbw = 8, 128, 16, 256, 32
+    s, bs, nb, nbw = 8, 16, 256, 32
     l = nbw * bs
     host = torch.Generator().manual_seed(7 * t + h)
     lengths = torch.randint(0, l - t + 1, (s,), generator=host, dtype=torch.int32)
@@ -718,43 +852,53 @@ def check_dequant_attention(gen):
     """B8 against its plain version at llama2-7b's engine shape (H = KV = 32)
     and qwen2-1.5b's GQA (12 heads over 2), D 128, L 512, T in {1, 32}, with a
     window of 64 and a softcap of 50; B8 on the gathered view torch.equal to
-    B5 on the pool, and l_pad 128 torch.equal to l_pad 256."""
+    B5 on the pool, and l_pad 128 torch.equal to l_pad 256. Then the
+    instances for a D other than 128 (D / 32 read at run time) at D 32 and
+    256, under the same checks (at D 256, l_pad 64 against 128)."""
     from repro_torch.kernels.paged_attention import (paged_dequant_attention,
                                                      paged_pool_attention)
     from repro_torch.kernels.ref import paged_dequant_attention_ref
     cases, worst = [], 0.0
-    for t in (1, 32):
-        for (h, kv) in ((32, 32), (12, 2)):
-            for qdtype in (torch.bfloat16, torch.float32):
-                for window, softcap in ((0, 0.0), (64, 0.0), (0, 50.0)):
-                    dq, (pa, pkw), _ = _dequant_case(gen, t, h, kv, qdtype, window)
-                    out = paged_dequant_attention(*dq, softcap=softcap, l_pad=128)
-                    out256 = paged_dequant_attention(*dq, softcap=softcap, l_pad=256)
-                    pool = paged_pool_attention(*pa, softcap=softcap, **pkw)
-                    ref = paged_dequant_attention_ref(*dq, softcap=softcap)
-                    torch.cuda.synchronize()
-                    # as for B5: f32 rows differ by f32 rounding; bf16 elements by
-                    # one ulp each (_attention_close)
-                    if qdtype == torch.float32:
-                        tol = 5e-5 * max(float(ref.abs().max()), 1.0)
-                        err = float((out - ref).abs().max())
-                        close, ratio = err <= tol, err / tol
-                    else:
-                        tol = "2^-7 (|ref| + rms(ref)) per element"
-                        close, err, ratio = _attention_close(out, ref)
-                    case = dict(kernel="paged_dequant_attention", t=t, h=h, kv=kv,
-                                q=str(qdtype).split(".")[-1], window=window, softcap=softcap,
-                                max_abs_err=err, tol=tol, err_over_limit=ratio,
-                                equals_pool_attention_bits=bool(torch.equal(out, pool)),
-                                l_pad_128_equals_256=bool(torch.equal(out, out256)),
-                                idle_slot_zero=bool((out[2] == 0).all()))
-                    if not (bool(torch.isfinite(out.float()).all()) and close
-                            and case["equals_pool_attention_bits"]
-                            and case["l_pad_128_equals_256"] and case["idle_slot_zero"]):
-                        emit("kernels", failed=case)
-                        raise SystemExit(f"paged_dequant_attention disagrees: {case}")
-                    worst = max(worst, err)
-                    cases.append(case)
+    shapes = [(128, t, hk, qdtype, window, softcap)
+              for t in (1, 32) for hk in ((32, 32), (12, 2))
+              for qdtype in (torch.bfloat16, torch.float32)
+              for window, softcap in ((0, 0.0), (64, 0.0), (0, 50.0))]
+    shapes += [(d, t, (32, 32), qdtype, window, softcap)
+               for d in (32, 256) for t in (1, 32)
+               for qdtype in (torch.bfloat16, torch.float32)
+               for window, softcap in ((0, 0.0), (64, 50.0))]
+    for d, t, (h, kv), qdtype, window, softcap in shapes:
+        dq, (pa, pkw), _ = _dequant_case(gen, t, h, kv, qdtype, window, d=d)
+        # two stages: 128 and 256 keys, or 64 and 128 where D = 256 (256 keys of
+        # D 256 overflow the shared memory, pool_plan)
+        l_pads = (128, 256) if d <= 128 else (64, 128)
+        out = paged_dequant_attention(*dq, softcap=softcap, l_pad=l_pads[0])
+        out2 = paged_dequant_attention(*dq, softcap=softcap, l_pad=l_pads[1])
+        pool = paged_pool_attention(*pa, softcap=softcap, **pkw)
+        ref = paged_dequant_attention_ref(*dq, softcap=softcap)
+        torch.cuda.synchronize()
+        # as for B5: f32 rows differ by f32 rounding; bf16 elements by
+        # one ulp each (_attention_close)
+        if qdtype == torch.float32:
+            tol = 5e-5 * max(float(ref.abs().max()), 1.0)
+            err = float((out - ref).abs().max())
+            close, ratio = err <= tol, err / tol
+        else:
+            tol = "2^-7 (|ref| + rms(ref)) per element"
+            close, err, ratio = _attention_close(out, ref)
+        case = dict(kernel="paged_dequant_attention", t=t, h=h, kv=kv, d=d,
+                    q=str(qdtype).split(".")[-1], window=window, softcap=softcap,
+                    max_abs_err=err, tol=tol, err_over_limit=ratio,
+                    equals_pool_attention_bits=bool(torch.equal(out, pool)),
+                    l_pads=l_pads, l_pad_bits_equal=bool(torch.equal(out, out2)),
+                    idle_slot_zero=bool((out[2] == 0).all()))
+        if not (bool(torch.isfinite(out.float()).all()) and close
+                and case["equals_pool_attention_bits"]
+                and case["l_pad_bits_equal"] and case["idle_slot_zero"]):
+            emit("kernels", failed=case)
+            raise SystemExit(f"paged_dequant_attention disagrees: {case}")
+        worst = max(worst, err)
+        cases.append(case)
     return cases, worst
 
 
@@ -983,6 +1127,7 @@ def phase_kernels(seed: int):
     lut_cases, lut_worst, lut_head = check_lut_kernels(gen)
     multi_cases, multi_worst, multi_head = check_multi_kernels(gen)
     att_cases, att_worst, att_head = check_attention_kernel(gen)
+    t_independent = _attn_row_bits_do_not_depend_on_t(gen)
     plain_cases, plain_worst, plain_head = check_plain_kernels(gen)
     dq_cases, dq_worst = check_dequant_attention(gen)
     fa_cases, fa_worst = check_flash_attention(gen)
@@ -999,6 +1144,7 @@ def phase_kernels(seed: int):
          worst_abs_err={**lut_worst, **multi_worst, "paged_pool_attention": att_worst,
                         **plain_worst, "paged_dequant_attention": dq_worst,
                         "flash_attention": fa_worst},
+         paged_pool_attention_row_bits_same_at_t1_and_t2_to_32=len(t_independent),
          launches_during_comparison=launch_counts(), timed=[c for c in every if "ms" in c])
     out = {name: (lut_head[name], lut_worst[name]) for name in lut_head}
     out.update({name: (multi_head[name], multi_worst[name]) for name in multi_head})

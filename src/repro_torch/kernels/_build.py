@@ -136,15 +136,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.paged_attn_launch
     # q, q_is_bf16, k_pool, v_pool, pool_kind, k_scale, v_scale, k_smooth,
     # v_smooth, block_tables, lengths, n_new, out, S, T, H, KV, D, nb, bs, NB,
-    # window, softcap, stream
+    # window, softcap, rows, stage_keys (pool_plan), stream
     fn.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p, p,
-                   i, i, i, i, i, i, i, i, i, f, p]
+                   i, i, i, i, i, i, i, i, i, f, i, i, p]
     fn.restype = i
+    fn = lib.paged_attn_plan
+    # rows, stage_keys, D, pool_kind, geom (4 ints out: rg, groups, split,
+    # row_bytes) -> shared-memory bytes, or -1 where the plan is refused
+    fn.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    fn.restype = ctypes.c_longlong
     fn = lib.paged_dequant_launch
     # q, q_is_bf16, kq, k_scale, vq, v_scale, k_smooth, v_smooth, lengths,
-    # n_new, window_ptr (or null), window, out, S, T, H, KV, D, L, l_pad,
-    # softcap, stream
-    fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, p]
+    # n_new, window_ptr (or null), window, out, S, T, H, KV, D, L, rows, l_pad
+    # (pool_plan), softcap, stream
+    fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, f, p]
     fn.restype = i
     fn = lib.flash_attn_launch
     # q, k, v, out, is_bf16, BH, Sq, Sk, D, bq, bk, causal, window, softcap,

@@ -79,7 +79,9 @@ def paged_heuristic() -> Tuple[int]:
 
 
 def paged_candidates(l: int) -> List[Tuple[int]]:
-    """KV staging lengths; a second one only when L exceeds the first."""
+    """KV staging lengths; a second one only when L exceeds the first. Each
+    is a whole number of the block body's 32-key chunks, as the card requires
+    (paged_attention.py pool_plan)."""
     out = [paged_heuristic()]
     if l > 128:
         out.append((256,))

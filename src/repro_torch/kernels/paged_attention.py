@@ -5,16 +5,22 @@ The kernel (kernels/csrc/paged_attention.cu) reads the paged KV pools in
 place through the block tables: per decode step the cache traffic is each
 slot's true length, not a table-width-padded gathered copy. One kernel serves
 float (f32 / bf16) and int8 pools; int8 pools dequantize on chip as
-codes · scale[token, head] · smooth[head, :]. On a CUDA tensor the wrapper
-launches the kernel on the current stream and counts the launch; on a CPU
-tensor it runs the plain version (kernels/ref.py paged_pool_attention_ref).
+codes · scale[token, head] · smooth[head, :]. A thread block takes up to 32
+query rows of one (slot, kv-head) and reads each of the slot's keys once;
+`pool_plan` holds the card's rules for that block (rows, the staging ring,
+shared memory, grid) and is checked before every launch. Every row follows
+one canonical key order (32-key chunks folded left in key order,
+csrc/paged_attention.cuh), so its bits do not depend on T, the grid or the
+staging. On a CUDA tensor the wrapper launches the kernel on the current
+stream and counts the launch; on a CPU tensor it runs the plain version
+(kernels/ref.py paged_pool_attention_ref).
 
 `paged_dequant_attention` (kernels/csrc/paged_dequant.cu) attends over an
-already-gathered int8 view (S, L, KV, D) with the same per-row body, so on a
+already-gathered int8 view (S, L, KV, D) with the same block body, so on a
 view gathered from a pool it gives the same bits as `paged_pool_attention` on
-that pool. Its `l_pad` (keys staged in shared memory at a time) comes from
-the tuner (kernels/autotune.py) when left as None; every `l_pad` gives the
-same bits.
+that pool. Its `l_pad` (keys staged in shared memory at a time, a multiple of
+the 32-key chunk) comes from the tuner (kernels/autotune.py) when left as
+None; every `l_pad` gives the same bits.
 """
 from __future__ import annotations
 
@@ -31,6 +37,65 @@ LAUNCHES = {"paged_pool_attention": 0, "paged_dequant_attention": 0}
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_D = 256
 _MAX_SMEM = 232448          # bytes of shared memory one thread block may use
+
+# the block body's constants (csrc/paged_attention.cuh)
+CHUNK = 32                  # keys per chunk: the segment of the canonical per-row order
+_WARPS = 8
+_MAX_ROWS = 32              # query rows of one thread block
+_MAX_RG = 4                 # rows of one warp's group
+_ROW_PAD = 16               # bytes after each staged key row
+_STAGES = 2                 # buffers of the staging ring
+
+
+def pool_plan(t: int, h: int, kv: int, d: int, pool_dtype, *, s_slots: int = 1,
+              stage_keys: Optional[int] = None, name: str = "paged_pool_attention") -> dict:
+    """The card's rules for one launch of the paged attention block body, the
+    same arithmetic as csrc/paged_attention.cuh make_plan: raises ValueError
+    for what the card cannot run, before anything is launched.
+
+    A thread block owns rows = min(32, g·T) query rows of one (slot,
+    kv-head): groups of rg rows (1 up to 8 rows, 2 up to 16, else 4), one warp
+    each; with rows <= 4 the 8 warps split a row's chunks (`warps_per_row`).
+    Keys arrive `stage_keys` at a time (a multiple of the 32-key chunk)
+    through a ring of 2 buffers, each staged key row D elements of the pool's
+    type plus 16 bytes. Unless given (B8 stages l_pad keys), a stage is 96
+    keys where the warps split a row's chunks (3 chunks a stage) and 64
+    otherwise, or 32 where that does not fit (measured on an H100: PERF.md).
+    None of these choices changes a bit of the result."""
+    if d % 32 or not 32 <= d <= _MAX_D:
+        raise ValueError(f"{name}: on the card the head dim must be a multiple of 32 "
+                         f"and <= {_MAX_D}; got {d}")
+    if kv < 1 or h % kv or t < 1 or s_slots < 1:
+        raise ValueError(f"{name}: need T, S >= 1 and KV | H; got T {t}, S {s_slots}, "
+                         f"H {h}, KV {kv}")
+    g = h // kv
+    rows = min(_MAX_ROWS, g * t)
+    rg = 1 if rows <= 8 else 2 if rows <= 16 else _MAX_RG
+    groups = -(-rows // rg)
+    split = _WARPS // groups if rg == 1 and groups <= 4 else 1
+    elt = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[pool_dtype]
+    int8 = pool_dtype == torch.int8
+    row_bytes = d * elt + _ROW_PAD
+
+    def smem(sk):
+        floats = (groups * rg * d + _WARPS * _MAX_RG * CHUNK + (d if int8 else 0)
+                  + (2 * groups * (sk // CHUNK) * (d + 4) if split > 1 else 0))
+        return floats * 4 + _STAGES * (2 * sk * row_bytes + (2 * sk * 4 if int8 else 0))
+
+    if stage_keys is None:
+        stage_keys = next((sk for sk in ((96, 64, 32) if split > 1 else (64, 32))
+                           if smem(sk) <= _MAX_SMEM), 32)
+    stage_keys = int(stage_keys)
+    if stage_keys < CHUNK or stage_keys % CHUNK:
+        raise ValueError(f"{name}: keys are staged in whole {CHUNK}-key chunks; got "
+                         f"{stage_keys}")
+    nbytes = smem(stage_keys)
+    if nbytes > _MAX_SMEM:
+        raise ValueError(f"{name}: {stage_keys} keys a stage at D {d} take {nbytes} bytes; "
+                         f"one thread block holds at most {_MAX_SMEM}")
+    return dict(chunk=CHUNK, rows=rows, rows_per_warp=rg, groups=groups,
+                warps_per_row=split, stage_keys=stage_keys, row_bytes=row_bytes,
+                smem_bytes=nbytes, grid=(s_slots, kv, -(-(g * t) // rows)))
 
 
 def _check_operands(q, k_pool, v_pool, block_tables, lengths, n_new, k_scale,
@@ -124,6 +189,10 @@ def paged_pool_attention(
             v_smooth=v_smooth, softcap=softcap)
     s_slots, t, h, d = q.shape
     nb, bs, kv, _ = k_pool.shape
+    plan = pool_plan(t, h, kv, d, k_pool.dtype, s_slots=s_slots)
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_pool_attention: k_pool and v_pool must be 16-byte aligned "
+                         "for the kernel's vector copies")
     out = torch.empty_like(q)
     int8 = k_pool.dtype == torch.int8
 
@@ -137,8 +206,8 @@ def paged_pool_attention(
             ptr(v_scale), ptr(k_smooth), ptr(v_smooth),
             block_tables.data_ptr(), lengths.data_ptr(), n_new.data_ptr(),
             out.data_ptr(), s_slots, t, h, kv, d, nb, bs,
-            block_tables.shape[1], window, float(softcap),
-            torch.cuda.current_stream().cuda_stream)
+            block_tables.shape[1], window, float(softcap), plan["rows"],
+            plan["stage_keys"], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "paged_pool_attention")
     LAUNCHES["paged_pool_attention"] += 1
     return out
@@ -194,19 +263,17 @@ def _check_dequant_operands(q, kq, k_scale, vq, v_scale, k_smooth, v_smooth, len
 
 def _check_dequant_card(q, kq, vq, l_pad):
     """What the card's kernel takes beyond the operands' shapes: raised before
-    anything is launched (the tuner counts such a tile as refused)."""
+    anything is launched (the tuner counts such a tile as refused). `l_pad` is
+    the stage of the block body's staging ring, so it must be a whole number
+    of 32-key chunks. Returns the launch's plan (`pool_plan`)."""
     name = "paged_dequant_attention"
-    d = q.shape[-1]
-    if d % 32 or d > _MAX_D:
-        raise ValueError(f"{name}: on the card the head dim must be a multiple of 32 "
-                         f"and <= {_MAX_D}; got {d}")
-    smem = 2 * l_pad * d + 2 * l_pad * 4
-    if l_pad < 1 or smem > _MAX_SMEM:
-        raise ValueError(f"{name}: l_pad {l_pad} at D {d} stages {smem} bytes; one "
-                         f"thread block holds at most {_MAX_SMEM}")
+    s_slots, t, h, d = q.shape
+    plan = pool_plan(t, h, kq.shape[2], d, torch.int8, s_slots=s_slots, stage_keys=l_pad,
+                     name=name)
     if kq.data_ptr() % 16 or vq.data_ptr() % 16:
         raise ValueError(f"{name}: kq and vq must be 16-byte aligned for the kernel's "
                          f"vector loads")
+    return plan
 
 
 def _paged_measure_fn(s_slots: int, t: int, h: int, d: int, l: int, kv: int, dtype,
@@ -272,7 +339,7 @@ def paged_dequant_attention(
     if q.device.type != "cuda":
         return paged_dequant_attention_ref(q, kq, k_scale, vq, v_scale, k_smooth, v_smooth,
                                            lengths, n_new, window, softcap=softcap)
-    _check_dequant_card(q, kq, vq, l_pad)
+    plan = _check_dequant_card(q, kq, vq, l_pad)
     win_t = window if isinstance(window, torch.Tensor) else None
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -281,7 +348,8 @@ def paged_dequant_attention(
             vq.data_ptr(), v_scale.data_ptr(), k_smooth.data_ptr(), v_smooth.data_ptr(),
             lengths.data_ptr(), n_new.data_ptr(),
             None if win_t is None else win_t.data_ptr(), 0 if win_t is not None else int(window),
-            out.data_ptr(), s_slots, t, h, kv, d, l, int(l_pad), float(softcap),
+            out.data_ptr(), s_slots, t, h, kv, d, l, plan["rows"], plan["stage_keys"],
+            float(softcap),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "paged_dequant_attention")
     LAUNCHES["paged_dequant_attention"] += 1

@@ -161,6 +161,31 @@ def test_dequant_rejects_what_the_kernel_does_not_take():
     port_pa._check_dequant_card(t[0], t[1], t[3], 256)       # the tuner's candidates run
 
 
+@pytest.mark.parametrize("l", [24, 128, 129, 512, 4096])
+def test_dequant_every_candidate_pad_is_a_stage_the_card_runs(l):
+    """On the card l_pad is the stage of the shared block body's staging
+    ring (kernels/paged_attention.py pool_plan): a whole number of its 32-key
+    chunks. Every pad the tuner proposes is one, and runs at llama2-7b's and
+    qwen2-1.5b's shapes."""
+    for (l_pad,) in port_at.paged_candidates(l):
+        assert l_pad % port_pa.CHUNK == 0
+        for t, h, kv in ((1, 32, 32), (32, 32, 32), (32, 12, 2)):
+            q = torch.zeros((8, t, h, 128))
+            kq = torch.zeros((8, l, kv, 128), dtype=torch.int8)
+            plan = port_pa._check_dequant_card(q, kq, kq, l_pad)
+            assert plan["stage_keys"] == l_pad
+            assert plan["smem_bytes"] <= 232448
+
+
+def test_dequant_card_refuses_a_pad_that_splits_a_chunk():
+    q = torch.zeros((2, 1, 4, 64))
+    kq = torch.zeros((2, 96, 2, 64), dtype=torch.int8)
+    port_pa._check_dequant_card(q, kq, kq, 96)
+    for l_pad in (16, 48, 100):
+        with pytest.raises(ValueError, match="whole 32-key chunks"):
+            port_pa._check_dequant_card(q, kq, kq, l_pad)
+
+
 def test_dequant_cpu_route_picks_its_pad_without_measuring():
     port_ops.reset_launch_counts()
     args = _dequant_case(*DEQUANT_SHAPES["gqa4_chunk"], seed=2)

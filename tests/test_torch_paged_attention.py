@@ -139,3 +139,140 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                         "v_smooth": tkw["v_smooth"][:, :16].contiguous()})
     with pytest.raises(ValueError, match="KV | H"):
         port_pa.paged_pool_attention(t[0][:, :, :3].contiguous(), *t[1:], 0, **tkw)
+
+
+# ---------------------------------------------------------------------------
+# the card's rules for the block body (kernels/paged_attention.py pool_plan,
+# the same arithmetic as csrc/paged_attention.cuh make_plan), on the CPU
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = {                       # (T, H, KV): the engine's steps and the tests'
+    "llama_decode": (1, 32, 32), "llama_prefill": (32, 32, 32),
+    "qwen_decode": (1, 12, 2), "qwen_prefill": (32, 12, 2), "qwen_padded": (32, 16, 2),
+    "gqa_chunk": (8, 8, 2), "mha_chunk3": (3, 4, 4),
+}
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_pool_plan_admits_every_shape_the_card_takes(shape, d, pool):
+    t, h, kv = PLAN_SHAPES[shape]
+    plan = port_pa.pool_plan(t, h, kv, d, pool, s_slots=8)
+    g = h // kv
+    assert plan["chunk"] == port_pa.CHUNK == 32
+    assert plan["smem_bytes"] <= 232448
+    assert plan["stage_keys"] % 32 == 0
+    assert plan["rows"] == min(32, g * t)
+    s_slots, kvs, tiles = plan["grid"]
+    assert (s_slots, kvs) == (8, kv) and (tiles - 1) * plan["rows"] < g * t <= tiles * plan["rows"]
+    # every row in one group of one warp; a row's chunks split only at <= 4 rows
+    assert plan["rows_per_warp"] * plan["groups"] >= plan["rows"]
+    assert plan["groups"] * plan["warps_per_row"] <= 8
+    assert (plan["warps_per_row"] > 1) == (plan["rows"] <= 4)
+    if plan["warps_per_row"] > 1:
+        assert plan["rows_per_warp"] == 1
+    assert plan["row_bytes"] == d * torch.empty((), dtype=pool).element_size() + 16
+
+
+def test_pool_plan_rules():
+    bf16 = torch.bfloat16
+    # llama2-7b decode: one row, 8 warps on its chunks, 96-key stages in a ring of 2;
+    # q tile + p scratch + partials (2 x 1 x 3 x (128 + 4) floats) + the ring
+    plan = port_pa.pool_plan(1, 32, 32, 128, bf16, s_slots=8)
+    assert (plan["rows"], plan["warps_per_row"], plan["stage_keys"]) == (1, 8, 96)
+    assert plan["smem_bytes"] == 4 * (128 + 8 * 4 * 32 + 2 * 3 * 132) + 2 * 2 * 96 * 272
+    # llama2-7b prefill width: 32 rows, 4 a warp, no partials, 64-key stages
+    plan = port_pa.pool_plan(32, 32, 32, 128, bf16)
+    assert (plan["rows"], plan["rows_per_warp"], plan["warps_per_row"]) == (32, 4, 1)
+    assert plan["smem_bytes"] == 4 * (32 * 128 + 8 * 4 * 32) + 2 * 2 * 64 * 272
+    # 9 to 16 rows: 2 a warp
+    assert port_pa.pool_plan(16, 8, 8, 128, bf16)["rows_per_warp"] == 2
+    # int8 adds the K smoothing and each stage's scales
+    plan = port_pa.pool_plan(32, 32, 32, 128, torch.int8)
+    assert plan["smem_bytes"] == 4 * (32 * 128 + 8 * 4 * 32 + 128) + 2 * (2 * 64 * 144 + 2 * 64 * 4)
+    # where 64-key stages do not fit, 32
+    assert port_pa.pool_plan(32, 32, 32, 256, bf16)["stage_keys"] == 64
+    assert port_pa.pool_plan(32, 32, 32, 256, torch.float32)["stage_keys"] == 32
+    assert port_pa.pool_plan(1, 32, 32, 256, torch.float32)["stage_keys"] == 32
+    # what the card refuses, before any launch
+    for d in (16, 48, 272):
+        with pytest.raises(ValueError, match="multiple of 32 and <= 256"):
+            port_pa.pool_plan(1, 8, 8, d, bf16)
+    with pytest.raises(ValueError, match="whole 32-key chunks; got 48"):
+        port_pa.pool_plan(1, 8, 8, 64, bf16, stage_keys=48)
+    with pytest.raises(ValueError, match="one thread block holds at most 232448"):
+        port_pa.pool_plan(1, 32, 32, 256, torch.float32, stage_keys=256)
+    with pytest.raises(ValueError, match="KV | H"):
+        port_pa.pool_plan(1, 12, 5, 128, bf16)
+
+
+# ---------------------------------------------------------------------------
+# the canonical per-row key order (csrc/paged_attention.cuh), emulated in
+# numpy float32: 32-key chunks, each a fresh softmax, folded left in key order
+# ---------------------------------------------------------------------------
+
+def _canonical_row(q, k, v, lo, hi, scale, softcap=0.0, skip=True):
+    f = np.float32
+    m, l, acc = f(-1e30), f(0), np.zeros(q.shape[-1], np.float32)
+    for c0 in range(0, k.shape[0], 32):
+        if skip and not max(lo, c0) < min(hi, c0 + 32):
+            continue
+        kc, vc = k[c0:c0 + 32], v[c0:c0 + 32]
+        d = q.shape[-1]
+        parts = [np.zeros(len(kc), np.float32) for _ in range(8)]
+        for i in range(0, d, 8):
+            for u in range(8):
+                parts[u] = parts[u] + q[i + u] * kc[:, i + u]
+        sc = ((parts[0] + parts[1]) + (parts[2] + parts[3])) + \
+            ((parts[4] + parts[5]) + (parts[6] + parts[7]))
+        sc = sc * f(scale)
+        if softcap > 0:
+            sc = f(softcap) * np.tanh(sc / f(softcap))
+        cols = np.arange(c0, c0 + len(kc))
+        vis = (cols >= lo) & (cols < hi)
+        mc = np.where(vis, sc, f(-1e30)).max().astype(np.float32)
+        p = np.where(vis, np.exp(np.where(vis, sc - mc, f(0))), f(0)).astype(np.float32)
+        lc, pv = p.sum(dtype=np.float32), np.zeros_like(acc)
+        for j in range(len(kc)):
+            pv = pv + p[j] * vc[j]
+        mm = max(m, mc)
+        a, b = np.exp(f(m - mm)), np.exp(f(mc - mm))
+        l, acc, m = lc * b + l * a, pv * b + acc * a, mm
+    return acc / max(l, f(1e-30))
+
+
+@pytest.mark.parametrize("case", ["float_decode", "float_gqa_chunk", "int8_gqa_chunk"])
+@pytest.mark.parametrize("mask", ["global", "window_softcap"])
+def test_canonical_order_is_the_oracle_and_its_skip_moves_no_bit(case, mask):
+    window, softcap = MASKS[mask]
+    args, kw = _case(seed=11 + len(case), **CASES[case])
+    q, kp, vp, bt, lengths, n_new = args
+    want = np.asarray(ref_ref.paged_pool_attention_ref(
+        *args, jnp.int32(window), softcap=softcap, **kw))
+    s_slots, t, h, d = q.shape
+    nb, bs, kv, _ = kp.shape
+    g = h // kv
+    def view(pool):
+        return pool[np.clip(bt, 0, nb - 1)].reshape(s_slots, -1, *pool.shape[2:])
+
+    k, v = view(kp).astype(np.float32), view(vp).astype(np.float32)
+    if kp.dtype == np.int8:
+        k = (k * view(kw["k_scale"])[..., None]) * kw["k_smooth"]
+        v = (v * view(kw["v_scale"])[..., None]) * kw["v_smooth"]
+    got = np.zeros_like(want)
+    for s in range(s_slots):
+        for tt in range(t):
+            pos = lengths[s] + tt
+            lo = max(0, pos - window + 1) if window > 0 else 0
+            hi = min(pos + 1, lengths[s] + n_new[s], k.shape[1])
+            for hh in range(h):
+                row = [q[s, tt, hh], k[s, :, hh // g], v[s, :, hh // g], lo, hi,
+                       1 / np.sqrt(np.float32(d)), softcap]
+                got[s, tt, hh] = _canonical_row(*row)
+                if (s + tt + hh) % 5 == 0:   # every chunk taken: the same bits
+                    assert_equal(_canonical_row(*row, skip=False), got[s, tt, hh],
+                                 f"skip, row {(s, tt, hh)}")
+    scale = max(float(np.abs(want).max()), 1.0)
+    assert_close(got, want, rtol=1e-5, atol=1e-5 * scale, what=f"{case}/{mask} canonical order")
