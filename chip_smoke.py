@@ -136,6 +136,50 @@ def _pool_plan_matches_launchers(lib) -> int:
     return n
 
 
+def _gemv_plan_matches_launchers(lib) -> int:
+    """kernels/lut_matmul.py gemv_plan against the C make_plan every GEMV
+    launcher (B1, B3, B6 / B7 below 128 rows) runs (lut_gemv_plan): at M 1..127
+    and f32, bf16 and int8 activations for the B1 shapes, each of
+    MULTI_GROUPS (all 4-bit quantized, then mixed widths and transforms) and
+    the ragged (130, 37) case, and a few launches both must refuse. Returns
+    the plans compared."""
+    import ctypes
+    from repro_torch.kernels.lut_matmul import gemv_plan
+    out = (ctypes.c_int * 7)()
+    groups = [(k, (n,)) for k, n in LLAMA_KN] + list(MULTI_GROUPS.values()) + [(130, (37,))]
+    cases = []
+    for k, widths in groups:
+        p = len(widths)
+        for nbits, quantize in (((4,) * p, (True,) * p), ((2,) * p, (False,) * p),
+                                ((4, 2, 3)[:p], (True, False, True)[:p]),
+                                ((4,) * p, (True, False, True)[:p])):
+            cases += [(m, k, widths, nbits, quantize, xb) for m in range(1, 128)
+                      for xb in (2, 4, 1)]
+    cases += [(128, 4096, (4096,), (4,), (True,), 2), (8, 4096, (0,), (4,), (True,), 2),
+              (8, 4096, (64,), (5,), (True,), 2), (8, 4095, (64,), (4,), (True,), 2),
+              (8, 4096, (64,) * 9, (4,) * 9, (True,) * 9, 2), (8, 4096, (64,), (4,), (True,), 3)]
+    def ints(v):
+        return (ctypes.c_int * len(v))(*[int(x) for x in v])
+
+    n = 0
+    for m, k, widths, nbits, quantize, xb in cases:
+        try:
+            plan = gemv_plan(m, k, widths, nbits, quantize, x_bytes=xb, sms=132)
+        except ValueError:
+            plan = None
+        smem = lib.lut_gemv_plan(m, k, len(widths), ints(widths), ints(nbits), ints(quantize),
+                                 xb, 132, out)
+        ok = smem < 0 if plan is None else (smem == plan["smem_bytes"] and list(out) == [
+            plan["rows_per_block"], plan["strips"], plan["row_blocks"], plan["units"],
+            plan["stages_per_unit"], plan["grid"], int(plan["uniform"])])
+        if not ok:
+            raise SystemExit(f"build: gemv_plan and the launchers' make_plan disagree at M {m}, "
+                             f"K {k}, widths {widths}, nbits {nbits}, quantize {quantize}, "
+                             f"{xb}-byte x: {plan} vs smem {smem}, {list(out)}")
+        n += 1
+    return n
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -144,7 +188,8 @@ def phase_build() -> None:
          compiled=_build.build_seconds is not None,
          sources=[f"src/repro_torch/kernels/csrc/{s}" for s in _build.SOURCES],
          ptxas=_build.resource_usage(),
-         pool_plans_equal_to_launchers=_pool_plan_matches_launchers(lib))
+         pool_plans_equal_to_launchers=_pool_plan_matches_launchers(lib),
+         gemv_plans_equal_to_launchers=_gemv_plan_matches_launchers(lib))
 
 
 # ---------------------------------------------------------------------------
@@ -165,12 +210,19 @@ def _lut_operands(gen, m, k, n, nbits, dtype, layers):
     return x, smooth, packed, cb
 
 
+def _f32_core_ms(m, k, n):
+    """2*M*K*N operations at the f32 CUDA-core peak: the least time of a LUT
+    kernel, whose canonical K order keeps every fmaf on the CUDA cores."""
+    return 2.0 * m * k * n / PEAK_OPS[torch.float32] * 1e3
+
+
 def _lut_bound_ms(m, k, n, nbits, dtype):
     elt = torch.empty((), dtype=dtype).element_size()
     nbytes = m * k * elt + k * 4 + k * n * nbits // 8 + 16 * 4 + m * n * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * m * k * n / PEAK_OPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            _f32_core_ms(m, k, n))
 
 
 def check_lut_kernels(gen):
@@ -181,7 +233,7 @@ def check_lut_kernels(gen):
 
     cases, worst = [], {"lut_matmul_fused_gemv": 0.0, "lut_matmul_fused": 0.0}
     headline = {}
-    shapes = [(m, k, n) for (k, n) in LLAMA_KN for m in (8, 256)]
+    shapes = [(m, k, n) for (k, n) in LLAMA_KN for m in (4, 8, 256)]
     shapes += [(5, 130, 37), (130, 130, 37)]          # ragged edges, K group padding
     for (m, k, n) in shapes:
         full = k >= 4096
@@ -259,8 +311,8 @@ def _time_lut(gen, kern, m, k, n, nbits, dtype, quantize):
                      dtype=torch.float32).mul_(0.02).to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     dense = time_ms(lambda i: torch.matmul(xb, wd[i % dl]), 4 * dl)
-    bound, by = _lut_bound_ms(m, k, n, nbits, dtype)
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+    bound, by, core = _lut_bound_ms(m, k, n, nbits, dtype)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, f32_core_bound_ms=core,
                 dense_bf16_matmul_ms=dense)
 
 
@@ -271,7 +323,7 @@ MULTI_GROUPS = {
     "qwen2-1.5b qkv": (1536, (2048, 256, 256)),       # 12 heads padded to 16, 2 kv heads
     "qwen2-1.5b gate_up": (1536, (8960, 8960)),
 }
-GEMV_MS, GEMM_MS = (1, 5, 8, 127), (128, 130, 256)
+GEMV_MS, GEMM_MS = (1, 4, 5, 7, 8, 9, 127), (128, 130, 256)
 
 
 def _multi_operands(gen, m, k, widths, nbits, quantize, dtype, layers):
@@ -299,7 +351,8 @@ def _multi_bound_ms(m, k, widths, nbits, dtype):
               + p * 64 + m * n * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * m * k * n / PEAK_OPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            _f32_core_ms(m, k, n))
 
 
 def check_multi_kernels(gen):
@@ -371,8 +424,8 @@ def check_multi_kernels(gen):
             emit("kernels", failed=case)
             raise SystemExit(f"multi-projection kernel disagrees: {case}")
         worst[name] = max(worst[name], err)
-        if m in (8, 256) and dtype == torch.bfloat16 and nbits == (4,) * len(widths) \
-                and all(quantize):
+        timed = m in (8, 256) or (m == 4 and group.startswith("llama2-7b"))
+        if timed and dtype == torch.bfloat16 and nbits == (4,) * len(widths) and all(quantize):
             case.update(_time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype))
             if group == "llama2-7b qkv":
                 headline[name] = case
@@ -397,6 +450,78 @@ def check_multi_kernels(gen):
             raise SystemExit(f"multi-projection kernel disagrees: {case}")
         cases.append(case)
     return cases, worst, headline
+
+
+def _packed_at(gen, rows, n, offset):
+    """Random packed codes (rows, n) whose data pointer is `offset` bytes past
+    a 16-byte boundary (a contiguous view into a larger buffer)."""
+    buf = torch.randint(0, 255, (rows * n + 16,), generator=gen, dtype=torch.uint8,
+                        device=gen.device)
+    pk = buf[offset:offset + rows * n].view(rows, n)
+    assert pk.data_ptr() % 16 == offset % 16
+    return pk
+
+
+def check_gemv_edges(gen):
+    """The GEMV body's other paths against the plain version, with the bits
+    checked as everywhere: packed codes 4 but not 16 bytes aligned, N = 4100
+    (a multiple of 4, not of 16), both taking ordinary loads, and M 1, 7, 9,
+    127 (MT = 4 and 8, a partial and several row blocks). B1 rows equal the
+    GEMM's bits on the same rows; every B3 segment equals its solo launch."""
+    from repro_torch.core.lut import unpack_codes
+    from repro_torch.kernels.lut_matmul import (lut_matmul_fused, lut_matmul_fused_gemv,
+                                                lut_matmul_fused_multi_gemv)
+    from repro_torch.kernels.ref import lut_matmul_fused_ref
+    dev = gen.device
+    k = 4096
+    cases, worst = [], 0.0
+    solo_cases = [(m, 4096, 0) for m in (1, 7, 9, 127)] + [(8, 4100, 0), (8, 4096, 4),
+                                                          (5, 4100, 4)]
+    for m, n, offset in solo_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            pk = _packed_at(gen, k // 2, n, offset)
+            cb = torch.sort(torch.randn(16, generator=gen, device=dev) * 0.02).values
+            inv = 1.0 / ((0.5 + torch.rand(k, generator=gen, device=dev)) * 0.04)
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            y = lut_matmul_fused_gemv(x, inv, pk, cb, quantize=True, nbits=4)
+            ref = lut_matmul_fused_ref(x, inv, pk, cb, 1.0, quantize=True, nbits=4)
+            same = bool(torch.equal(y, lut_matmul_fused(x, inv, pk, cb, quantize=True, nbits=4)))
+            xt = torch.clamp(torch.round(x.float() * inv), -127, 127)
+            w = cb[unpack_codes(pk, k, 4).long()]
+            tol = 1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max())
+            err = float((y - ref).abs().max())
+            case = dict(kernel="lut_matmul_fused_gemv", edge=True, m=m, k=k, n=n,
+                        codes_offset=offset, dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                        tol=tol, gemv_equals_gemm_bits=same)
+            if not (same and err <= tol and bool(torch.isfinite(y).all())):
+                emit("kernels", failed=case)
+                raise SystemExit(f"GEMV edge case disagrees: {case}")
+            worst = max(worst, err)
+            cases.append(case)
+    # B3: a 4100-wide projection beside a misaligned one, uniform and mixed
+    for m in (1, 7, 9, 127):
+        for nbits, quantize in (((4, 4, 4), (True,) * 3), ((4, 2, 4), (True, False, True))):
+            widths, offsets = (4100, 4096, 64), (0, 4, 0)
+            pks = [_packed_at(gen, k * b // 8, w, o) for w, b, o in zip(widths, nbits, offsets)]
+            cb = torch.sort(torch.randn((3, 16), generator=gen, device=dev) * 0.02,
+                            dim=-1).values
+            for p, b in enumerate(nbits):
+                cb[p, (1 << b):] = 0.0
+            inv = 1.0 / ((0.5 + torch.rand((3, k), generator=gen, device=dev)) * 0.04)
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            y = lut_matmul_fused_multi_gemv(x, inv, cb, *pks, quantize=quantize, nbits=nbits)
+            same = all(bool(torch.equal(seg, lut_matmul_fused_gemv(
+                x, inv[p], pks[p], cb[p], quantize=quantize[p], nbits=nbits[p])))
+                for p, seg in enumerate(y.split(list(widths), dim=1)))
+            case = dict(kernel="lut_matmul_fused_multi_gemv", edge=True, m=m, k=k,
+                        widths=list(widths), codes_offsets=list(offsets), nbits=list(nbits),
+                        quantize=list(quantize), segments_equal_solo_bits=same)
+            if not (same and bool(torch.isfinite(y).all())):
+                emit("kernels", failed=case)
+                raise SystemExit(f"GEMV edge case disagrees: {case}")
+            cases.append(case)
+    torch.cuda.synchronize()
+    return cases, worst
 
 
 def _time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype):
@@ -424,9 +549,9 @@ def _time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype):
 
     ms = time_ms(fused, iters)
     solo_ms = time_ms(solos, iters)
-    bound, by = _multi_bound_ms(m, k, widths, nbits, dtype)
+    bound, by, core = _multi_bound_ms(m, k, widths, nbits, dtype)
     return dict(ms=ms, solo_sum_ms=solo_ms, plain_ms=time_ms(plain, 3, warmup=1),
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, f32_core_bound_ms=core)
 
 
 def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths=None, n_new=None,
@@ -630,7 +755,8 @@ def _plain_bound_ms(m, k, n, nbits, xdtype):
     nbytes = m * k * elt + k * n * nbits // 8 + 16 * 4 + 4 + m * n * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * m * k * n / PEAK_OPS[xdtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            _f32_core_ms(m, k, n))
 
 
 def _time_plain(gen, name, m, k, n, nbits):
@@ -658,9 +784,9 @@ def _time_plain(gen, name, m, k, n, nbits):
         plain = lambda i: lut_matmul_f32_ref(x, packed[i % layers], cb[i % layers],  # noqa: E731
                                              nbits=nbits)
     iters = 4 * layers if m < 128 else layers
-    bound, by = _plain_bound_ms(m, k, n, nbits, x.dtype)
+    bound, by, core = _plain_bound_ms(m, k, n, nbits, x.dtype)
     return dict(ms=time_ms(kern, iters), plain_ms=time_ms(plain, 3, warmup=1),
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, f32_core_bound_ms=core)
 
 
 def check_plain_kernels(gen):
@@ -1126,12 +1252,14 @@ def phase_kernels(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     lut_cases, lut_worst, lut_head = check_lut_kernels(gen)
     multi_cases, multi_worst, multi_head = check_multi_kernels(gen)
+    edge_cases, edge_worst = check_gemv_edges(gen)
+    lut_worst["lut_matmul_fused_gemv"] = max(lut_worst["lut_matmul_fused_gemv"], edge_worst)
     att_cases, att_worst, att_head = check_attention_kernel(gen)
     t_independent = _attn_row_bits_do_not_depend_on_t(gen)
     plain_cases, plain_worst, plain_head = check_plain_kernels(gen)
     dq_cases, dq_worst = check_dequant_attention(gen)
     fa_cases, fa_worst = check_flash_attention(gen)
-    every = lut_cases + multi_cases + att_cases + plain_cases + dq_cases + fa_cases
+    every = lut_cases + multi_cases + edge_cases + att_cases + plain_cases + dq_cases + fa_cases
     # B8 / B9: per kernel and dtype, the cases held and the worst ratio of an
     # element's error to its limit (_attention_close; B8 f32: 5e-5 * scale)
     held = {}
@@ -1921,6 +2049,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst,
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
+            "f32_core_bound_ms": head.get("f32_core_bound_ms"),
             # one PyTorch call computes the same function only for B9 (the
             # library attention); for the others there is none
             "library_ms": head.get("library_ms"),

@@ -104,8 +104,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # x, x_is_bf16, inv, packed, cb, y, M, K, N, packed_rows, nbits, quantize, stream
     fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.lut_gemv_plan
+    # M, K, P, widths[P], nbits[P], quantize[P] (host int arrays), x_bytes,
+    # sms, out[7] (rows a block, strips, row blocks, units, stages a unit,
+    # grid, uniform) -> shared-memory bytes, or -1 where the launchers refuse
+    fn.argtypes = [i, i, i, p, p, p, i, i, ctypes.POINTER(i)]
+    fn.restype = i
     fn = lib.lut_gemm_launch
-    # the same, then the scratch xt before the stream
+    # lut_gemv_launch's arguments, then the scratch xt before the stream
     fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p, p]
     fn.restype = i
     fn = lib.lut_gemm_scratch_floats

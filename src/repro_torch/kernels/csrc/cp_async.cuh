@@ -1,9 +1,11 @@
 // Asynchronous global -> shared copies (`cp.async`, sm_80 and later), shared
 // by the kernels that stream their operands through a ring of stages in
-// shared memory (flash_attention.cu, lut_gemm.cuh). A copy is issued by each
-// thread, grouped with cp_commit(), and waited for with cp_wait<N>(), which
-// returns once at most N of the thread's groups are still in flight; a
-// __syncthreads() after it makes every thread's copies visible to the block.
+// shared memory (flash_attention.cu, lut_gemm.cuh, lut_gemv.cuh,
+// paged_attention.cuh). A copy is issued by each thread, grouped with
+// cp_commit(), and waited for with cp_wait<N>(), which returns once at most N
+// of the thread's groups are still in flight; a __syncthreads() after it
+// makes every thread's copies visible to the block. Where producer and
+// consumer threads differ (lut_gemv.cuh), mbarriers carry the hand-over.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +37,36 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory: init with the arrivals a phase takes; a
+// plain arrival; an arrival once every cp.async this thread issued before it
+// has landed; a wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+
+// a barrier among `threads` threads of the block (a multiple of 32), id 1..15
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace hopper

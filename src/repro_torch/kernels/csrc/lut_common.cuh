@@ -73,8 +73,9 @@ __device__ __forceinline__ int code_of(uint32_t word, int kk) {
   return (word >> (NBITS * kk)) & ((1u << NBITS) - 1u);
 }
 
-// The projections of one multi-projection launch (kernels B3 and B4): P
-// operand sets sharing x, passed to the kernel by value. The grid walks the
+// The projections of one multi-projection GEMM launch (kernel B4; the GEMV
+// has its own job, lut_gemv.cuh): P operand sets sharing x, passed to the
+// kernel by value. The grid walks the
 // column tiles of projection 0, then those of projection 1, and so on, so a
 // tile never straddles two projections; tile0[p] is projection p's first
 // tile, col0[p] its first column in the concatenated (M, n_total) output.
@@ -85,7 +86,6 @@ struct MultiDesc {
   int n[MAX_PROJ];
   int nbits[MAX_PROJ];
   int quantize[MAX_PROJ];
-  int vec_ok[MAX_PROJ];              // GEMV only: 4-byte column loads allowed
   int tile0[MAX_PROJ + 1];
   int col0[MAX_PROJ];
   int n_proj;
@@ -95,7 +95,7 @@ struct MultiDesc {
 // One projection's entries of the descriptor.
 struct Proj {
   const uint8_t* packed;
-  int n, nbits, quantize, vec_ok, tile0, col0, index;
+  int n, nbits, quantize, tile0, col0, index;
 };
 
 // The projection column tile `tile` belongs to: the last p with
@@ -103,12 +103,11 @@ struct Proj {
 // select), which measured about 2 % faster on an H100 than indexing the
 // descriptor with the projection number at run time.
 __device__ __forceinline__ Proj proj_of(const MultiDesc& d, int tile) {
-  Proj r{d.packed[0], d.n[0], d.nbits[0], d.quantize[0], d.vec_ok[0], d.tile0[0], d.col0[0], 0};
+  Proj r{d.packed[0], d.n[0], d.nbits[0], d.quantize[0], d.tile0[0], d.col0[0], 0};
 #pragma unroll
   for (int q = 1; q < MAX_PROJ; ++q)
     if (q < d.n_proj && tile >= d.tile0[q])
-      r = Proj{d.packed[q], d.n[q],     d.nbits[q], d.quantize[q],
-               d.vec_ok[q], d.tile0[q], d.col0[q],  q};
+      r = Proj{d.packed[q], d.n[q], d.nbits[q], d.quantize[q], d.tile0[q], d.col0[q], q};
   return r;
 }
 
@@ -125,7 +124,6 @@ inline int make_desc(MultiDesc& d, const void* const* packed, const int* widths,
     d.n[p] = widths[p];
     d.nbits[p] = nbits[p];
     d.quantize[p] = quantize[p] ? 1 : 0;
-    d.vec_ok[p] = 0;
     d.tile0[p] = tiles;
     d.col0[p] = cols;
     tiles += (widths[p] + tile_n - 1) / tile_n;

@@ -7,18 +7,27 @@
 // packing width (2/3/4-bit) and quantize flag; the caller applies each
 // projection's trailing s_q rescale.
 //
-// What bounds it on an H100: the packed-code bytes of all P projections, read
-// once; the shared activation row (at most 127 x K) stays in L2, so on this
-// card fusing saves launches and their host-side wrapper work, not device
-// bytes. Design: the grid walks the 32-column strips of projection 0, then of
-// projection 1, and so on (lut_common.cuh MultiDesc), so a strip never
-// straddles two projections; a block finds its projection from its strip
-// index and runs `lut::gemv::strip`, the very body the solo kernel
-// (lut_gemv.cu) runs, specialised to that projection's width and quantize
-// flag. A projection's columns are therefore the same bits as its solo
-// launch, whatever the other projections are, and without the tile-width
-// agreement the TPU kernel needs. Ragged widths are masked per projection;
-// the output holds the true widths back to back.
+// What bounds it on an H100: as for the solo kernel (lut_gemv.cu), at M = 8
+// the 2*M*K*sum(n_p) operations on the CUDA cores in f32 (67 TFLOP/s), at M
+// <= 4 the packed-code bytes of all P projections, read once at 3.35 TB/s;
+// the shared activation rows stay in L2, so on this card fusing saves
+// launches and their host-side work, not device bytes. Design: the units
+// (32-column strip, row block) of projection 0 come first, then those of
+// projection 1, and so on (lut_gemv.cuh Job), so a strip never straddles
+// two projections, and a block runs `lut::gemv::run`, the very body the solo
+// kernel runs (warp-specialised: producers stream codes and x by
+// `cp.async`, consumers transform x and decode through a byte table).
+// Where every projection has the same width and quantize flag (the served
+// groups) the launch is one instance compiled for exactly those, on the solo
+// kernel's persistent grid: a block's units may belong to several
+// projections, and a block that moves to another projection rebuilds its
+// decode table from that projection's codebook. A mixed group takes one
+// block per unit and picks the body compiled for its unit's projection (MT =
+// 8). Either way a projection's columns are the same bits as its solo
+// launch: the canonical K order fixes every output's arithmetic whatever the
+// grid, the rows a block holds or the neighbours.
+// Ragged widths are masked per projection; the output holds the true widths
+// back to back.
 #include "lut_gemv.cuh"
 
 namespace {
@@ -26,38 +35,53 @@ namespace {
 using namespace lut;
 using namespace lut::gemv;
 
+template <int NBITS, typename XT, bool QUANT, int MT>
+__global__ void __launch_bounds__(THREADS, 1) lut_multi_gemv_kernel(const Job jb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  run<NBITS, XT, QUANT, MT>(jb, smem, blockIdx.x, gridDim.x);
+}
+
+// A group of mixed widths or transforms: block u runs unit u with the body
+// of its projection's width and transform.
 template <typename XT>
-__global__ void __launch_bounds__(THREADS)
-lut_multi_gemv_kernel(const XT* __restrict__ x, const float* __restrict__ inv_stack,
-                      const float* __restrict__ cb_stack, const MultiDesc d,
-                      float* __restrict__ y, int M, int K) {
-  __shared__ Smem sm;
-  const Proj pr = proj_of(d, blockIdx.x);
-  const int nblock = blockIdx.x - pr.tile0;
-  const float* inv = inv_stack + (int64_t)pr.index * K;
-  const float* cb = cb_stack + pr.index * KC;
-  const int rows = K * pr.nbits / 8;
-  const int64_t ys = d.n_total;
-#define LUT_STRIP(NB, Q)                                                                     \
-  strip<NB, XT, Q>(x, inv, pr.packed, cb, y, M, K, pr.n, rows, pr.vec_ok, nblock, blockIdx.y, \
-                   ys, pr.col0, sm)
-  switch (pr.nbits * 2 + pr.quantize) {  // one projection per block: no divergence
-    case 4: LUT_STRIP(2, false); break;
-    case 5: LUT_STRIP(2, true); break;
-    case 6: LUT_STRIP(3, false); break;
-    case 7: LUT_STRIP(3, true); break;
-    case 8: LUT_STRIP(4, false); break;
-    case 9: LUT_STRIP(4, true); break;
+__global__ void __launch_bounds__(THREADS, 1) lut_multi_gemv_mixed_kernel(const Job jb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ProjRef r = proj_of_strip(jb, blockIdx.x / jb.mblocks);
+  const int u = blockIdx.x, du = gridDim.x;
+  switch (r.nbits * 2 + r.quantize) {  // one projection per block: no divergence
+    case 4: run<2, XT, false, 8>(jb, smem, u, du); break;
+    case 5: run<2, XT, true, 8>(jb, smem, u, du); break;
+    case 6: run<3, XT, false, 8>(jb, smem, u, du); break;
+    case 7: run<3, XT, true, 8>(jb, smem, u, du); break;
+    case 8: run<4, XT, false, 8>(jb, smem, u, du); break;
+    case 9: run<4, XT, true, 8>(jb, smem, u, du); break;
   }
-#undef LUT_STRIP
+}
+
+template <auto Kernel>
+int go(const Job& jb, const Plan& pl, cudaStream_t s) {
+  if (int e = allow_smem(Kernel, pl.smem)) return e;
+  Kernel<<<pl.grid, THREADS, pl.smem, s>>>(jb);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT, int MT>
+int launch_mt(const Job& jb, const Plan& pl, cudaStream_t s) {
+  switch (jb.nbits[0] * 2 + jb.quantize[0]) {
+    case 4: return go<lut_multi_gemv_kernel<2, XT, false, MT>>(jb, pl, s);
+    case 5: return go<lut_multi_gemv_kernel<2, XT, true, MT>>(jb, pl, s);
+    case 6: return go<lut_multi_gemv_kernel<3, XT, false, MT>>(jb, pl, s);
+    case 7: return go<lut_multi_gemv_kernel<3, XT, true, MT>>(jb, pl, s);
+    case 8: return go<lut_multi_gemv_kernel<4, XT, false, MT>>(jb, pl, s);
+    case 9: return go<lut_multi_gemv_kernel<4, XT, true, MT>>(jb, pl, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename XT>
-int launch(const XT* x, const float* inv_stack, const float* cb_stack, const MultiDesc& d,
-           int tiles, float* y, int M, int K, cudaStream_t stream) {
-  dim3 grid(tiles, (M + MT - 1) / MT);
-  lut_multi_gemv_kernel<XT><<<grid, THREADS, 0, stream>>>(x, inv_stack, cb_stack, d, y, M, K);
-  return (int)cudaGetLastError();
+int launch(const Job& jb, const Plan& pl, cudaStream_t s) {
+  if (!pl.uniform) return go<lut_multi_gemv_mixed_kernel<XT>>(jb, pl, s);
+  return pl.mt == 4 ? launch_mt<XT, 4>(jb, pl, s) : launch_mt<XT, 8>(jb, pl, s);
 }
 
 }  // namespace
@@ -71,13 +95,11 @@ extern "C" int lut_multi_gemv_launch(const void* x, int x_is_bf16, const float* 
                                      const int* widths, const int* nbits, const int* quantize,
                                      int n_proj, float* y, int M, int K, void* stream) {
   if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  MultiDesc d{};
-  const int tiles = make_desc(d, packed, widths, nbits, quantize, n_proj, K, BN);
-  if (tiles <= 0) return (int)cudaErrorInvalidValue;
-  for (int p = 0; p < n_proj; ++p) d.vec_ok[p] = gemv::vec_ok(d.packed[p], d.n[p]);
+  Job jb;
+  Plan pl;
+  if (int e = make_job(jb, pl, x, x_is_bf16 ? 2 : 4, inv_stack, cb_stack, nullptr, y, packed,
+                       widths, nbits, quantize, n_proj, M, K))
+    return e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    return launch(reinterpret_cast<const __nv_bfloat16*>(x), inv_stack, cb_stack, d, tiles, y, M,
-                  K, s);
-  return launch(reinterpret_cast<const float*>(x), inv_stack, cb_stack, d, tiles, y, M, K, s);
+  return x_is_bf16 ? launch<__nv_bfloat16>(jb, pl, s) : launch<float>(jb, pl, s);
 }

@@ -10,15 +10,15 @@
 // the JAX package (src/repro/kernels/lut_matmul.py), which ran one body,
 // `_lut_matmul_kernel`, with and without an int8 activation cast.
 //
-// What bounds it on an H100 (either kernel): at decode widths (M < 128) the
-// packed codes, K*N*nbits/8 bytes read once; at prefill widths the 2*M*K*N
-// operations, here on the CUDA cores in f32 (the canonical K order's
-// bound). Design: the kernels run the block bodies the fused serving
-// kernels run — `lut::gemv::strip` below 128 rows, `lut::gemm::tile` after
+// What bounds it on an H100 (either kernel): the 2*M*K*N operations on the
+// CUDA cores in f32 (the canonical K order's bound) from M = 5 on, at M <= 4
+// the packed codes, K*N*nbits/8 bytes read once. Design: the kernels run
+// the block bodies the fused serving kernels run — `lut::gemv::run` (and
+// its plan) below 128 rows, `lut::gemm::tile` after
 // its pre-pass from 128 rows on — in transform mode NONE, so the activation
 // enters the canonical K order of lut_common.cuh as it is: below 128 rows
-// the int8 kernel reads one byte per activation straight from device memory
-// and converts it in registers, from 128 rows on the pre-pass converts each
+// each stage's activations are converted to f32 once per block into the
+// shared T(x) tile, from 128 rows on the pre-pass converts each
 // activation to f32 once. Each output row therefore carries the bits the
 // fused kernel (B1/B2) gives it on raw x whose Eq. 11 codes equal q: the
 // "three passes become one" claim of the fused kernel, held bit for bit.
@@ -34,25 +34,27 @@ namespace {
 
 using namespace lut;
 
-// Below 128 rows: the GEMV strip in transform mode NONE.
-template <int NBITS, typename XT>
-__global__ void __launch_bounds__(gemv::THREADS)
-lut_float_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ cb, float* __restrict__ y, int M, int K, int N,
-                 int packed_rows, int vec_ok) {
-  __shared__ gemv::Smem sm;
-  gemv::strip<NBITS, XT, NONE>(x, nullptr, packed, cb, y, M, K, N, packed_rows, vec_ok,
-                               blockIdx.x, blockIdx.y, N, 0, sm);
+// Below 128 rows: the GEMV body in transform mode NONE, on its plan's grid.
+template <int NBITS, typename XT, int MT>
+__global__ void __launch_bounds__(gemv::THREADS, 1) lut_float_kernel(const gemv::Job jb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gemv::run<NBITS, XT, NONE, MT>(jb, smem, blockIdx.x, gridDim.x);
 }
 
-template <int NBITS>
-__global__ void __launch_bounds__(gemv::THREADS)
-lut_codes_kernel(const int8_t* __restrict__ q, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ cb, const float* __restrict__ s_q,
-                 float* __restrict__ y, int M, int K, int N, int packed_rows, int vec_ok) {
-  __shared__ gemv::Smem sm;
-  gemv::strip<NBITS, int8_t, NONE>(q, nullptr, packed, cb, y, M, K, N, packed_rows, vec_ok,
-                                   blockIdx.x, blockIdx.y, N, 0, sm, s_q);
+template <int NBITS, int MT>
+__global__ void __launch_bounds__(gemv::THREADS, 1) lut_codes_kernel(const gemv::Job jb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gemv::run<NBITS, int8_t, NONE, MT>(jb, smem, blockIdx.x, gridDim.x);
+}
+
+template <int NBITS, typename XT, int MT>
+int launch_gemv(const gemv::Job& jb, const gemv::Plan& pl, cudaStream_t stream) {
+  void (*kernel)(const gemv::Job);
+  if constexpr (std::is_same<XT, int8_t>::value) kernel = lut_codes_kernel<NBITS, MT>;
+  else kernel = lut_float_kernel<NBITS, XT, MT>;
+  if (int e = gemv::allow_smem(kernel, pl.smem)) return e;
+  kernel<<<pl.grid, gemv::THREADS, pl.smem, stream>>>(jb);
+  return 0;
 }
 
 // From 128 rows on, either kernel: the GEMM tile over the pre-pass's
@@ -75,15 +77,15 @@ template <int NBITS, typename XT>
 int launch_w(const XT* x, const uint8_t* packed, const float* cb, const float* s_q, float* y,
              int M, int K, int N, int packed_rows, float* xt, cudaStream_t stream) {
   if (M < 128) {
-    const int vec = gemv::vec_ok(packed, N);
-    dim3 grid((N + gemv::BN - 1) / gemv::BN, (M + gemv::MT - 1) / gemv::MT);
-    if constexpr (std::is_same<XT, int8_t>::value)
-      lut_codes_kernel<NBITS>
-          <<<grid, gemv::THREADS, 0, stream>>>(x, packed, cb, s_q, y, M, K, N, packed_rows, vec);
-    else
-      lut_float_kernel<NBITS, XT>
-          <<<grid, gemv::THREADS, 0, stream>>>(x, packed, cb, y, M, K, N, packed_rows, vec);
-    return 0;
+    const void* pk[1] = {packed};
+    const int nb = NBITS, q = 0;
+    gemv::Job jb;
+    gemv::Plan pl;
+    if (int e = gemv::make_job(jb, pl, x, (int)sizeof(XT), nullptr, cb, s_q, y, pk, &N, &nb, &q,
+                               1, M, K))
+      return e;
+    return pl.mt == 4 ? launch_gemv<NBITS, XT, 4>(jb, pl, stream)
+                      : launch_gemv<NBITS, XT, 8>(jb, pl, stream);
   }
   if (int e = gemm::launch_xt<XT, false>(x, nullptr, 0, xt, M, K, 1, stream)) return e;
   auto kernel = lut_plain_tile_kernel<NBITS>;
@@ -97,7 +99,7 @@ int launch_w(const XT* x, const uint8_t* packed, const float* cb, const float* s
 template <typename XT>
 int launch(const XT* x, const uint8_t* packed, const float* cb, const float* s_q, float* y, int M,
            int K, int N, int packed_rows, int nbits, float* xt, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || packed_rows * 8 != K * nbits) return (int)cudaErrorInvalidValue;
   int e;
   switch (nbits) {
     case 2: e = launch_w<2, XT>(x, packed, cb, s_q, y, M, K, N, packed_rows, xt, stream); break;

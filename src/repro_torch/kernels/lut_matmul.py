@@ -58,6 +58,78 @@ LAUNCHES = {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
 # csrc/lut_common.cuh MAX_PROJ)
 MAX_PROJ = 8
 
+# the GEMV body's constants (csrc/lut_gemv.cuh)
+_WAYS, _KB = 64, 8      # the canonical K order: 64 ways of 8-channel k-blocks
+_GEMV_COLS = 32         # columns of a strip
+_GEMV_THREADS = 384     # 256 consumers (way, 8-column group), 128 producers
+_GEMV_MAX_M = 127
+_MAX_SMEM = 232448      # bytes of shared memory one thread block may use
+
+
+def _gemv_smem(nbits: int, mt: int, x_bytes: int) -> int:
+    """Bytes of one block (csrc/lut_gemv.cuh Layout): the decode table (a
+    byte-indexed float2 / float4 table in 16 / 8 copies, or 8 codebook
+    entries in 32 at 3 bits); the ring, 4 entries (3 with f32 activations)
+    of a stage's packed code rows, raw x rows and inv; each consumer warp's
+    two T(x) tiles; the fold buffer; the ring's mbarriers."""
+    ring = 3 if x_bytes == 4 else 4
+    table = (8 if nbits == 3 else 256) * 128
+    entry = _WAYS * nbits * _GEMV_COLS + mt * _WAYS * _KB * x_bytes + _WAYS * _KB * 4
+    tiles = 2 * 4 * _WAYS * (_KB * mt + 4)
+    return table + ring * entry + tiles + 4 * _WAYS * mt * _GEMV_COLS + 2 * ring * 8
+
+
+def gemv_plan(m: int, k: int, widths, nbits, quantize, *, x_bytes: int = 2, sms: int = 132,
+              name: str = "lut_matmul_fused_multi_gemv") -> dict:
+    """The geometry the GEMV launchers (B1, B3, and B6 / B7 below 128 rows)
+    give an (m, k) launch over the projections `widths`, with activations of
+    `x_bytes` bytes (4 f32, 2 bf16, 1 int8), on a card of `sms` SMs, the same
+    arithmetic as csrc/lut_gemv.cuh make_plan; raises ValueError for what
+    they refuse.
+
+    The output is cut into units: a strip of 32 columns of one projection
+    (projection p's strips after those of p - 1, so none straddles two) by
+    a block of `rows_per_block` rows, 4 when m <= 4 and every projection has
+    the same width and quantize flag (`uniform`), else 8. A uniform launch
+    runs one instance compiled for that width and flag on a persistent grid
+    of min(units, sms) blocks; a mixed one gives each unit its own block.
+    No choice here moves a bit of the result: the canonical K order fixes
+    each output's arithmetic."""
+    widths, nbits = [int(w) for w in widths], [int(b) for b in nbits]
+    quantize = [bool(q) for q in quantize]
+    p = len(widths)
+    if not 1 <= p <= MAX_PROJ or len(nbits) != p or len(quantize) != p:
+        raise ValueError(f"{name}: 1 to {MAX_PROJ} projections, each with a width, nbits and "
+                         f"quantize flag; got widths {widths}, nbits {nbits}, "
+                         f"quantize {quantize}")
+    if not 1 <= m <= _GEMV_MAX_M or k < 1 or sms < 1 or x_bytes not in (4, 2, 1):
+        raise ValueError(f"{name}: the GEMV takes 1 <= M <= {_GEMV_MAX_M}, K >= 1 and "
+                         f"activations of 4, 2 or 1 bytes; got M {m}, K {k}, {x_bytes} bytes "
+                         f"(SMs {sms})")
+    for w, b in zip(widths, nbits):
+        if w < 1 or b not in SUPPORTED_NBITS or (k * b) % 8:
+            raise ValueError(f"{name}: a projection {w} wide at {b} bits over K {k}: widths "
+                             f"must be >= 1, nbits one of {SUPPORTED_NBITS}, K * nbits a "
+                             f"multiple of 8")
+    uniform = len(set(nbits)) == 1 and len(set(quantize)) == 1
+    mt = 4 if uniform and m <= 4 else 8
+    smem = max(_gemv_smem(b, mt, x_bytes) for b in nbits)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: {smem} bytes of shared memory; a block holds at most "
+                         f"{_MAX_SMEM}")
+    strip0 = [0]
+    for w in widths:
+        strip0.append(strip0[-1] + -(-w // _GEMV_COLS))
+    mblocks = -(-m // mt)
+    units = strip0[-1] * mblocks
+    kblocks = -(-k // _KB)
+    return dict(m=m, k=k, widths=tuple(widths), rows_per_block=mt, cols_per_strip=_GEMV_COLS,
+                threads=_GEMV_THREADS, ring_stages=3 if x_bytes == 4 else 4,
+                strip0=tuple(strip0),
+                strips=strip0[-1], row_blocks=mblocks, units=units,
+                stages_per_unit=-(-kblocks // _WAYS),
+                grid=min(units, sms) if uniform else units, uniform=uniform, smem_bytes=smem)
+
 
 def _check_packed_shape(k: int, packed_shape, nbits: int, caller: str) -> None:
     """Explicit shape validation for the packed-code operand, naming the
