@@ -19,19 +19,25 @@ card against the same model on the CPU, then serves LCD 4-bit llama2-7b at
 full width and full depth (random weights from --seed) through the
 continuous-batching engine in the default configuration (fused projections)
 and in the per-projection one (the same tokens), and through the
-static-batch `serve()`; compresses a 2-layer full-width llama2-7b with the
-LCD pipeline on the card (twice: the same bytes; under a bits budget; then
-inside `build_engine`, whose engine serves requests that decode alike
-alone); shows, by the kernels' launch counts, that each path really went
-through the kernels, and reads under torch.profiler where a prefill step's
-and a decode step's time goes. Every phase prints one JSON line; any failed
-phase ends the process with a non-zero exit code. The last line is
+static-batch `serve()` (beside dense bf16 llama2-7b on the same path); the
+engine's steps and the static decode run as CUDA graphs, and every replay
+of a checking drive is held bit for bit against the eager body on a clone
+of the KV pools (`graph` lines); compresses a 2-layer full-width llama2-7b
+with the LCD pipeline on the card (twice: the same bytes; under a bits
+budget; then inside `build_engine`, whose engine serves requests that
+decode alike alone); shows, by the kernels' launch counts (a replay adds
+what its capture recorded), that each path really went through the
+kernels, and reads under torch.profiler where a prefill step's and a
+decode step's time goes, graph and eager body in turns. Every phase prints
+one JSON line; any failed phase ends the process with a non-zero exit
+code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
 exits 1.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1697,6 +1703,75 @@ def _expected_launches(fused, n_layers, widths):
             "paged_pool_attention": n_layers * (w1 + w32), **NOT_SERVING}
 
 
+def _graph_check(name, engine, seed):
+    """The engine's step graphs against its eager body (`ServingEngine._step_body`,
+    what each graph captured), step by step with new data in the same buffers:
+    a fresh staggered drive on the engine whose graphs the phase captured,
+    with idle slots, new lengths and block tables every step, decoding slots
+    that grow by a block, and one request preempted (recompute) and
+    re-admitted. Before every step the pools are cloned; the eager body runs
+    the same upload over the clone; the next tokens and every pool tensor
+    must be torch.equal. Fails the run on a miss, or when a width was never
+    replayed or the drive lacked block growth or a re-admission."""
+    pool = engine.caches["paged"]
+    graphs = engine._graphs
+    seen = dict(replays={}, warm_ups={}, misses=[], idle_slot_steps=0, grown=0, readmitted=0)
+
+    def checked(tokens, n_new):
+        t = tokens.shape[1]
+        kind = "replays" if t in graphs.capture_seconds() else "warm_ups"
+        seen[kind][t] = seen[kind].get(t, 0) + 1
+        seen["idle_slot_steps"] += int((n_new == 0).any())
+        before = {k: v.clone() for k, v in pool.items()}
+        buf = np.empty(engine._upload_len(t), np.int32)
+        engine._pack(buf, tokens, n_new)
+        got = engine_step(tokens, n_new)
+        want = engine._step_body({"paged": before}, torch.from_numpy(buf).cuda(), t).cpu().numpy()
+        bad = [k for k in pool if not torch.equal(pool[k], before[k])]
+        if not np.array_equal(got, want) or bad:
+            seen["misses"].append(dict(step=engine.steps, width=t, tokens=got.tolist(),
+                                       eager_tokens=want.tolist(), pools_differ=bad))
+        return got
+
+    engine_step = engine._model_step
+    engine._model_step = checked
+    try:
+        rng = np.random.default_rng(seed + 7)
+        cfg = engine.model.cfg
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (40, 23, 70, 33)]
+        pending, requests, evicted = list(prompts), [], None
+        while pending or engine.busy:
+            if pending and engine.steps % 2 == 0:
+                requests.append(engine.submit(pending.pop(0), max_new_tokens=20))
+            if not engine.busy:
+                engine.steps += 1
+                continue
+            decoding = {r.rid: len(r.blocks) for r in requests
+                        if r.state == "running" and not r.prefilling}
+            if evicted is None:
+                victim = next((r for r in requests if r.rid in decoding
+                               and len(r.out_tokens) >= 3), None)
+                if victim is not None:
+                    engine._evict(victim)                 # recompute preemption
+                    evicted = victim
+            engine.step()
+            seen["grown"] += sum(r.state == "running" and len(r.blocks) > decoding[r.rid]
+                                 for r in requests if r.rid in decoding)
+        seen["readmitted"] = int(evicted is not None and evicted.state == "finished"
+                                 and evicted.preemptions == 1)
+    finally:
+        del engine._model_step
+    ok = (not seen["misses"] and seen["grown"] > 0 and seen["readmitted"] == 1
+          and seen["idle_slot_steps"] > 0
+          and all(seen["replays"].get(w, 0) > 0 for w in (1, engine.ecfg.prefill_chunk))
+          and all(r.state == "finished" and len(r.out_tokens) == 20 for r in requests))
+    emit("graph", engine=name, ok=ok, steps_compared=sum(seen["replays"].values())
+         + sum(seen["warm_ups"].values()), **seen)
+    if not ok:
+        raise SystemExit(f"graph: {name}: a replay differs from the eager body, or the drive "
+                         f"missed a case: {seen}")
+
+
 def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids,
            fused=True, params=None, want_tokens=None):
     """The engine at full width: staggered requests, launch counts per model
@@ -1743,6 +1818,9 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
           and counts == expected
           and all(c > 0 for n, c in expected.items() if fused and n not in NOT_SERVING))
 
+    capture_s = {str(w): round(c, 3) for w, c in engine._graphs.capture_seconds().items()}
+    # every replay against the eager body, on the engine whose graphs this drive captured
+    _graph_check(name, engine, seed)
     # engine-vs-solo token identity: the same request alone, same engine geometry
     tokens = [list(r.out_tokens) for r in requests]
     model = engine.model
@@ -1762,7 +1840,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
                tokens_per_s=round(n_tok / wall, 2), launches=counts,
                launches_expected=expected, solo_redecode_same_tokens=solo_same,
                preemptions=sum(r.preemptions for r in requests),
-               engine_build_s=round(build_s, 3))
+               engine_build_s=round(build_s, 3), graph_capture_s=capture_s)
     if want_tokens is not None:
         row["same_tokens_as_fused"] = tokens == want_tokens
     emit(name, **row)
@@ -1776,13 +1854,71 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     return counts, tokens
 
 
+def _static_graph_check(model, params, batch, prompt_len, seed, gen=8) -> dict:
+    """The static path's decode graph against its eager body: after one
+    prefill, `decode` (a warm-up step, then gen - 1 replays of the captured
+    step, each with the next token and position in the same buffers) on the
+    cache and the eager steps (`model.decode` and the greedy pick) on a
+    clone of it; the tokens and every cache tensor, `pos` included, must be
+    torch.equal. Fails the run on a miss."""
+    from repro_torch.launch.engine import build_decode_fns
+    vocab = model.cfg.vocab
+    prompt = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, vocab, (batch, prompt_len)).astype(np.int32)).cuda()
+    prefill, decode, _ = build_decode_fns(model, model.cfg, gen)
+    tok, cache = prefill(params, model.init_cache(batch, prompt_len + gen, device="cuda"), prompt)
+    clone = {k: v.clone() for k, v in cache.items()}
+    toks, cache = decode(params, cache, tok)
+    want = []
+    with torch.no_grad():
+        for _ in range(gen):
+            logits, clone = model.decode(params, clone, {"tokens": tok, "pos": clone["pos"]})
+            want.append(tok[:, 0])
+            tok = torch.argmax(logits[:, :vocab], dim=-1)[:, None].to(torch.int32)
+    same = torch.equal(toks, torch.stack(want, dim=1))
+    bad = [k for k in cache if not torch.equal(cache[k], clone[k])]
+    row = dict(engine="serve_static", ok=same and not bad, steps_compared=gen,
+               replays=gen - 1, same_tokens=same, cache_tensors_differ=bad,
+               pos=int(cache["pos"]))
+    emit("graph", **row)
+    if not row["ok"]:
+        raise SystemExit(f"graph: the static decode's replays differ from its eager body: {row}")
+    return row
+
+
+def _decode_ms_per_step(model, params, batch, prompt_len, seed) -> float:
+    """Device milliseconds of one static decode step (`model.decode` over
+    the contiguous cache and the greedy pick, its position and token in
+    device buffers) captured and replayed by `time_ms`, after a prefill."""
+    from repro_torch.launch.engine import build_decode_fns
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab, (batch, prompt_len)).astype(np.int32)).cuda()
+    iters, warmup = 8, 2
+    prefill, _, _ = build_decode_fns(model, model.cfg, 1)
+    # time_ms runs the step warmup + 4 x iters times: room for every position
+    cache = model.init_cache(batch, prompt_len + warmup + 4 * iters, device="cuda")
+    tok, cache = prefill(params, cache, prompt)
+
+    @torch.no_grad()
+    def step(_):
+        logits, _ = model.decode(params, cache, {"tokens": tok, "pos": cache["pos"]})
+        tok.copy_(torch.argmax(logits[:, :model.cfg.vocab], dim=-1)[:, None].to(torch.int32))
+
+    return time_ms(step, iters, warmup)
+
+
 def phase_serve_static(seed: int, params) -> None:
     """llama2-7b at full width and depth through the static-batch `serve()`:
     one prefill step at M = 4 x 64 (B4 and B2) and 16 decode steps at M = 4
-    (B3 and B1), 4 LUT launches per layer per step; the same steps again
-    under torch.cuda.set_sync_debug_mode("error"). Then the static step
-    against the paged step on the same prompts: f32, float transform,
-    2 layers, full width."""
+    (B3 and B1), 4 LUT launches per layer per step, the decode one captured
+    step replayed; the same steps again under
+    torch.cuda.set_sync_debug_mode("error"); the decode graph's replays
+    against its eager body (`graph`). Then the paper's decode comparison:
+    dense bf16 llama2-7b at full width (random weights from the seed, plain
+    `torch.matmul` projections) through the same `serve()`, and both
+    models' device milliseconds per captured decode step, in turns. Last,
+    the static step against the paged step on the same prompts: f32, float
+    transform, 2 layers, full width."""
     import dataclasses
 
     from repro_torch.core.clustered_params import materialize_clustered
@@ -1821,6 +1957,23 @@ def phase_serve_static(seed: int, params) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     del cache
+    graph_row = _static_graph_check(model, params, batch, prompt_len, seed)
+
+    # the paper's decode comparison: LCD 4-bit against dense bf16, same path;
+    # the captured decode step's device time, read in turns
+    dense_stats = {}
+    dense_gen, dense = serve("llama2-7b", use_reduced=False, lcd=False, batch=batch,
+                             prompt_len=prompt_len, gen_tokens=gen_tokens, seed=seed,
+                             stats=dense_stats, device="cuda")
+    step_ms = {"lcd": [], "dense": []}
+    for name in ("lcd", "dense", "dense", "lcd"):
+        step_ms[name].append(_decode_ms_per_step(model, params if name == "lcd" else dense,
+                                                 batch, prompt_len, seed))
+    del dense
+    lcd_ms, dense_ms = (sum(step_ms[n]) / 2 for n in ("lcd", "dense"))
+    dense_ok = (dense_stats["traces"] == {"prefill": 1, "decode": 1}
+                and dense_gen.shape == (batch, gen_tokens)
+                and bool(((dense_gen >= 0) & (dense_gen < vocab)).all()))
 
     # static vs paged: same prompts, same params, f32 with the float transform
     cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2, dtype="float32")
@@ -1851,8 +2004,22 @@ def phase_serve_static(seed: int, params) -> None:
          model_steps=steps, launches=counts, launches_expected=expected,
          prefill_s=round(stats["prefill_s"], 3), decode_s=round(stats["decode_s"], 3),
          tokens_per_s=round(stats["tokens_per_s"], 2), sync_free_steps=True,
+         decode_graph_replays_equal_eager=graph_row["ok"],
+         device_ms_per_decode_step=round(lcd_ms, 3),
+         device_ms_per_decode_step_reads=[round(x, 3) for x in step_ms["lcd"]],
+         dense_bf16=dict(tokens_per_s=round(dense_stats["tokens_per_s"], 2),
+                         prefill_s=round(dense_stats["prefill_s"], 3),
+                         decode_s=round(dense_stats["decode_s"], 3),
+                         device_ms_per_decode_step=round(dense_ms, 3),
+                         device_ms_per_decode_step_reads=[round(x, 3) for x in step_ms["dense"]],
+                         traces=dense_stats["traces"]),
+         lcd_vs_dense_tokens_per_s=round(stats["tokens_per_s"] / dense_stats["tokens_per_s"], 3),
+         lcd_vs_dense_device_step_speed=round(dense_ms / lcd_ms, 3),
          static_vs_paged=dict(dtype="float32", layers=2, max_abs_logit_diff=diffs,
                               tol=1e-3))
+    if not dense_ok:
+        raise SystemExit(f"serve_static: the dense bf16 run's traces or tokens are wrong: "
+                         f"{dense_stats['traces']}, {dense_gen.shape}")
     if not ok:
         raise SystemExit(f"serve_static: traces, launch counts or tokens are wrong: "
                          f"{stats['traces']}, {counts} vs {expected}")
@@ -1860,59 +2027,95 @@ def phase_serve_static(seed: int, params) -> None:
         raise SystemExit(f"serve_static: static and paged logits differ: {diffs}")
 
 
-def _profile_steps(engine, n_steps, profiled=True):
-    """(wall ms per step with the profiler off, device rows under it when
-    `profiled`, over as many steps run again)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        engine.step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    if not profiled:
-        return wall, None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+@contextlib.contextmanager
+def _eager_body(engine, eager):
+    """With `eager`, the engine's steps inside run its eager body
+    (`ServingEngine._eager_step`) in place of its graphs."""
+    if eager:
+        engine._model_step = engine._eager_step
+    try:
+        yield
+    finally:
+        engine.__dict__.pop("_model_step", None)
+
+
+def _wall_ms_per_step(engine, n_steps, eager=False):
+    """(host-clock ms per step, ms per step between CUDA events recorded
+    before the first step and after the last) over `n_steps` steps, profiler
+    off."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with _eager_body(engine, eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
         for _ in range(n_steps):
             engine.step()
+        end.record()
         torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps, start.elapsed_time(end) / n_steps
+
+
+def _profile_steps(engine, n_steps, eager=False):
+    """Device rows under torch.profiler over `n_steps` steps, after one step
+    it discards as its warm-up: (kernel, ms per step, calls per step)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue          # host-side ops repeat their kernels' device time
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((ev.key, dev / 1e3 / n_steps, ev.count / n_steps))
+
+    def read(prof):
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue      # host-side ops repeat their kernels' device time
+            dev = getattr(ev, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev > 0 and not ev.key.startswith("ProfilerStep"):   # the step's own range
+                rows.append((ev.key, dev / 1e3 / n_steps, ev.count / n_steps))
+
+    with _eager_body(engine, eager):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n_steps, repeat=1),
+                     on_trace_ready=read) as prof:
+            for _ in range(n_steps + 1):
+                engine.step()
+                prof.step()
     rows.sort(key=lambda r: -r[1])
-    return wall, rows
+    return rows
 
 
-def _profile_row(walls, rows, n_steps):
+def _profile_row(reads, rows, n_steps):
     busy = sum(r[1] for r in rows)
-    wall = walls[0]
+    wall = reads[0][0]
     return dict(
-        steps=n_steps, wall_ms_per_step=round(wall, 3),
-        wall_ms_per_step_reads=[round(w, 3) for w in walls],
+        profiled_steps=n_steps, wall_ms_per_step=round(wall, 3),
+        wall_ms_per_step_reads=[round(w, 3) for w, _ in reads],
         device_busy_ms_per_step=round(busy, 3) if rows else "not measured",
         device_idle_share=round(1.0 - busy / wall, 3) if rows else "not measured",
         device_calls_per_step=round(sum(r[2] for r in rows), 1),
+        event_span_ms_per_step=round(reads[0][1], 3),
         top_kernels=[dict(name=k[:60], ms_per_step=round(ms, 3), calls_per_step=round(c, 1))
                      for k, ms, c in rows[:8]])
 
 
 def phase_profile(seed: int, params) -> None:
     """Where a serving step's time goes: the 32-layer engine with all 8 slots
-    busy, in the default (fused) configuration, a few prefill-width steps and
-    a few decode steps; then decode steps of the fused and the unfused
-    configuration in turns (fused, unfused, unfused, fused) on the same
-    weights — wall time per step on the host's clock, the card's busy time,
-    and the kernels that take it."""
+    busy, in the default (fused) configuration, prefill-width steps, then
+    decode steps of the fused and the unfused configuration on the same
+    weights; each through the step's CUDA graph and through the engine's
+    eager body, in turns (graph, eager, eager, graph) on the same engine —
+    wall time per step on the host's clock, the card's busy time under
+    torch.profiler, the idle share, the kernels that take it, and each
+    width's capture time. torch.profiler must see the kernels inside a
+    replay: a graph step must show at least the eager step's calls per step;
+    where it does not, its device time is the CUDA-event span around the
+    steps, and the line says so."""
     from repro_torch.launch.engine import EngineConfig, build_engine
 
     ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
                         max_blocks_per_slot=32)
+    # 13 prefill-width steps (416 / 32) and 47 decode steps at most per engine:
+    # one warm-up step per width, then per configuration 4 turns of n_wall
+    # steps and 2 profiled runs of n_prof + 1 steps
+    prompt_len, n_pre, n_dec = 416, (1, 2), (6, 6)
     engines = {}
     for fused in (True, False):
         engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
@@ -1920,26 +2123,54 @@ def phase_profile(seed: int, params) -> None:
                                  device="cuda")
         rng = np.random.default_rng(seed)
         for _ in range(8):
-            engine.submit(rng.integers(0, engine.model.cfg.vocab, 224), max_new_tokens=64)
-        engine.step()                                # warm: every kernel has run once
+            engine.submit(rng.integers(0, engine.model.cfg.vocab, prompt_len),
+                          max_new_tokens=48)
+        engine.step()                    # the prefill width's warm-up and capture
         engines[fused] = engine
+
+    def turns(engine, n, key, out):
+        (n_wall, n_prof), width = n, 32 if key.startswith("prefill") else 1
+        ran = engine.traces.get(width, 0)
+        reads = {False: [], True: []}
+        for eager in (False, True, True, False):
+            reads[eager].append(_wall_ms_per_step(engine, n_wall, eager))
+        for eager, name in ((False, key), (True, key + "_eager")):
+            out[name] = _profile_row(reads[eager], _profile_steps(engine, n_prof, eager),
+                                     n_prof)
+        steps = 4 * n_wall + 2 * (n_prof + 1)
+        if engine.traces.get(width, 0) - ran != steps or any(r is None for r in engine.slots):
+            raise SystemExit(f"profile: {key}: not every step was of width {width} with "
+                             f"all 8 slots busy")
+
     out = {}
-    n_pre, n_dec = 3, 8
-    wall, rows = _profile_steps(engines[True], n_pre)
-    out["prefill_width_32"] = _profile_row([wall], rows, n_pre)
+    turns(engines[True], n_pre, "prefill_width_32", out)
     for engine in engines.values():
         while any(r is not None and r.prefilling for r in engine.slots):
             engine.step()
-        engine.step()
-    reads = {True: [], False: []}
-    profiled = {}
-    for fused in (True, False, False, True):
-        wall, rows = _profile_steps(engines[fused], n_dec, profiled=fused not in profiled)
-        reads[fused].append(wall)
-        profiled.setdefault(fused, rows)
-    out["decode_width_1"] = _profile_row(reads[True], profiled[True], n_dec)
-    out["decode_width_1_unfused"] = _profile_row(reads[False], profiled[False], n_dec)
-    emit("profile", arch="llama2-7b", layers=32, slots=8, **out)
+        engine.step()                    # the decode width's warm-up and capture
+    turns(engines[True], n_dec, "decode_width_1", out)
+    turns(engines[False], n_dec, "decode_width_1_unfused", out)
+    # an eager profile can drop a few kernel records (3,633 of 3,637 a step
+    # were seen) but never adds one: a graph step that shows at least the
+    # eager step's calls shows every kernel of its replay
+    calls = {k: (out[k]["device_calls_per_step"], out[k + "_eager"]["device_calls_per_step"])
+             for k in ("prefill_width_32", "decode_width_1", "decode_width_1_unfused")}
+    seen = all(0 < graph >= eager for graph, eager in calls.values())
+    if not seen:
+        for k in ("prefill_width_32", "decode_width_1", "decode_width_1_unfused"):
+            row = out[k]
+            row["device_busy_ms_per_step"] = row["event_span_ms_per_step"]
+            row["device_idle_share"] = round(1.0 - row["event_span_ms_per_step"]
+                                             / row["wall_ms_per_step"], 3)
+            row["device_time_from"] = ("CUDA events around the steps, profiler off: the "
+                                       "profiler does not see every kernel of a replay")
+    capture_s = {("fused" if f else "unfused"): {str(w): round(c, 3) for w, c in
+                                                 e._graphs.capture_seconds().items()}
+                 for f, e in engines.items()}
+    emit("profile", arch="llama2-7b", layers=32, slots=8, prompt_len=prompt_len,
+         profiler_sees_graph_kernels=seen,
+         calls_per_step_graph_and_eager={k: list(v) for k, v in calls.items()},
+         graph_capture_s=capture_s, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -2009,7 +2240,8 @@ def main() -> int:
         timed("compress", phase_compress, args.seed)
     if "profile" in phases:
         timed("profile", phase_profile, args.seed, params)
-    emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1))
+    emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1),
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
 
     meta = {
         "lut_matmul_fused_gemv": ("src/repro_torch/kernels/csrc/lut_gemv.cu",

@@ -11,7 +11,8 @@ activations, and int8 Eq. 11 codes.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,17 +37,48 @@ GEMV_MAX_M = 128   # M < 128 goes to the GEMV kernel, else to the GEMM kernel
 # Launch counters (the counterpart of the JAX package's track_lut_launches)
 # ---------------------------------------------------------------------------
 
+def _counters():
+    return (_lm.LAUNCHES, _pa.LAUNCHES, _sq.LAUNCHES, _FA_LAUNCHES)
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel since the last `reset_launch_counts()`. A
     wrapper adds one where it launches its kernel and nowhere else; the plain
-    versions that serve CPU tensors are not counted."""
-    return {**_lm.LAUNCHES, **_pa.LAUNCHES, **_sq.LAUNCHES, **_FA_LAUNCHES}
+    versions that serve CPU tensors are not counted. A CUDA graph runs no
+    wrapper when it is replayed: its replay adds the tally its capture
+    recorded (`capture_launches`, `add_launches`)."""
+    return {name: n for counts in _counters() for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_lm.LAUNCHES, _pa.LAUNCHES, _sq.LAUNCHES, _FA_LAUNCHES):
+    for counts in _counters():
         for name in counts:
             counts[name] = 0
+
+
+def add_launches(tally: Dict[str, int], times: int = 1) -> None:
+    """Add `times` x `tally` to the counters: what `times` replays of a
+    graph whose capture recorded `tally` launched."""
+    for counts in _counters():
+        for name in counts:
+            counts[name] += times * tally.get(name, 0)
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA-graph capture: what the wrappers count inside the block
+    fills the yielded dict, the graph's launches per replay, and is taken
+    back out of the counters, since a capture launches nothing. The
+    counterpart of the JAX package's trace-time tags, where one traced step
+    is the per-step launch count."""
+    before = launch_counts()
+    tally: Dict[str, int] = {}
+    try:
+        yield tally
+    finally:
+        after = launch_counts()
+        tally.update({n: after[n] - before[n] for n in after if after[n] != before[n]})
+        add_launches(tally, -1)
 
 
 # ---------------------------------------------------------------------------

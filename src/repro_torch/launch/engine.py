@@ -5,12 +5,14 @@ engine with a paged KV cache.
 
 Static batch (`serve`, `build_decode_fns`)
     One batch of identical-length prompts starts and finishes together: one
-    batched prefill step over the prompts, then a Python loop of one-token
-    decode steps over a contiguous (L, B, S, KV, D) cache updated in place,
-    the greedy token chosen on the device and all tokens downloaded once at
-    the end. The JAX package compiles exactly two computations (prefill and a
-    scanned decode); the port runs eagerly and counts the step shapes it ran
-    in the same `traces` dict, {"prefill": 1, "decode": 1} per generation.
+    batched prefill step over the prompts, then one-token decode steps over a
+    contiguous (L, B, S, KV, D) cache updated in place, the greedy token
+    chosen on the device and all tokens downloaded once at the end. The JAX
+    package compiles exactly two computations (prefill and a scanned
+    decode). The port runs the prefill eagerly; on the card the decode step
+    is captured once as a CUDA graph and replayed, its position and tokens
+    in device buffers. It counts the step shapes it ran in the same `traces`
+    dict, {"prefill": 1, "decode": 1} per generation.
 
 Continuous batching (`ServingEngine`)
     Real traffic is requests with different prompt lengths, arrival times and
@@ -41,7 +43,10 @@ Continuous batching (`ServingEngine`)
     One step is one upload (tokens, lengths, n_new and block tables in a
     single int32 buffer) and one download (the next token of every slot);
     nothing else crosses between host and device inside `step` or inside the
-    layer loop.
+    layer loop. On the card the model step is a CUDA graph per width,
+    captured at the width's first step and replayed after it (`_StepGraphs`),
+    the counterpart of the JAX package's step jitted per width; on the CPU,
+    which a caller has to ask for, it runs eagerly.
 
 With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
 from `seed`, or passed in) go through `compress_model` (core/api.py) on their
@@ -55,7 +60,9 @@ but the dense transformer.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -64,6 +71,7 @@ import torch
 
 from repro_torch.core.api import CT_ARRAY_FIELDS, compress_model, is_clustered
 from repro_torch.core.lut import SUPPORTED_NBITS
+from repro_torch.kernels.ops import add_launches, capture_launches
 from repro_torch.models.config import get_config, reduced
 from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
                                          CAP_PREFIX_CACHE, CAP_SPECULATIVE,
@@ -81,9 +89,13 @@ def build_decode_fns(model, cfg, gen_tokens: int):
     prefill(params, cache, prompt (B, P) int32) -> (first token (B, 1) int32,
     cache); decode(params, cache, first_tok) -> (tokens (B, gen_tokens) int32
     on the device, cache), the first column being `first_tok`. Nothing is
-    read back to the host inside either. `traces` counts the distinct input
-    shapes each has run, the eager counterpart of the JAX package's trace
-    counts: {"prefill": 1, "decode": 1} after a generation."""
+    read back to the host inside either. On the card the decode is one
+    captured step replayed: its first step runs eagerly as the capture's
+    warm-up, then the step is captured over its token, position and output
+    buffers and replayed for the other gen_tokens - 1 (the counterpart of
+    the JAX package's scanned decode). `traces` counts the distinct input
+    shapes each has run, the counterpart of the JAX package's trace counts:
+    {"prefill": 1, "decode": 1} after a generation."""
     traces = {"prefill": 0, "decode": 0}
     shapes = {"prefill": set(), "decode": set()}
 
@@ -101,17 +113,83 @@ def build_decode_fns(model, cfg, gen_tokens: int):
         return greedy(logits), cache
 
     @torch.no_grad()
+    def decode_step(params, cache, tok, out, i):
+        """Step i, a device index: column i of `out` is the step's input
+        token, whose greedy successor then replaces it in `tok`; the cache's
+        position advances on the device."""
+        out.index_copy_(1, i, tok)
+        logits, _ = model.decode(params, cache, {"tokens": tok, "pos": cache["pos"]})
+        tok.copy_(greedy(logits))
+        i.add_(1)
+
+    @torch.no_grad()
     def decode(params, cache, first_tok):
         count("decode", first_tok.shape)
-        tok, toks = first_tok, []
-        for _ in range(gen_tokens):
-            logits, cache = model.decode(params, cache,
-                                         {"tokens": tok, "pos": cache["pos"]})
-            toks.append(tok[:, 0])
-            tok = greedy(logits)
-        return torch.stack(toks, dim=1), cache
+        dev = first_tok.device
+        tok = first_tok.clone()
+        out = torch.empty((tok.shape[0], gen_tokens), dtype=torch.int32, device=dev)
+        i = torch.zeros(1, dtype=torch.int64, device=dev)
+        step = functools.partial(decode_step, params, cache, tok, out, i)
+        if dev.type != "cuda" or gen_tokens < 2:
+            for _ in range(gen_tokens):
+                step()
+            return out, cache
+        _, graph = _warm_up_and_capture(step, torch.cuda.Stream(dev),
+                                        torch.cuda.graph_pool_handle())
+        for _ in range(gen_tokens - 1):
+            graph.replay()
+        return out, cache
 
     return prefill, decode, traces
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of a step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _CapturedStep:
+    """A step body captured as a CUDA graph: `out` is what the captured body
+    returned (the graph's static output), `launches` the kernel launches one
+    replay makes, `capture_s` the host seconds the capture and the graph's
+    instantiation took."""
+    graph: Any
+    out: Any
+    launches: Dict[str, int]
+    capture_s: float
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_launches(self.launches)
+
+
+def _warm_up_and_capture(body, stream, pool):
+    """(what the warm-up returned, the _CapturedStep): `body` runs once
+    eagerly on the side `stream` (the warm-up PyTorch asks of a capture; it
+    also builds the kernels and the cuBLAS state of that stream) and is then
+    captured on the same stream into the memory `pool`. No device
+    synchronisation: the side stream waits for the current one, and the
+    current one for it. A capture or instantiation that fails raises, with
+    the body's own error where the body failed; nothing falls back to the
+    eager body."""
+    cur = torch.cuda.current_stream()
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        first = body()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with capture_launches() as launches:
+            graph.capture_begin(pool=pool)
+            try:
+                out = body()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()        # end the broken capture; re-raise the cause
+                raise
+            graph.capture_end()
+        captured = _CapturedStep(graph, out, launches, time.perf_counter() - t0)
+    cur.wait_stream(stream)
+    return first, captured
 
 
 def _model_and_params(arch, *, use_reduced, n_layers, fused_projections, lcd,
@@ -628,6 +706,9 @@ class ServingEngine:
         self.traces: Dict[int, int] = {}
         self._next_rid = 0
         self.steps = 0
+        # on the card the model step is captured per width, after the pools
+        # above are final; the CPU runs it eagerly
+        self._graphs = _StepGraphs() if self.device.type == "cuda" else None
 
     # -- public API ---------------------------------------------------------
 
@@ -742,23 +823,50 @@ class ServingEngine:
 
     # -- internals ----------------------------------------------------------
 
-    @torch.no_grad()
     def _model_step(self, tokens: np.ndarray, n_new: np.ndarray) -> np.ndarray:
         """Run the model over one packed batch: ONE upload (tokens, lengths,
         n_new and the block tables in a single int32 buffer), the step, ONE
-        download of every slot's greedy next token."""
+        download of every slot's greedy next token. On the card the step is
+        its width's CUDA graph."""
+        if self._graphs is None:
+            return self._eager_step(tokens, n_new)
+        return self._graphs.step(self, tokens, n_new)
+
+    def _eager_step(self, tokens: np.ndarray, n_new: np.ndarray) -> np.ndarray:
+        """`_model_step` without a graph: the upload packed afresh, the
+        eager body, the download."""
+        buf = np.empty(self._upload_len(tokens.shape[1]), np.int32)
+        self._pack(buf, tokens, n_new)
+        nxt = self._step_body(self.caches, torch.from_numpy(buf).to(self.device),
+                              tokens.shape[1])
+        return nxt.cpu().numpy()
+
+    def _upload_len(self, t: int) -> int:
+        s, nbw = self.block_tables.shape
+        return s * t + 2 * s + s * nbw
+
+    def _pack(self, buf: np.ndarray, tokens: np.ndarray, n_new: np.ndarray) -> None:
+        """The step's upload into `buf` (int32): tokens, lengths, n_new, the
+        block tables."""
         s, t = tokens.shape
-        nbw = self.block_tables.shape[1]
-        host = torch.from_numpy(np.concatenate([
-            tokens.reshape(-1), self.lengths, n_new,
-            self.block_tables.reshape(-1)]).astype(np.int32, copy=False))
-        dev = host.to(self.device)
         o1, o2, o3 = s * t, s * t + s, s * t + 2 * s
-        logits, self.caches = self.model.serving_step(
-            self.params, self.caches, dev[:o1].view(s, t), dev[o1:o2],
-            dev[o2:o3], dev[o3:].view(s, nbw))
-        nxt = torch.argmax(logits[..., :self.model.cfg.vocab], dim=-1)
-        return nxt.to(torch.int32).cpu().numpy()
+        buf[:o1] = tokens.reshape(-1)
+        buf[o1:o2] = self.lengths
+        buf[o2:o3] = n_new
+        buf[o3:] = self.block_tables.reshape(-1)
+
+    @torch.no_grad()
+    def _step_body(self, caches, buf: torch.Tensor, t: int) -> torch.Tensor:
+        """The model step, eagerly, over one packed upload `buf` on the
+        device and the KV pools `caches` (updated in place): every slot's
+        greedy next token, (S,) int32 on the device. On the card this is
+        what each width's graph captures."""
+        s, nbw = self.block_tables.shape
+        o1, o2, o3 = s * t, s * t + s, s * t + 2 * s
+        logits, _ = self.model.serving_step(
+            self.params, caches, buf[:o1].view(s, t), buf[o1:o2], buf[o2:o3],
+            buf[o3:].view(s, nbw))
+        return torch.argmax(logits[..., :self.model.cfg.vocab], dim=-1).to(torch.int32)
 
     def _admit(self) -> None:
         """FCFS admission: the queue head gets a free slot and, all or
@@ -834,6 +942,87 @@ class ServingEngine:
         self._release(r)
         r.state, r.finish_t = FINISHED, self.clock()
         self.finished.append(r)
+
+
+def _tensors_in(tree) -> List[torch.Tensor]:
+    """Every tensor of a parameter or cache tree, a ClusteredTensor's fields
+    included, in a fixed order."""
+    if is_clustered(tree):
+        return [t for f in CT_ARRAY_FIELDS for t in _tensors_in(getattr(tree, f))]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors_in(tree[k])]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+@dataclasses.dataclass(frozen=True)
+class _WidthGraph:
+    """One width's captured step and the buffers it reads: the pinned upload
+    buffer and its device copy, the graph's input."""
+    host: torch.Tensor
+    dev: torch.Tensor
+    step: _CapturedStep
+
+
+class _StepGraphs:
+    """The engine's model step on the card: per token-window width a CUDA
+    graph, captured at the width's first step and replayed at every step of
+    that width after it (the counterpart of the JAX package's `_step_fn`,
+    jitted per width). The width's first step runs eagerly on a side stream
+    as the capture's warm-up, and is the step's real result.
+
+    Every replay reads its data from the same buffers: the upload is packed
+    into a pinned host buffer and copied into the device buffer outside the
+    graph; the step's token download is the fence after which the pinned
+    buffer may be rewritten. Both widths capture into one memory pool,
+    which is safe because their replays never overlap and each replay's
+    tokens are downloaded before the other graph runs.
+
+    A graph reads the parameters and the KV pools where they lay when it
+    was captured: a step after any of them was replaced raises."""
+
+    def __init__(self):
+        self._stream = self._pool = None          # made at the first capture
+        self._widths: Dict[int, _WidthGraph] = {}
+        self._read: Optional[List[torch.Tensor]] = None
+
+    def capture_seconds(self) -> Dict[int, float]:
+        """Host seconds each width's capture and instantiation took."""
+        return {t: w.step.capture_s for t, w in self._widths.items()}
+
+    def check_read(self, engine: "ServingEngine") -> None:
+        """Record the tensors the graphs read (the params and the KV pools)
+        at the first call; raise at a later one if any was replaced."""
+        read = _tensors_in(engine.params) + _tensors_in(engine.caches)
+        if self._read is None:
+            self._read = read
+        elif len(read) != len(self._read) or any(
+                a is not b for a, b in zip(read, self._read)):
+            raise RuntimeError(
+                "ServingEngine: the params or the KV pools were replaced after the "
+                "step was captured as a CUDA graph, which would go on reading the "
+                "old tensors; build a new engine for new weights or pools")
+
+    def step(self, engine: "ServingEngine", tokens: np.ndarray,
+             n_new: np.ndarray) -> np.ndarray:
+        self.check_read(engine)
+        t = tokens.shape[1]
+        w = self._widths.get(t)
+        if w is None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(engine.device)
+                self._pool = torch.cuda.graph_pool_handle()
+            host = torch.empty(engine._upload_len(t), dtype=torch.int32, pin_memory=True)
+            dev = torch.empty_like(host, device=engine.device)
+            engine._pack(host.numpy(), tokens, n_new)
+            dev.copy_(host, non_blocking=True)
+            nxt, captured = _warm_up_and_capture(
+                lambda: engine._step_body(engine.caches, dev, t), self._stream, self._pool)
+            self._widths[t] = _WidthGraph(host, dev, captured)
+            return nxt.cpu().numpy()
+        engine._pack(w.host.numpy(), tokens, n_new)
+        w.dev.copy_(w.host, non_blocking=True)
+        w.step.replay()
+        return w.step.out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

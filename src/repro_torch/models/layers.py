@@ -188,13 +188,15 @@ def attn_block(
     pos_offset: int = 0,
 ) -> torch.Tensor:
     """Attention block over a contiguous cache. With `cache` (the static
-    decode path) this step's K/V are written at `cache["pos"]` — a host int —
-    and the queries attend over the whole cache, later positions masked by
-    causality. UNLIKE the JAX package, which returns a new cache, the cache
-    tensors (one layer's views of the stacked cache) are UPDATED IN PLACE;
-    the caller advances `pos`. An int8 cache stores absmax codes with
-    per-(token, kv-head) scales and is dequantized in the activation dtype
-    on read."""
+    decode path) this step's K/V are written at `cache["pos"]` — a 0-d int32
+    tensor on the cache's device, as in the JAX package, or a host int — by
+    index, and the queries attend over the whole cache, later positions
+    masked by causality. Nothing here reads `pos` back to the host, so the
+    step can be captured once and replayed at every position. UNLIKE the
+    JAX package, which returns a new cache, the cache tensors (one layer's
+    views of the stacked cache) are UPDATED IN PLACE; the caller advances
+    `pos`. An int8 cache stores absmax codes with per-(token, kv-head)
+    scales and is dequantized in the activation dtype on read."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads_eff, cfg.n_kv_heads
     base = cache["pos"] if cache is not None else pos_offset
@@ -211,15 +213,15 @@ def attn_block(
         if kc.dtype == torch.int8:
             kq, ks_new = _absmax_int8(k)
             vq, vs_new = _absmax_int8(v)
-            kc.narrow(1, base, s).copy_(kq)
-            vc.narrow(1, base, s).copy_(vq)
-            cache["k_scale"].narrow(1, base, s).copy_(ks_new)
-            cache["v_scale"].narrow(1, base, s).copy_(vs_new)
+            kc.index_copy_(1, pos, kq)
+            vc.index_copy_(1, pos, vq)
+            cache["k_scale"].index_copy_(1, pos, ks_new)
+            cache["v_scale"].index_copy_(1, pos, vs_new)
             k = kc.to(x.dtype) * cache["k_scale"][..., None].to(x.dtype)
             v = vc.to(x.dtype) * cache["v_scale"][..., None].to(x.dtype)
         else:
-            kc.narrow(1, base, s).copy_(k)
-            vc.narrow(1, base, s).copy_(v)
+            kc.index_copy_(1, pos, k.to(kc.dtype))
+            vc.index_copy_(1, pos, v.to(vc.dtype))
             k, v = kc, vc
 
     o = attention(q, k, v, causal=True, window=int(layer_window),

@@ -5,7 +5,7 @@
     logits, caches = model.serving_step(params, caches, tokens, lengths,
                                         n_new, block_tables)
     cache = model.init_cache(batch, max_seq, device)          # static path
-    logits, cache = model.decode(params, cache, {"tokens": t, "pos": 0})
+    logits, cache = model.decode(params, cache, {"tokens": t, "pos": cache["pos"]})
 
 Serving surface (launch/engine.py): a family publishes the sequence caches it
 serves through, keyed by kind ("paged": a block-table pool over
@@ -80,8 +80,9 @@ class Model:
                               device)
 
     def decode(self, params, cache, batch: Dict[str, Any]):
-        """One static-path step: batch = {"tokens": (B, S), "pos": host int}.
-        Returns (last-token logits, cache with `pos` advanced)."""
+        """One static-path step: batch = {"tokens": (B, S), "pos": the 0-d
+        int32 position tensor (normally cache["pos"]) or a host int}. Returns
+        (last-token logits, the cache, updated in place, its `pos` advanced)."""
         return self._decode(params, cache, batch, self.cfg)
 
     def init_cache(self, batch: int, max_seq: int, device="cuda"):

@@ -132,13 +132,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """The static path's cache: stacked (L, B, max_seq, KV, D) K and V in the
     model dtype, or int8 codes with (L, B, max_seq, KV) f32 scales when
     cfg.kv_cache_dtype is "int8"; `pos`, the number of cached positions, is
-    a host int."""
+    a 0-d int32 tensor on `device`, as in the JAX package, which `decode_step`
+    advances in place."""
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     int8 = cfg.kv_cache_dtype == "int8"
     dt = torch.int8 if int8 else cfg.torch_dtype
     c: Dict[str, Any] = {"k": torch.zeros(shape, dtype=dt, device=device),
                          "v": torch.zeros(shape, dtype=dt, device=device),
-                         "pos": 0}
+                         "pos": torch.zeros((), dtype=torch.int32, device=device)}
     if int8:
         sshape = shape[:-1]
         c["k_scale"] = torch.full(sshape, 1e-6, dtype=torch.float32, device=device)
@@ -159,14 +160,16 @@ def decode_step(
     params: Dict[str, Any],
     cache: Dict[str, Any],
     tokens: torch.Tensor,             # (B, S) — S=1 decode, S=prompt_len prefill
-    pos: int,                         # cached positions so far, a host int
+    pos,                              # cached positions so far: 0-d int32 tensor or int
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One step of the whole stack over the contiguous cache: the S new
     tokens are embedded, attended and written at positions pos..pos+S-1.
-    Returns the logits of the LAST token (B, padded_vocab) and the cache with
-    `pos` advanced; its tensors were updated in place. Where the JAX package
-    scans over the layer axis, this loops over layers in Python."""
+    Returns the logits of the LAST token (B, padded_vocab) and the cache,
+    whose tensors were updated in place and whose `pos` tensor now holds
+    pos + S. `pos` is read on the device only (normally it is `cache["pos"]`
+    itself), so one captured step replays at any position. Where the JAX
+    package scans over the layer axis, this loops over layers in Python."""
     if cfg.n_experts:
         raise NotImplementedError(
             "mixture-of-experts MLPs (moe_block) are not ported yet")
@@ -178,7 +181,8 @@ def decode_step(
         lcache["pos"] = pos
         x = _block(cfg, layer_slice(blocks, l), x, int(windows[l]), cache=lcache)
     x = norm(x[:, -1], params["ln_final"], cfg.norm)
-    return lm_head_logits(params, x, cfg), {**cache, "pos": pos + tokens.shape[-1]}
+    cache["pos"].fill_(pos + tokens.shape[-1])
+    return lm_head_logits(params, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,91 @@ def test_attn_block_with_cache_vs_reference(arch, kv):
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attn_block_with_a_device_pos_vs_reference(arch, kv):
+    """`pos` as a 0-d int32 tensor, as the static decode graph passes it: a
+    prompt, then two decode steps, against the reference at the same
+    tolerances as the host-int case; the block leaves `pos` to its caller."""
+    model, params = reference_model(arch, n_layers=1, kv_cache_dtype=kv)
+    cfg = model.cfg
+    rng = np.random.default_rng(8)
+    p_ref = jax.tree_util.tree_map(lambda a: a[0], params["blocks"]["attn"])
+    p_port = port_tf.layer_slice(_port(params["blocks"]["attn"]), 0)
+    pcfg = port_model(arch, n_layers=1, kv_cache_dtype=kv).cfg
+    ref_cache = {k: v[0] for k, v in ref_tf.init_cache(cfg, 2, 9).items() if k != "pos"}
+    port_cache = {k: v[0] for k, v in port_tf.init_cache(pcfg, 2, 9, device="cpu").items()
+                  if k != "pos"}
+    pos = 0
+    for s in (6, 1, 1):
+        x = rng.normal(size=(2, s, cfg.d_model)).astype(np.float32)
+        want, new = ref_layers.attn_block(p_ref, jnp.asarray(x), cfg,
+                                          cache={**ref_cache, "pos": jnp.int32(pos)})
+        ref_cache = {k: v for k, v in new.items() if k != "pos"}
+        tpos = torch.tensor(pos, dtype=torch.int32)
+        got = port_layers.attn_block(p_port, torch.from_numpy(x), pcfg,
+                                     cache={**port_cache, "pos": tpos})
+        assert int(tpos) == pos, "attn_block must not advance pos"
+        assert_close(np_of(got), np.asarray(want), rtol=1e-4, atol=2e-5,
+                     what=f"attn_block output at device pos {pos}")
+        pos += s
+    for name, want in ref_cache.items():
+        if want.dtype == jnp.int8:
+            assert_equal(np_of(port_cache[name]), np.asarray(want), f"{name} (int8 codes)")
+        else:
+            assert_close(np_of(port_cache[name]), np.asarray(want), rtol=1e-6,
+                         atol=1e-6 if "scale" in name else 1e-5, what=name)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_step_writes_at_a_device_pos_and_advances_the_cache_pos_in_place(kv):
+    """A fresh cache's `pos` is a 0-d int32 tensor equal to 0; `decode_step`
+    writes at the `pos` it is given (here a tensor other than the cache's)
+    and leaves pos + S in the cache's own tensor, the same object, as the
+    reference leaves pos + S in its new cache."""
+    arch = "llama2-7b"
+    model, params = reference_model(arch, seed=3, n_layers=1, kv_cache_dtype=kv,
+                                     fused_projections=True)
+    cfg = model.cfg
+    pmodel = port_model(arch, n_layers=1, kv_cache_dtype=kv, fused_projections=True)
+    pcache = pmodel.init_cache(2, 9, device="cpu")
+    pos_t = pcache["pos"]
+    assert pos_t.dtype == torch.int32 and pos_t.ndim == 0 and pos_t == 0
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    want, cache = ref_tf.decode_step(params, ref_tf.init_cache(cfg, 2, 9), jnp.asarray(tokens),
+                                     jnp.int32(3), cfg)
+    got, out = port_tf.decode_step(_port(params), pcache, torch.from_numpy(tokens),
+                                   torch.tensor(3, dtype=torch.int32), pmodel.cfg)
+    assert out is pcache and out["pos"] is pos_t and int(pos_t) == int(cache["pos"]) == 7
+    assert_close(np_of(got), np.asarray(want), atol=2e-4, what="logits at pos 3")
+    for name in ("k", "v"):
+        if cache[name].dtype == jnp.int8:
+            assert_equal(np_of(out[name]), np.asarray(cache[name]), f"{name} (int8 codes)")
+        else:
+            assert_close(np_of(out[name]), np.asarray(cache[name]), rtol=1e-6, atol=1e-5,
+                         what=f"{name} cache")
+
+
+@pytest.mark.parametrize("gen", [1, 2])
+def test_build_decode_fns_short_generations_equal_reference(gen):
+    """One and two generated tokens: the first column is the prefill's
+    token, and a single step needs no replay."""
+    arch = "qwen2-1.5b"
+    model, params = reference_model(arch, seed=6, fused_projections=True)
+    pmodel = port_model(arch, fused_projections=True)
+    prompt = np.random.default_rng(2).integers(0, model.cfg.vocab, (2, 5)).astype(np.int32)
+    prefill, decode, _ = ref_engine.build_decode_fns(model, model.cfg, gen)
+    tok, cache = prefill(params, model.init_cache(2, 5 + gen), jnp.asarray(prompt))
+    want, _ = decode(params, cache, tok)
+    pprefill, pdecode, ptraces = port_engine.build_decode_fns(pmodel, pmodel.cfg, gen)
+    ptok, pcache = pprefill(_port(params), pmodel.init_cache(2, 5 + gen, device="cpu"),
+                            torch.from_numpy(prompt))
+    got, pcache = pdecode(_port(params), pcache, ptok)
+    assert_equal(np_of(got), np.asarray(want), f"greedy tokens, {gen} generated")
+    assert_equal(np_of(got)[:, :1], np_of(ptok), "first column = the prefill's token")
+    assert int(pcache["pos"]) == 5 + gen and ptraces == {"prefill": 1, "decode": 1}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_init_cache_matches_reference(kv):
     for arch in ARCHS:
         model, _ = reference_model(arch, kv_cache_dtype=kv)
