@@ -22,7 +22,11 @@ and in the per-projection one (the same tokens), and through the
 static-batch `serve()` (beside dense bf16 llama2-7b on the same path); the
 engine's steps and the static decode run as CUDA graphs, and every replay
 of a checking drive is held bit for bit against the eager body on a clone
-of the KV pools (`graph` lines); compresses a 2-layer full-width llama2-7b
+of the KV pools (`graph` lines); serves speculatively (`serve_spec`: the
+2-bit self-draft made on the card, k = 3, a 4-layer full-width llama2-7b)
+with the same tokens as the plain engine, the verify's rows bit for bit
+those of width-1 steps and the identical draft accepting every round;
+compresses a 2-layer full-width llama2-7b
 with the LCD pipeline on the card (twice: the same bytes; under a bits
 budget; then inside `build_engine`, whose engine serves requests that
 decode alike alone); shows, by the kernels' launch counts (a replay adds
@@ -239,7 +243,7 @@ def check_lut_kernels(gen):
 
     cases, worst = [], {"lut_matmul_fused_gemv": 0.0, "lut_matmul_fused": 0.0}
     headline = {}
-    shapes = [(m, k, n) for (k, n) in LLAMA_KN for m in (4, 8, 256)]
+    shapes = [(m, k, n) for (k, n) in LLAMA_KN for m in (4, 8, 32, 256)]
     shapes += [(5, 130, 37), (130, 130, 37)]          # ragged edges, K group padding
     for (m, k, n) in shapes:
         full = k >= 4096
@@ -248,6 +252,9 @@ def check_lut_kernels(gen):
             for dtype in (torch.bfloat16, torch.float32):
                 for quantize in (True, False):
                     main = nbits == 4 and dtype == torch.bfloat16 and quantize
+                    # the speculative draft's projections: 2-bit, float transform
+                    draft = (nbits == 2 and dtype == torch.bfloat16 and not quantize
+                             and m == 8)
                     layers = 2
                     x, smooth, packed, cb = _lut_operands(gen, m, kp, n, nbits, dtype, layers)
                     s_q = 0.04
@@ -288,9 +295,9 @@ def check_lut_kernels(gen):
                         emit("kernels", failed=case)
                         raise SystemExit(f"LUT kernel disagrees with its plain version: {case}")
                     worst[name] = max(worst[name], err)
-                    if full and main:
+                    if full and (main or draft):
                         case.update(_time_lut(gen, kern, m, k, n, nbits, dtype, quantize))
-                        if (k, n) == (4096, 4096):
+                        if (k, n) == (4096, 4096) and main and m in (8, 256):
                             headline[name] = case
                     cases.append(case)
     return cases, worst, headline
@@ -304,7 +311,7 @@ def _time_lut(gen, kern, m, k, n, nbits, dtype, quantize):
     per_layer = k * n * nbits // 8
     layers = max(2, math.ceil(128e6 / per_layer))
     x, smooth, packed, cb = _lut_operands(gen, m, k, n, nbits, dtype, layers)
-    inv = 1.0 / (smooth * 0.04)
+    inv = 1.0 / (smooth * 0.04) if quantize else 1.0 / smooth
     iters = 4 * layers if m < 128 else layers
     call = lambda i: kern(x, inv[i % layers], packed[i % layers], cb[i % layers],  # noqa: E731
                           quantize=quantize, nbits=nbits)
@@ -329,7 +336,7 @@ MULTI_GROUPS = {
     "qwen2-1.5b qkv": (1536, (2048, 256, 256)),       # 12 heads padded to 16, 2 kv heads
     "qwen2-1.5b gate_up": (1536, (8960, 8960)),
 }
-GEMV_MS, GEMM_MS = (1, 4, 5, 7, 8, 9, 127), (128, 130, 256)
+GEMV_MS, GEMM_MS = (1, 4, 5, 7, 8, 9, 32, 127), (128, 130, 256)
 
 
 def _multi_operands(gen, m, k, widths, nbits, quantize, dtype, layers):
@@ -380,6 +387,8 @@ def check_multi_kernels(gen):
         main = ((4,) * p, (True,) * p, torch.bfloat16)
         for m in GEMV_MS + GEMM_MS:
             plan.append((group, m, *main))
+        # the speculative draft's groups: 2-bit, float transform, M = 8
+        plan.append((group, 8, (2,) * p, (False,) * p, torch.bfloat16))
         for m in (5, 130):
             plan += [(group, m, (4,) * p, (True,) * p, torch.float32),
                      (group, m, (4, 2, 2)[:p], (True,) * p, torch.bfloat16),
@@ -430,10 +439,13 @@ def check_multi_kernels(gen):
             emit("kernels", failed=case)
             raise SystemExit(f"multi-projection kernel disagrees: {case}")
         worst[name] = max(worst[name], err)
-        timed = m in (8, 256) or (m == 4 and group.startswith("llama2-7b"))
-        if timed and dtype == torch.bfloat16 and nbits == (4,) * len(widths) and all(quantize):
+        llama = group.startswith("llama2-7b")
+        timed = m in (8, 256) or (m in (4, 32) and llama)
+        main = dtype == torch.bfloat16 and nbits == (4,) * len(widths) and all(quantize)
+        draft = llama and m == 8 and nbits == (2,) * len(widths) and not any(quantize)
+        if (timed and main) or draft:
             case.update(_time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype))
-            if group == "llama2-7b qkv":
+            if group == "llama2-7b qkv" and main and m in (8, 256):
                 headline[name] = case
         cases.append(case)
     # ragged K beside mixed widths: the ops wrapper pads K to the widest
@@ -640,6 +652,44 @@ def _attn_row_bits_do_not_depend_on_t(gen):
     return held
 
 
+# the speculative verify at k = 3: the `serve` engine's ragged lengths, every
+# slot with tokens feeding k + 1 = 4, two idle slots
+VERIFY_LENGTHS = torch.tensor([200, 37, 0, 95, 16, 0, 130, 63], dtype=torch.int32)
+VERIFY_N_NEW = torch.tensor([4, 4, 0, 4, 4, 0, 4, 4], dtype=torch.int32)
+
+
+def _attn_verify_rows_match_t1(gen):
+    """Row j of a T = 4 launch (the verify) against the T = 1 launch of the
+    same pools whose slots hold j more tokens: a query at position L + j sees
+    the same keys either way, and under the per-row key order must get the
+    same bits (torch.equal) — what the verify's rows being a width-1 step's
+    rests on, at B5's level."""
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    held = 0
+    for (h, kv) in ((32, 32), (12, 2)):
+        for qdtype, pool in ((torch.bfloat16, "bf16"), (torch.float32, "f32"),
+                             (torch.bfloat16, "int8")):
+            for window, softcap in ((0, 0.0), (64, 0.0), (0, 30.0)):
+                args, kw, _ = _attn_case(gen, 4, h, kv, qdtype, pool, window, softcap,
+                                         lengths=VERIFY_LENGTHS, n_new=VERIFY_N_NEW)
+                q, kp, vp, tables, lens, nn, win = args
+                wide = paged_pool_attention(*args, **kw)
+                one_new = torch.clamp(nn, max=1)
+                for j in range(4):
+                    one = paged_pool_attention(q[:, j:j + 1].contiguous(), kp, vp, tables,
+                                               lens + j * one_new, one_new, win, **kw)
+                    live = [i for i, n in enumerate(VERIFY_N_NEW.tolist()) if n]
+                    same = all(torch.equal(wide[i, j], one[i, 0]) for i in live)
+                    if not same:
+                        case = dict(h=h, kv=kv, pool=pool, q=str(qdtype).split(".")[-1],
+                                    window=window, softcap=softcap, row=j)
+                        emit("kernels", failed=case)
+                        raise SystemExit(f"paged_pool_attention: a verify row's bits differ "
+                                         f"from a T = 1 launch's: {case}")
+                    held += len(live)
+    return held
+
+
 def _row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths, n_new):
     from repro_torch.kernels.paged_attention import paged_pool_attention
     args, kw, _ = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap,
@@ -717,6 +767,7 @@ def check_attention_kernel(gen):
     # two more timed shapes: qwen2-1.5b's GQA (12 heads over 2) at T = 32, and
     # every slot at 480 cached tokens (the engine's full 32-block table) at T = 1
     for label, t, h, kv, lens, nn in (
+            ("verify T=4", 4, 32, 32, VERIFY_LENGTHS, VERIFY_N_NEW),
             ("qwen2-1.5b gqa", 32, 12, 2, None, None),
             ("full table", 1, 32, 32, torch.full((8,), 480, dtype=torch.int32),
              torch.ones(8, dtype=torch.int32))):
@@ -1262,6 +1313,7 @@ def phase_kernels(seed: int):
     lut_worst["lut_matmul_fused_gemv"] = max(lut_worst["lut_matmul_fused_gemv"], edge_worst)
     att_cases, att_worst, att_head = check_attention_kernel(gen)
     t_independent = _attn_row_bits_do_not_depend_on_t(gen)
+    verify_rows = _attn_verify_rows_match_t1(gen)
     plain_cases, plain_worst, plain_head = check_plain_kernels(gen)
     dq_cases, dq_worst = check_dequant_attention(gen)
     fa_cases, fa_worst = check_flash_attention(gen)
@@ -1279,6 +1331,7 @@ def phase_kernels(seed: int):
                         **plain_worst, "paged_dequant_attention": dq_worst,
                         "flash_attention": fa_worst},
          paged_pool_attention_row_bits_same_at_t1_and_t2_to_32=len(t_independent),
+         paged_pool_attention_verify_rows_same_as_t1=verify_rows,
          launches_during_comparison=launch_counts(), timed=[c for c in every if "ms" in c])
     out = {name: (lut_head[name], lut_worst[name]) for name in lut_head}
     out.update({name: (multi_head[name], multi_worst[name]) for name in multi_head})
@@ -1658,11 +1711,13 @@ def phase_model_parity(seed: int) -> None:
 
 
 def _drive(engine, prompts, new_tokens):
-    """Staggered submissions: a fresh request every other scheduler step."""
+    """Staggered submissions: a fresh request every other scheduler step,
+    counted from the drive's first step."""
     pending = list(prompts)
     requests = []
+    start = engine.steps
     while pending or engine.busy:
-        if pending and engine.steps % 2 == 0:
+        if pending and (engine.steps - start) % 2 == 0:
             requests.append(engine.submit(pending.pop(0), max_new_tokens=new_tokens))
         if engine.busy:
             engine.step()
@@ -1703,38 +1758,127 @@ def _expected_launches(fused, n_layers, widths):
             "paged_pool_attention": n_layers * (w1 + w32), **NOT_SERVING}
 
 
+@contextlib.contextmanager
+def _no_host_sync():
+    """Inside, any call that synchronises the host with the card raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _clone_pools(engine):
+    """Clones of the engine's target pool and, in speculative mode, the
+    draft's (None otherwise)."""
+    pools = [engine.caches, engine.draft_caches]
+    return [None if c is None else {k: v.clone() for k, v in c["paged"].items()}
+            for c in pools]
+
+
+def _pools_differ(engine, clones):
+    """Names of the pool tensors (draft's prefixed) that differ from `clones`."""
+    bad = []
+    for tag, c, clone in (("", engine.caches, clones[0]), ("draft ", engine.draft_caches,
+                                                         clones[1])):
+        if c is not None:
+            bad += [tag + k for k, v in c["paged"].items() if not torch.equal(v, clone[k])]
+    return bad
+
+
+def _verify_rows_check(engine, buf, drafts, wide_pool, step_pool, seen):
+    """Row j of one width-(k+1) verify's logits against the j-th of k+1
+    width-1 `serving_step` calls, on two clones of the target pool taken
+    before the round, for every slot in the round: torch.equal, and the two
+    pools equal afterwards. What speculative tokens = plain greedy tokens
+    rests on."""
+    k, model, params = engine.spec_k, engine.model, engine.params
+    pend, lengths, n_one, tables = engine._unpack(buf, 1)
+    tokens = torch.cat([pend, drafts], dim=1)
+    with torch.no_grad():
+        wide, _ = model.serving_verify(params, {"paged": wide_pool}, tokens, lengths,
+                                       n_one * (k + 1), tables)
+        live = [s for s in range(tokens.shape[0]) if int(n_one[s].cpu())]
+        for j in range(k + 1):
+            one, _ = model.serving_step(params, {"paged": step_pool}, tokens[:, j:j + 1].contiguous(),
+                                        lengths + j * n_one, n_one, tables)
+            for s in live:
+                seen["verify_rows_compared"] += 1
+                if not torch.equal(wide[s, j], one[s]):
+                    seen["verify_row_misses"].append(dict(
+                        step=engine.steps, slot=s, row=j,
+                        max_abs_diff=float((wide[s, j] - one[s]).abs().max())))
+    bad = [k for k in wide_pool if not torch.equal(wide_pool[k], step_pool[k])]
+    if bad:
+        seen["verify_row_misses"].append(dict(step=engine.steps, pools_differ=bad))
+
+
 def _graph_check(name, engine, seed):
-    """The engine's step graphs against its eager body (`ServingEngine._step_body`,
-    what each graph captured), step by step with new data in the same buffers:
-    a fresh staggered drive on the engine whose graphs the phase captured,
-    with idle slots, new lengths and block tables every step, decoding slots
-    that grow by a block, and one request preempted (recompute) and
-    re-admitted. Before every step the pools are cloned; the eager body runs
-    the same upload over the clone; the next tokens and every pool tensor
-    must be torch.equal. Fails the run on a miss, or when a width was never
-    replayed or the drive lacked block growth or a re-admission."""
-    pool = engine.caches["paged"]
+    """The engine's step graphs against their eager bodies
+    (`ServingEngine._step_body`, and in speculative mode `_draft_body` and
+    `_verify_body`, what each graph captured), step by step with new data in
+    the same buffers: a fresh staggered drive on the engine whose graphs the
+    phase captured, with idle slots, new lengths and block tables every step,
+    decoding slots that grow by a block, and one request preempted
+    (recompute) and re-admitted. Before every step (or speculative round) the
+    pools, the draft's too, are cloned; the eager bodies run the same upload
+    over the clones, with any host synchronisation an error; the tokens and
+    every pool tensor must be torch.equal.
+    In speculative mode every round also holds the verify's rows to width-1
+    steps (`_verify_rows_check`). Fails the run on a miss, or when a graph
+    was never replayed or the drive lacked block growth or a re-admission."""
     graphs = engine._graphs
+    spec = engine.spec_k > 0
     seen = dict(replays={}, warm_ups={}, misses=[], idle_slot_steps=0, grown=0, readmitted=0)
+    if spec:
+        seen.update(verify_rows_compared=0, verify_row_misses=[])
 
     def checked(tokens, n_new):
         t = tokens.shape[1]
-        kind = "replays" if t in graphs.capture_seconds() else "warm_ups"
-        seen[kind][t] = seen[kind].get(t, 0) + 1
+        label = "prefill" if spec else t
+        kind = "replays" if engine._shape_key(t) in graphs.capture_seconds() else "warm_ups"
+        seen[kind][label] = seen[kind].get(label, 0) + 1
         seen["idle_slot_steps"] += int((n_new == 0).any())
-        before = {k: v.clone() for k, v in pool.items()}
+        before = _clone_pools(engine)
         buf = np.empty(engine._upload_len(t), np.int32)
         engine._pack(buf, tokens, n_new)
         got = engine_step(tokens, n_new)
-        want = engine._step_body({"paged": before}, torch.from_numpy(buf).cuda(), t).cpu().numpy()
-        bad = [k for k in pool if not torch.equal(pool[k], before[k])]
+        buf = torch.from_numpy(buf).cuda()
+        with _no_host_sync():
+            want = engine._step_body({"paged": before[0]}, buf, t,
+                                     None if before[1] is None else {"paged": before[1]})
+        want = want.cpu().numpy()
+        bad = _pools_differ(engine, before)
         if not np.array_equal(got, want) or bad:
             seen["misses"].append(dict(step=engine.steps, width=t, tokens=got.tolist(),
                                        eager_tokens=want.tolist(), pools_differ=bad))
         return got
 
-    engine_step = engine._model_step
+    def checked_round(pend, n_one):
+        kind = "replays" if ("draft", engine.spec_k) in graphs.capture_seconds() else "warm_ups"
+        seen[kind]["round"] = seen[kind].get("round", 0) + 1
+        seen["idle_slot_steps"] += int((n_one == 0).any())
+        before = _clone_pools(engine)
+        rows_pools = _clone_pools(engine)[0], _clone_pools(engine)[0]
+        buf = np.empty(engine._upload_len(1), np.int32)
+        engine._pack(buf, pend, n_one)
+        buf = torch.from_numpy(buf).cuda()
+        got = engine_round(pend, n_one)
+        with _no_host_sync():
+            drafts = engine._draft_body({"paged": before[1]}, buf)
+            want = engine._verify_body({"paged": before[0]}, buf, drafts)
+        want = want.cpu().numpy()
+        bad = _pools_differ(engine, before)
+        if not np.array_equal(got, want) or bad:
+            seen["misses"].append(dict(step=engine.steps, round=True, tokens=got.tolist(),
+                                       eager_tokens=want.tolist(), pools_differ=bad))
+        _verify_rows_check(engine, buf, drafts, *rows_pools, seen)
+        return got
+
+    engine_step, engine_round = engine._model_step, engine._model_round
     engine._model_step = checked
+    if spec:
+        engine._model_round = checked_round
     try:
         rng = np.random.default_rng(seed + 7)
         cfg = engine.model.cfg
@@ -1760,11 +1904,14 @@ def _graph_check(name, engine, seed):
         seen["readmitted"] = int(evicted is not None and evicted.state == "finished"
                                  and evicted.preemptions == 1)
     finally:
-        del engine._model_step
+        engine.__dict__.pop("_model_step", None)
+        engine.__dict__.pop("_model_round", None)
+    graphs_of = ("prefill", "round") if spec else (1, engine.ecfg.prefill_chunk)
     ok = (not seen["misses"] and seen["grown"] > 0 and seen["readmitted"] == 1
           and seen["idle_slot_steps"] > 0
-          and all(seen["replays"].get(w, 0) > 0 for w in (1, engine.ecfg.prefill_chunk))
-          and all(r.state == "finished" and len(r.out_tokens) == 20 for r in requests))
+          and all(seen["replays"].get(w, 0) > 0 for w in graphs_of)
+          and all(r.state == "finished" and len(r.out_tokens) == 20 for r in requests)
+          and not (spec and (seen["verify_row_misses"] or not seen["verify_rows_compared"])))
     emit("graph", engine=name, ok=ok, steps_compared=sum(seen["replays"].values())
          + sum(seen["warm_ups"].values()), **seen)
     if not ok:
@@ -2174,10 +2321,227 @@ def phase_profile(seed: int, params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# speculative self-drafting
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+
+
+def _spec_expected_launches(n_layers, traces, k):
+    """LUT and attention launches of the speculative engine's graphs, fused:
+    the prefill step runs both models (M = 256: B4 / B2), a round k + 1
+    draft feeds (M = 8) and one verify (M = 8 (k + 1) < 128: the GEMVs B3 /
+    B1), each feed per layer 2 multi launches, 2 solo and one attention."""
+    pre = traces.get(("prefill", 32), 0)
+    feeds = traces.get(("draft", k), 0) * (k + 1) + traces.get(("verify", k + 1), 0)
+    return {"lut_matmul_fused_multi_gemv": 2 * n_layers * feeds,
+            "lut_matmul_fused_multi": 2 * 2 * n_layers * pre,
+            "lut_matmul_fused_gemv": 2 * n_layers * feeds,
+            "lut_matmul_fused": 2 * 2 * n_layers * pre,
+            "paged_pool_attention": n_layers * (2 * pre + feeds), **NOT_SERVING}
+
+
+def _row_count_ops(model, params, k):
+    """Whether the PyTorch ops of a step give a row the same bits at S (k + 1)
+    rows (the verify) and at S * 32 (a mixed step) as at S rows (a decode
+    step): the RMS norm, the plain f32 `torch.mean` it took its statistic
+    with before (`layers._MIN_STAT_ROWS` says why it no longer does), the vocab
+    head as one product over every window position, and the int8 pool's
+    absmax quantizer. A diagnostic; the verify-row check in `_graph_check`
+    is what fails the run."""
+    from repro_torch.models.layers import quantize_kv, rmsnorm
+    from repro_torch.models.transformer import lm_head_logits
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scale = params["ln_final"]["scale"]
+    out = {}
+    with torch.no_grad():
+        for t in (k + 1, 32):
+            x = torch.randn((8, t, cfg.d_model), generator=gen, device="cuda").mul_(3)
+            x = x.to(cfg.torch_dtype)
+            cols = [x[:, j:j + 1].contiguous() for j in range(t)]
+
+            def same(fn):
+                wide = fn(x)
+                return all(torch.equal(wide[:, j:j + 1], fn(c)) for j, c in enumerate(cols))
+            kv = torch.randn((8, t, cfg.n_kv_heads, cfg.hd), generator=gen,
+                             device="cuda").to(cfg.torch_dtype)
+            sm = 0.5 + torch.rand((cfg.n_kv_heads, cfg.hd), generator=gen, device="cuda")
+            q, sc = quantize_kv(kv.reshape(8 * t, cfg.n_kv_heads, cfg.hd), sm)
+            q, sc = q.view(8, t, -1, cfg.hd), sc.view(8, t, -1)
+            per_pos = [quantize_kv(kv[:, j].contiguous(), sm) for j in range(t)]
+            out[f"rows_{8 * t}"] = {
+                "rmsnorm": same(lambda a: rmsnorm(a, scale)),
+                "torch_mean_f32": same(lambda a: torch.mean(
+                    a.float() * a.float(), dim=-1, keepdim=True)),
+                "lm_head_one_product": same(lambda a: lm_head_logits(params, a, cfg)),
+                "quantize_kv": all(torch.equal(q[:, j], a) and torch.equal(sc[:, j], b)
+                                   for j, (a, b) in enumerate(per_pos)),
+            }
+    return out
+
+
+def _drive_counting_rounds(engine, prompts, new_tokens, k):
+    """`_drive`, and for every request in every round it joined whether the
+    round emitted all it could: k + 1 tokens, or the request's whole
+    remaining budget where that was smaller (a capped round). What an
+    identical draft must do in every round."""
+    full = []
+    inner = engine._spec_round
+
+    def spy(active):
+        left = {r.rid: (r.max_new_tokens - len(r.out_tokens), len(r.accept_lens))
+                for _, r in active}
+        done = inner(active)
+        for _, r in active:
+            budget, n = left[r.rid]
+            if len(r.accept_lens) > n:             # it joined the round
+                full.append(r.accept_lens[-1] + 1 == min(k + 1, budget))
+        return done
+
+    engine._spec_round = spy
+    try:
+        requests = _drive(engine, prompts, new_tokens)
+    finally:
+        del engine._spec_round
+    return requests, full
+
+
+def _replay_ms(captured, n=20) -> float:
+    """Device milliseconds of one replay of a captured graph, by CUDA events
+    around `n` back-to-back replays (counted nowhere: `graph.replay` directly)."""
+    captured.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        captured.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _graph_ms_at_full_batch(engine, seed, keys):
+    """Device ms of one replay of each graph in `keys` with all 8 slots
+    decoding (prompts of 96 tokens): the engine steps until every slot has
+    decoded at least once, the graphs are replayed on the last upload (the
+    same writes again: a replay is idempotent there), then the drive ends."""
+    cfg = engine.model.cfg
+    rng = np.random.default_rng(seed + 11)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab, 96).astype(np.int32), 40)
+            for _ in range(engine.ecfg.num_slots)]
+    while not all(r.state == "running" and len(r.out_tokens) >= 2 for r in reqs):
+        engine.step()
+    out = {str(key): round(_replay_ms(engine._graphs._graphs[key]), 4) for key in keys}
+    engine.run()
+    return out
+
+
+def phase_serve_spec(seed: int):
+    """Speculative self-drafting on LCD 4-bit llama2-7b at full width, cut to
+    4 layers: the 2-bit self-draft made on the card (`make_draft_params`),
+    the speculative engine (k = 3) and the plain one over the same prompts,
+    driven in turns (spec, plain, plain, spec): the same tokens for every
+    request, launch counts per role, bounded shapes. Then every replay of
+    the three graphs against their eager bodies with the verify's rows held
+    to width-1 steps (`_graph_check`), the identical draft (every uncapped
+    round accepts k), the draft's packing, and the device ms of one draft and
+    one verify graph with 8 slots decoding."""
+    from repro_torch.core.clustered_params import (_clustered_leaves, make_draft_params,
+                                                   packed_weight_bytes)
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
+
+    n_layers, k, new_tokens = 4, SPEC_K, 24
+    model, params = _served_params("llama2-7b", seed, n_layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draft, report = make_draft_params(params, draft_centroids=4)
+    torch.cuda.synchronize()
+    draft_s = time.perf_counter() - t0
+
+    leaves = _clustered_leaves(draft)
+    draft_bytes, int4_bytes = packed_weight_bytes(draft), packed_weight_bytes(draft, nbits=4)
+    packing_ok = (all(c.nbits == 2 for c in leaves) and len(leaves) == 7
+                  and 2 * draft_bytes <= int4_bytes)
+
+    base = dict(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                max_blocks_per_slot=32)
+    plain = ServingEngine(model, params, EngineConfig(**base), device="cuda")
+    spec, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, n_layers=n_layers,
+                           ecfg=EngineConfig(speculative_k=k, **base), params=params,
+                           draft_params=draft, device="cuda")
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(12)]
+
+    turns, tokens, counts, traces = [], {}, None, None
+    for engine, name in ((spec, "spec"), (plain, "plain"), (plain, "plain"), (spec, "spec")):
+        torch.cuda.synchronize()
+        if counts is None:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        requests = _drive(engine, prompts, new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if counts is None:
+            counts, traces = launch_counts(), dict(spec.traces)
+        n_tok = sum(len(r.out_tokens) for r in requests)
+        turns.append((name, round(n_tok / wall, 2)))
+        tokens.setdefault(name, []).append([list(r.out_tokens) for r in requests])
+    spec.assert_bounded_traces()
+    plain.assert_bounded_traces()
+    want_keys = {("prefill", 32), ("draft", k), ("verify", k + 1)}
+    expected = _spec_expected_launches(n_layers, traces, k)
+    same = all(t == tokens["plain"][0] for runs in tokens.values() for t in runs)
+    finished = all(len(t) == new_tokens for t in tokens["spec"][0])
+    summary = spec.acceptance_summary()
+    capture_s = {str(key): round(c, 3) for key, c in spec._graphs.capture_seconds().items()}
+
+    # the identical draft: every round whose budget is not capped accepts k
+    full = ServingEngine(model, params, EngineConfig(speculative_k=k, **base),
+                         draft_params=params, device="cuda")
+    full_reqs, rounds_full = _drive_counting_rounds(full, prompts, new_tokens, k)
+    full_same = [list(r.out_tokens) for r in full_reqs] == tokens["plain"][0]
+    full_accept = bool(rounds_full) and all(rounds_full)
+    full_summary = full.acceptance_summary()
+    del full
+
+    graph_ms = _graph_ms_at_full_batch(spec, seed, (("draft", k), ("verify", k + 1)))
+    graph_ms.update(_graph_ms_at_full_batch(plain, seed, (1,)))
+    rows = _row_count_ops(model, params, k)
+    ok = (same and finished and counts == expected and set(traces) == want_keys
+          and packing_ok and full_same and full_accept
+          and all(counts[n] > 0 for n in expected if n not in NOT_SERVING))
+    emit("serve_spec", arch="llama2-7b", layers=n_layers, dtype=cfg.dtype, weight_bits=4,
+         draft_bits=2, speculative_k=k, requests=len(prompts), new_tokens_each=new_tokens,
+         prompt_lens=[len(p) for p in prompts],
+         tokens_per_s_turns=turns, spec_tokens_equal_plain=same,
+         acceptance_summary=summary, traces={str(key): c for key, c in traces.items()},
+         launches=counts, launches_expected=expected,
+         identical_draft=dict(tokens_equal_plain=full_same, every_round_emits_all_it_can=full_accept,
+                              slot_rounds=len(rounds_full), acceptance_summary=full_summary),
+         draft=dict(make_draft_params_s=round(draft_s, 2), packed_bytes=draft_bytes,
+                    int4_layout_bytes=int4_bytes, all_2_bit=packing_ok,
+                    summary=report.summary()),
+         device_ms_per_graph_8_slots=graph_ms, graph_capture_s=capture_s,
+         row_count_ops_same_bits=rows,
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if not ok:
+        raise SystemExit(f"serve_spec: tokens, launch counts, shapes or the draft are wrong: "
+                         f"same={same} full_same={full_same} full_accept={full_accept} "
+                         f"packing={packing_ok} traces={traces} {counts} vs {expected}")
+    # every replay of the three graphs against the eager bodies, verify rows included
+    _graph_check("serve_spec", spec, seed)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
-              "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "compress",
-              "profile")
+              "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
+              "compress", "profile")
 
 
 def main() -> int:
@@ -2236,6 +2600,8 @@ def main() -> int:
         # K = 1536 / 8960, so 256 query rows per (slot, kv head) on a prefill step
         timed("serve_gqa", _serve, "serve_gqa", "qwen2-1.5b", args.seed, 4, 4, 24, None,
               solo_ids=(0, 2))
+    # speculative self-drafting: llama2-7b full width, 4 layers, its own launch counts
+    spec_counts = timed("serve_spec", phase_serve_spec, args.seed) if "serve_spec" in phases else {}
     if "compress" in phases:
         timed("compress", phase_compress, args.seed)
     if "profile" in phases:
@@ -2279,6 +2645,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst,
+            # the speculative engine's run (serve_spec), counted on its own
+            "launches_serve_spec": spec_counts.get(name, 0),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
             "f32_core_bound_ms": head.get("f32_core_bound_ms"),

@@ -1,4 +1,5 @@
-"""ClusteredTensor parameter trees for LCD serving without a compression run.
+"""ClusteredTensor parameter trees for LCD serving without a compression run,
+plus the 2-bit draft clustering used for self-speculative decoding.
 
 For smoke tests of the serve path we need the *shape* of an LCD-compressed
 model without running distillation on it: this module maps a model's
@@ -6,6 +7,11 @@ parameter table to the equivalent ClusteredTensor tree (sub-byte packed codes
 + codebook + smoothing vector per eligible weight) and fills it with
 random-but-valid values. `packed_weight_bytes` counts what a clustered tree
 streams.
+
+`make_draft_params` builds the serving engine's speculative draft: the
+model's OWN weights clustered down to 4 centroids and packed at true 2 bits
+(half the stream bytes of the int4 layout), so the draft costs no extra
+training and no second checkpoint.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.api import ClusteredTensor, is_clustered
+from repro_torch.core.api import (ClusteredTensor, _unpack_codes, compress_model,
+                                  default_predicate, is_clustered)
 from repro_torch.core.lut import _check_nbits, packed_rows
 from repro_torch.models import params as PT
 from repro_torch.models.registry import Model
@@ -109,6 +116,88 @@ def materialize_clustered(model: Model, generator: torch.Generator,
 
     return walk(shapes)
 
+
+# ---------------------------------------------------------------------------
+# Self-speculative draft clustering
+# ---------------------------------------------------------------------------
+
+def _dequantize_leaf(ct: ClusteredTensor) -> torch.Tensor:
+    """Dense f32 W = codebook[codes] / smooth of one (possibly stacked)
+    clustered leaf, on its device, one (d_in, d_out) slice at a time so that
+    only one slice's int64 gather index is alive at once."""
+    d_in, d_out = ct.smooth.shape[-1], ct.codes.shape[-1]
+    lead = tuple(ct.smooth.shape[:-1])
+    codes = ct.codes.reshape((-1,) + tuple(ct.codes.shape[-2:]))
+    cbs = ct.codebook.reshape(-1, ct.codebook.shape[-1])
+    smooth = ct.smooth.reshape(-1, d_in)
+    out = torch.empty((codes.shape[0], d_in, d_out), dtype=torch.float32,
+                      device=ct.codebook.device)
+    for i in range(codes.shape[0]):
+        idx = _unpack_codes(codes[i], d_in, ct.nbits).long()
+        cb = cbs[0] if ct.codebook.ndim == 1 else cbs[i]
+        torch.div(cb[idx], smooth[i][:, None], out=out[i])
+    return out.reshape(lead + (d_in, d_out))
+
+
+def dequantize_params(params) -> Any:
+    """Replace every ClusteredTensor leaf with its dense f32 equivalent
+    W = codebook[codes] / smooth (packed or full-row codes, stacked (L, ...)
+    leaves with per-slice codebooks). Dense leaves pass through untouched;
+    each dense leaf is made on its ClusteredTensor's device."""
+    if isinstance(params, dict):
+        return {k: dequantize_params(v) for k, v in params.items()}
+    return _dequantize_leaf(params) if is_clustered(params) else params
+
+
+def _clustered_leaves(tree):
+    if isinstance(tree, dict):
+        return [c for v in tree.values() for c in _clustered_leaves(v)]
+    return [tree] if is_clustered(tree) else []
+
+
+def make_draft_params(params, *, draft_centroids: int = 4,
+                      predicate=default_predicate) -> Tuple[Any, Any]:
+    """Extreme low-bit LCD draft of `params` for self-speculative decoding.
+
+    The draft is the model's OWN weights re-clustered to `draft_centroids`
+    (4 = 2 bits) and packed at the narrowest width that holds them
+    (ceil(log2 K), floored at 2): no second checkpoint, no draft training,
+    and at the default HALF the packed weight bytes of the int4 layout,
+    checked below. If `params` is already LCD-compressed, clustered leaves
+    are dequantized first, on their own device, so the draft tracks the
+    weights the target serves. Embeddings, norms and the lm_head stay as
+    they are (they are never clustered). Everything runs on the params'
+    device; the dense copy is dropped as soon as the draft is built, and at
+    no point are two dense copies alive.
+
+    Returns (draft_params, CompressReport)."""
+    draft_nbits = max(2, math.ceil(math.log2(max(draft_centroids, 2))))
+    dense = dequantize_params(params)
+    draft, report = compress_model(dense, target_centroids=draft_centroids,
+                                   predicate=predicate, nbits=draft_nbits)
+    del dense
+    leaves = _clustered_leaves(draft)
+    # postconditions (ValueError, not assert: python -O strips asserts):
+    # every clustered leaf packed at the draft width — a fallback to a wider
+    # layout would silently double the draft's stream
+    for leaf in leaves:
+        if leaf.nbits != draft_nbits:
+            raise ValueError(
+                f"draft leaf packed at {leaf.nbits}-bit; expected "
+                f"{draft_nbits}-bit for draft_centroids={draft_centroids}")
+    if draft_nbits == 2:
+        got = packed_weight_bytes(draft)
+        int4 = packed_weight_bytes(draft, nbits=4)
+        # <= half the int4 stream, up to one byte-row of group padding per
+        # tensor (a layer with d_in % 4 in {1, 2} packs a final partial
+        # group the int4 layout does not pay for)
+        slack = sum(math.prod(leaf.codes.shape[:-2]) * leaf.codes.shape[-1]
+                    for leaf in leaves)
+        if got * 2 > int4 + slack:
+            raise ValueError(
+                f"2-bit draft must stream ≤ half the int4 weight bytes; "
+                f"got {got} vs int4 {int4} (+{slack} group-padding slack)")
+    return draft, report
 
 
 def packed_weight_bytes(params, nbits: Optional[int] = None) -> int:

@@ -48,14 +48,28 @@ Continuous batching (`ServingEngine`)
     the counterpart of the JAX package's step jitted per width; on the CPU,
     which a caller has to ask for, it runs eagerly.
 
+    Speculative mode (`EngineConfig.speculative_k = k > 0`) serves a second,
+    extreme low-bit model beside the target: `draft_params`, the target's own
+    weights re-clustered to 4 centroids and packed at 2 bits
+    (core/clustered_params.py make_draft_params), with its own block pool of
+    the same geometry that shares the target's block tables and allocator
+    grants. A pure-decode step becomes a draft/verify ROUND: k+1 width-1
+    draft feeds, then ONE width-(k+1) target verify over [pending, drafts];
+    the longest draft prefix the target agrees with is accepted, plus the
+    target's own next token, and `lengths` advances by exactly what was
+    emitted (the rollback). Greedy output equals the non-speculative
+    engine's. A step with a prefilling slot feeds the same window through
+    both models. On the card these are three CUDA graphs — the two-model
+    prefill step, the k+1 draft feeds, the verify — and a round is one upload
+    and one download.
+
 With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
 from `seed`, or passed in) go through `compress_model` (core/api.py) on their
 device first, at `weight_bits` or under a `bits_budget`, as in the reference.
 
-Not ported yet, and refused with NotImplementedError naming the knob:
-speculative self-drafting, the prefix cache with copy-on-write, the priority
-scheduler, chunked-prefill admission, serving meshes, and every model family
-but the dense transformer.
+Not ported yet, and refused with NotImplementedError naming the knob: the
+prefix cache with copy-on-write, the priority scheduler, chunked-prefill
+admission, serving meshes, and every model family but the dense transformer.
 """
 from __future__ import annotations
 
@@ -64,12 +78,14 @@ import contextlib
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.api import CT_ARRAY_FIELDS, compress_model, is_clustered
+from repro_torch.core.clustered_params import make_draft_params
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.kernels.ops import add_launches, capture_launches
 from repro_torch.models.config import get_config, reduced
@@ -449,6 +465,9 @@ class Request:
     finish_t: Optional[float] = None
     # streaming: called as on_token(request, token) for every emitted token
     on_token: Optional[Any] = None
+    # speculative mode: accepted draft tokens per verify round (0..k each;
+    # round i emits accept_lens[i] + 1 tokens, a budget cap included)
+    accept_lens: List[int] = dataclasses.field(default_factory=list)
 
     # tokens to (re)prefill this running stint, SNAPSHOTTED at admission:
     # the prompt plus anything generated before a preemption. Tokens decoded
@@ -483,7 +502,7 @@ class EngineConfig:
     max_blocks_per_slot: int = 16     # block-table width (max seq / block_size)
     prefill_chunk: int = 16           # token-window width of the mixed step
     # speculative decoding: tokens drafted by the 2-bit LCD draft per verify
-    # round; 0 = off. (Validated here; the engine does not serve it yet.)
+    # round; 0 = off
     speculative_k: int = 0
     draft_centroids: int = 4          # 2-bit self-draft
     # KV block-pool dtype: "float" keeps blocks in the model dtype; "int8"
@@ -589,10 +608,6 @@ def _refuse_unported(ecfg: EngineConfig, model: Model) -> None:
         raise NotImplementedError(
             f"ServingEngine: model family {model.cfg.family!r} is not ported "
             f"yet (only 'dense'); {later}")
-    if ecfg.speculative_k > 0:
-        raise NotImplementedError(
-            f"EngineConfig.speculative_k={ecfg.speculative_k}: speculative "
-            f"self-drafting (paged_verify_step, the draft pool) is {later}")
     if ecfg.prefix_cache:
         raise NotImplementedError(
             f"EngineConfig.prefix_cache=True: the prefix cache with "
@@ -632,6 +647,12 @@ class ServingEngine:
 
     `params` and the KV pools live on `device`; the pools are updated in
     place by every step.
+
+    Speculative mode (ecfg.speculative_k > 0) also takes the 2-bit draft
+    clustering as `draft_params` (core/clustered_params.py
+    make_draft_params); a second block pool mirrors the target's and reuses
+    the SAME block tables and allocator grants, so one reservation covers
+    both models.
     """
 
     def __init__(self, model: Model, params, ecfg: Optional[EngineConfig] = None,
@@ -642,16 +663,23 @@ class ServingEngine:
             raise NotImplementedError(
                 "ServingEngine(mesh=...): serving on a mesh is not ported yet; "
                 "the engine runs on one device")
-        if draft_params is not None:
-            raise NotImplementedError(
-                "ServingEngine(draft_params=...): speculative self-drafting "
-                "is not ported yet")
         _refuse_unported(ecfg, model)
         caps = model.capabilities
         if CAP_PAGED not in caps:
             raise ValueError(
                 f"family '{model.cfg.family}' publishes no paged cache "
                 f"protocol; has {sorted(caps)}")
+        self.spec_k = ecfg.speculative_k
+        if self.spec_k:
+            if CAP_SPECULATIVE not in caps:
+                raise ValueError(
+                    f"EngineConfig.speculative_k > 0 needs the 'speculative' "
+                    f"capability; family '{model.cfg.family}' has {sorted(caps)}")
+            if draft_params is None:
+                raise ValueError(
+                    "speculative decoding needs draft_params (see "
+                    "core/clustered_params.py make_draft_params)")
+        self.draft_params = draft_params
         self.device = resolve_device(device)
         # the RESOLVED pool dtype: an explicit knob wins, else follow the
         # model config
@@ -680,47 +708,71 @@ class ServingEngine:
         self.lengths = np.zeros(ecfg.num_slots, np.int32)
         self.queue: collections.deque = collections.deque()
         self.finished: List[Request] = []
-        self.caches = model.init_seq_caches(
-            num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
-            num_slots=ecfg.num_slots, max_seq=ecfg.max_seq,
-            kv_dtype=self.kv_dtype, device=self.device)
+        def pools():
+            return model.init_seq_caches(
+                num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
+                num_slots=ecfg.num_slots, max_seq=ecfg.max_seq,
+                kv_dtype=self.kv_dtype, device=self.device)
+        self.caches = pools()
+        # the draft's own K/V pool (draft weights produce other K/V), with the
+        # same geometry, block ids and kv dtype as the target's
+        self.draft_caches = pools() if self.spec_k else None
         if kv_smooth is not None:
             # calibrated smoothing vectors; identity vectors are always valid
-            # (smoothing is a quantization-quality knob, not a correctness one)
+            # (smoothing is a quantization-quality knob, not a correctness
+            # one). The draft pool takes the same values, in tensors of its own.
             k_sm, v_sm = kv_smooth
-            pool = self.caches["paged"]
-            for name, sm in (("k_smooth", k_sm), ("v_smooth", v_sm)):
-                sm = torch.tensor(np.asarray(sm, np.float32))
-                if sm.shape != pool[name].shape:
-                    raise ValueError(
-                        f"kv_smooth: {name} must be {tuple(pool[name].shape)} "
-                        f"(layers, kv heads, head dim); got {tuple(sm.shape)}")
-                pool[name] = sm.to(self.device).contiguous()
-        pool_bytes = sum(t.numel() * t.element_size()
-                         for t in self.caches["paged"].values())
-        logger.info(f"engine: {ecfg.num_slots} slots, {ecfg.num_blocks} x "
+            for caches in (self.caches, self.draft_caches):
+                if caches is None:
+                    continue
+                pool = caches["paged"]
+                for name, sm in (("k_smooth", k_sm), ("v_smooth", v_sm)):
+                    sm = torch.tensor(np.asarray(sm, np.float32))
+                    if sm.shape != pool[name].shape:
+                        raise ValueError(
+                            f"kv_smooth: {name} must be {tuple(pool[name].shape)} "
+                            f"(layers, kv heads, head dim); got {tuple(sm.shape)}")
+                    pool[name] = sm.to(self.device).contiguous()
+        pool_bytes = _tree_bytes(self.caches) + _tree_bytes(self.draft_caches)
+        logger.info(f"engine: {ecfg.num_slots} slots, "
+                    f"{2 if self.spec_k else 1} x {ecfg.num_blocks} x "
                     f"{ecfg.block_size}-token {self.kv_dtype} KV blocks "
                     f"({human_bytes(pool_bytes)}) on {self.device}")
-        # the step widths T this engine has run, with how often; the counted
-        # form of the reference's bounded-trace contract
-        self.traces: Dict[int, int] = {}
+        # the step shapes this engine has run, with how often — widths T
+        # normally, (role, width) in speculative mode ("prefill", "draft",
+        # "verify"); the counted form of the reference's bounded-trace contract
+        self.traces: Dict[Any, int] = {}
         self._next_rid = 0
         self.steps = 0
+        self.spec_rounds = 0
+        # the CompressReport of the draft, when build_engine made it
+        self.draft_report = None
         # on the card the model step is captured per width, after the pools
         # above are final; the CPU runs it eagerly
         self._graphs = _StepGraphs() if self.device.type == "cuda" else None
+
+    @property
+    def draft_cache(self):
+        warnings.warn(
+            "ServingEngine.draft_cache is deprecated; use "
+            "engine.draft_caches['paged']", DeprecationWarning, stacklevel=2)
+        return None if self.draft_caches is None else self.draft_caches.get("paged")
 
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int, *, on_token=None) -> Request:
         """Queue a request. `on_token(request, token)` streams every emitted
-        token as it is decoded."""
+        token as it is decoded (a speculative round streams each accepted
+        token in order)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        need = len(prompt) + max_new_tokens
+        # a speculative round writes up to k tokens past the accepted length
+        # before rolling back, so a request needs k tokens of headroom
+        need = len(prompt) + max_new_tokens + self.spec_k
         if need > self.ecfg.max_seq:
             raise ValueError(
-                f"request needs {need} tokens; engine max_seq is "
-                f"{self.ecfg.max_seq} (max_blocks_per_slot * block_size)")
+                f"request needs {need} tokens (incl. speculative headroom "
+                f"{self.spec_k}); engine max_seq is {self.ecfg.max_seq} "
+                f"(max_blocks_per_slot * block_size)")
         r = Request(self._next_rid, prompt, max_new_tokens,
                     submit_t=self.clock(), on_token=on_token)
         self._next_rid += 1
@@ -756,25 +808,59 @@ class ServingEngine:
 
     def assert_bounded_traces(self) -> None:
         """The bounded-shape contract: no matter how requests arrive or
-        interleave, the engine runs its model step at a FIXED set of
-        token-window widths — at most two, prefill_chunk and 1. (The JAX
-        package counts traced computations; this engine runs eagerly and
-        counts the widths it has run.)"""
-        allowed = {1, self.ecfg.prefill_chunk}
+        interleave, the engine runs a FIXED set of step shapes. Normal mode:
+        at most two token-window widths, prefill_chunk and 1. Speculative
+        mode: at most three — the two-model prefill step (width
+        prefill_chunk), the k draft feeds and the width-(k+1) verify. (The
+        JAX package counts traced computations; this engine counts the
+        shapes it has run.)"""
+        k = self.spec_k
+        if k:
+            allowed = {("prefill", self.ecfg.prefill_chunk), ("draft", k),
+                       ("verify", k + 1)}
+        else:
+            allowed = {1, self.ecfg.prefill_chunk}
         if not set(self.traces) <= allowed:
             raise AssertionError(
                 f"unexpected step shapes {set(self.traces)} (allowed {allowed})")
+
+    def acceptance_summary(self) -> Dict[str, Any]:
+        """Accepted-length accounting over every request this engine has
+        seen. `accepted_len` counts tokens emitted per verify round (the
+        accepted draft prefix + the target's correction or bonus token), so
+        its mean is the speculative multiplier on target steps."""
+        live = [x for x in self.slots if x is not None] + list(self.queue)
+        entries = [a for r in self.finished + live for a in r.accept_lens]
+        hist: Dict[int, int] = {}
+        for a in entries:
+            hist[a + 1] = hist.get(a + 1, 0) + 1
+        return {
+            # engine-level verify rounds vs per-slot accept entries: one
+            # round serves every decoding slot, so entries >= rounds
+            "spec_rounds": self.spec_rounds,
+            "accept_entries": len(entries),
+            "mean_accepted_len": (float(np.mean([a + 1 for a in entries]))
+                                  if entries else 0.0),
+            "accepted_len_hist": {str(n): c for n, c in sorted(hist.items())},
+        }
 
     # -- scheduler ----------------------------------------------------------
 
     def step(self) -> List[Request]:
         """One scheduler iteration: admit from the queue, run one model step
         over every active slot, harvest finished requests. Returns the
-        requests that finished during this step."""
+        requests that finished during this step.
+
+        In speculative mode a pure-decode step becomes a draft/verify round
+        (`_spec_round`). A step with a prefilling slot keeps the mixed
+        shape — decoding slots advance one plain token there — and feeds
+        the window through both models."""
         self._admit()
         active = [(s, r) for s, r in enumerate(self.slots) if r is not None]
         if not active:
             return []
+        if self.spec_k and not any(r.prefilling for _, r in active):
+            return self._spec_round(active)
         ecfg = self.ecfg
         t = ecfg.prefill_chunk if any(r.prefilling for _, r in active) else 1
 
@@ -803,7 +889,8 @@ class ServingEngine:
             n_new[s] = w
 
         next_tok = self._model_step(tokens, n_new)
-        self.traces[t] = self.traces.get(t, 0) + 1
+        key = self._shape_key(t)
+        self.traces[key] = self.traces.get(key, 0) + 1
         self.steps += 1
 
         done: List[Request] = []
@@ -821,25 +908,115 @@ class ServingEngine:
                     done.append(r)
         return done
 
+    # -- speculative round ----------------------------------------------------
+
+    def _spec_round(self, active) -> List[Request]:
+        """One draft/verify round over every decoding slot.
+
+        1. RESERVE: a round writes K/V up to `lengths + k` (the pending token
+           and k drafts) before any rollback, so each slot's block table must
+           cover lengths + k + 1 tokens first. A reservation may evict a slot
+           that reserved earlier, so participation is decided only after all
+           of them; a slot that cannot be covered sits the round out (n_new
+           = 0 masks it everywhere), and a round nobody joins emits nothing.
+        2. DRAFT: k+1 width-1 feeds of the draft model, k greedy tokens.
+        3. VERIFY: one width-(k+1) target step over [pending, d_1..d_k]
+           gives the target's argmax after every fed token.
+        4. ACCEPT AND ROLL BACK: the longest draft prefix matching those
+           argmaxes is accepted and the round emits accepted + 1 tokens (the
+           +1 is the target's own next token: the correction on a mismatch,
+           the bonus on full acceptance), capped by the request's budget.
+           `lengths` advances by exactly the emitted count, so the K/V of
+           rejected drafts stays past the readable horizon and is overwritten
+           by the next round; the draft pool rolls back the same way, since
+           both pools share block tables and `lengths`."""
+        ecfg, k = self.ecfg, self.spec_k
+        for s, r in active:
+            if self.slots[s] is not r:
+                continue               # evicted by an earlier reservation
+            self._ensure_blocks(r, int(self.lengths[s]) + k + 1)
+        live = [(s, r) for s, r in enumerate(self.slots) if r is not None
+                and len(r.blocks) * ecfg.block_size >= int(self.lengths[s]) + k + 1]
+        if not live:
+            self.steps += 1            # starved round: everyone waits
+            return []
+
+        pend = np.zeros((ecfg.num_slots, 1), np.int32)
+        n_one = np.zeros(ecfg.num_slots, np.int32)
+        for s, r in live:
+            pend[s, 0] = r.out_tokens[-1]
+            n_one[s] = 1
+        out = self._model_round(pend, n_one)
+        drafts, target = out[:, :k], out[:, k:]
+        for key in (("draft", k), ("verify", k + 1)):
+            self.traces[key] = self.traces.get(key, 0) + 1
+        self.steps += 1
+        self.spec_rounds += 1
+
+        done: List[Request] = []
+        for s, r in live:
+            accepted = 0
+            while accepted < k and target[s, accepted] == drafts[s, accepted]:
+                accepted += 1
+            emit = [int(t) for t in target[s, :accepted + 1]]
+            emit = emit[:r.max_new_tokens - len(r.out_tokens)]
+            # the REALISED advance (budget cap included), so the mean
+            # accepted length is the true multiplier on target steps
+            r.accept_lens.append(len(emit) - 1)
+            for tok in emit:
+                self._emit(r, tok)
+            self.lengths[s] += len(emit)       # the rollback
+            if r.done:
+                self._finish(r)
+                done.append(r)
+        return done
+
     # -- internals ----------------------------------------------------------
+
+    def _shape_key(self, t: int):
+        """How `traces` and the step graphs key a model step of width t:
+        the width, or ("prefill", t) in speculative mode, where the step
+        feeds both models."""
+        return ("prefill", t) if self.spec_k else t
 
     def _model_step(self, tokens: np.ndarray, n_new: np.ndarray) -> np.ndarray:
         """Run the model over one packed batch: ONE upload (tokens, lengths,
         n_new and the block tables in a single int32 buffer), the step, ONE
-        download of every slot's greedy next token. On the card the step is
-        its width's CUDA graph."""
+        download of every slot's greedy next token. In speculative mode the
+        draft ingests the same window. On the card the step is a CUDA graph."""
         if self._graphs is None:
             return self._eager_step(tokens, n_new)
         return self._graphs.step(self, tokens, n_new)
 
-    def _eager_step(self, tokens: np.ndarray, n_new: np.ndarray) -> np.ndarray:
-        """`_model_step` without a graph: the upload packed afresh, the
-        eager body, the download."""
+    def _model_round(self, pend: np.ndarray, n_one: np.ndarray) -> np.ndarray:
+        """One draft/verify round over ONE upload in the width-1 layout (the
+        pending tokens, lengths, n_one — 1 for a slot that joins the round —
+        and the block tables): the k+1 draft feeds, the verify, and ONE
+        download of (S, 2k+1) int32 — the k drafts, then the target's greedy
+        token after each of the k+1 fed tokens. On the card two CUDA graphs,
+        the verify reading the drafts where the draft graph left them."""
+        if self._graphs is None:
+            return self._eager_round(pend, n_one)
+        return self._graphs.round(self, pend, n_one)
+
+    def _host_upload(self, tokens: np.ndarray, n_new: np.ndarray) -> torch.Tensor:
+        """The upload packed afresh and copied to the device."""
         buf = np.empty(self._upload_len(tokens.shape[1]), np.int32)
         self._pack(buf, tokens, n_new)
-        nxt = self._step_body(self.caches, torch.from_numpy(buf).to(self.device),
-                              tokens.shape[1])
+        return torch.from_numpy(buf).to(self.device)
+
+    def _eager_step(self, tokens: np.ndarray, n_new: np.ndarray) -> np.ndarray:
+        """`_model_step` without a graph: the upload, the eager body, the
+        download."""
+        nxt = self._step_body(self.caches, self._host_upload(tokens, n_new),
+                              tokens.shape[1], self.draft_caches)
         return nxt.cpu().numpy()
+
+    def _eager_round(self, pend: np.ndarray, n_one: np.ndarray) -> np.ndarray:
+        """`_model_round` without graphs."""
+        buf = self._host_upload(pend, n_one)
+        drafts = self._draft_body(self.draft_caches, buf)
+        return self._verify_body(self.caches, buf, drafts).cpu().numpy()
 
     def _upload_len(self, t: int) -> int:
         s, nbw = self.block_tables.shape
@@ -855,18 +1032,65 @@ class ServingEngine:
         buf[o2:o3] = n_new
         buf[o3:] = self.block_tables.reshape(-1)
 
-    @torch.no_grad()
-    def _step_body(self, caches, buf: torch.Tensor, t: int) -> torch.Tensor:
-        """The model step, eagerly, over one packed upload `buf` on the
-        device and the KV pools `caches` (updated in place): every slot's
-        greedy next token, (S,) int32 on the device. On the card this is
-        what each width's graph captures."""
+    def _unpack(self, buf: torch.Tensor, t: int):
+        """(tokens (S, t), lengths, n_new, block tables): views of an upload."""
         s, nbw = self.block_tables.shape
         o1, o2, o3 = s * t, s * t + s, s * t + 2 * s
-        logits, _ = self.model.serving_step(
-            self.params, caches, buf[:o1].view(s, t), buf[o1:o2], buf[o2:o3],
-            buf[o3:].view(s, nbw))
+        return buf[:o1].view(s, t), buf[o1:o2], buf[o2:o3], buf[o3:].view(s, nbw)
+
+    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits[..., :self.model.cfg.vocab], dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def _step_body(self, caches, buf: torch.Tensor, t: int,
+                   draft_caches=None) -> torch.Tensor:
+        """The model step, eagerly, over one packed upload `buf` on the
+        device and the KV pools `caches` (updated in place): every slot's
+        greedy next token, (S,) int32 on the device. With `draft_caches`
+        (speculative mode) the draft ingests the same window into its own
+        pool, so that its cache tracks the target's; its logits go unused.
+        On the card this is what each width's graph captures."""
+        args = self._unpack(buf, t)
+        logits, _ = self.model.serving_step(self.params, caches, *args)
+        if draft_caches is not None:
+            self.model.serving_step(self.draft_params, draft_caches, *args)
+        return self._greedy(logits)
+
+    @torch.no_grad()
+    def _draft_body(self, draft_caches, buf: torch.Tensor) -> torch.Tensor:
+        """k greedy draft tokens per slot, (S, k) int32 on the device: k+1
+        width-1 draft steps over one upload in the width-1 layout, each
+        step's token fed to the next and the draft's lengths advanced by
+        n_one on the device (the counterpart of the JAX package's scanned
+        draft). The last feed pushes d_k through the draft so that its K/V
+        lands at lengths + k before acceptance is known: without it a fully
+        accepted round (lengths += k + 1) would leave a hole at d_k's
+        position in the draft cache, which the draft would attend as stale
+        data from then on. The (k+1)-th token is dropped; rejected feeds roll
+        back by the lengths mask like everything else. On the card this is
+        what the draft graph captures."""
+        tok, lengths, n_one, tables = self._unpack(buf, 1)
+        drafts = []
+        for _ in range(self.spec_k + 1):
+            logits, _ = self.model.serving_step(self.draft_params, draft_caches, tok,
+                                                lengths, n_one, tables)
+            nxt = self._greedy(logits)
+            drafts.append(nxt)
+            tok, lengths = nxt[:, None], lengths + n_one
+        return torch.stack(drafts[:self.spec_k], dim=1)
+
+    @torch.no_grad()
+    def _verify_body(self, caches, buf: torch.Tensor, drafts: torch.Tensor) -> torch.Tensor:
+        """The target's width-(k+1) verify over [pending, drafts], its tokens
+        assembled on the device: (S, 2k+1) int32, the drafts and then the
+        target's greedy token after each fed token. On the card this is what
+        the verify graph captures, reading `drafts` from the draft graph's
+        output."""
+        pend, lengths, n_one, tables = self._unpack(buf, 1)
+        tokens = torch.cat([pend, drafts], dim=1)
+        logits, _ = self.model.serving_verify(self.params, caches, tokens, lengths,
+                                              n_one * (self.spec_k + 1), tables)
+        return torch.cat([drafts, self._greedy(logits)], dim=1)
 
     def _admit(self) -> None:
         """FCFS admission: the queue head gets a free slot and, all or
@@ -955,44 +1179,52 @@ def _tensors_in(tree) -> List[torch.Tensor]:
 
 
 @dataclasses.dataclass(frozen=True)
-class _WidthGraph:
-    """One width's captured step and the buffers it reads: the pinned upload
-    buffer and its device copy, the graph's input."""
+class _Upload:
+    """One width's upload buffers, which its graphs read: the pinned host
+    buffer and its device copy."""
     host: torch.Tensor
     dev: torch.Tensor
-    step: _CapturedStep
 
 
 class _StepGraphs:
-    """The engine's model step on the card: per token-window width a CUDA
-    graph, captured at the width's first step and replayed at every step of
-    that width after it (the counterpart of the JAX package's `_step_fn`,
-    jitted per width). The width's first step runs eagerly on a side stream
-    as the capture's warm-up, and is the step's real result.
+    """The engine's model steps on the card as CUDA graphs, one per step
+    shape: the step of each token-window width (the counterpart of the JAX
+    package's `_step_fn`, jitted per width), and in speculative mode the
+    two-model prefill step, the k+1 draft feeds and the width-(k+1) verify
+    (the counterparts of `_spec_prefill_fn`, `_draft_fn` and `_verify_fn`).
+    A shape's graph is captured at its first call, which runs eagerly on a
+    side stream as the capture's warm-up and is that call's real result;
+    every later call replays it.
 
     Every replay reads its data from the same buffers: the upload is packed
-    into a pinned host buffer and copied into the device buffer outside the
-    graph; the step's token download is the fence after which the pinned
-    buffer may be rewritten. Both widths capture into one memory pool,
-    which is safe because their replays never overlap and each replay's
-    tokens are downloaded before the other graph runs.
+    into a pinned host buffer per width and copied into that width's device
+    buffer outside the graphs, and the verify graph reads the drafts from
+    the draft graph's output, so a round is one upload and one download. A
+    download is the fence after which a pinned buffer may be rewritten. All
+    graphs capture into one memory pool, which is safe because their
+    replays never overlap and every output a later graph reads stays alive.
 
-    A graph reads the parameters and the KV pools where they lay when it
-    was captured: a step after any of them was replaced raises."""
+    A graph reads the parameters and the KV pools (the draft's too) where
+    they lay when it was captured: a call after any of them was replaced
+    raises."""
 
     def __init__(self):
         self._stream = self._pool = None          # made at the first capture
-        self._widths: Dict[int, _WidthGraph] = {}
+        self._uploads: Dict[int, _Upload] = {}    # per width
+        self._graphs: Dict[Any, _CapturedStep] = {}
         self._read: Optional[List[torch.Tensor]] = None
 
-    def capture_seconds(self) -> Dict[int, float]:
-        """Host seconds each width's capture and instantiation took."""
-        return {t: w.step.capture_s for t, w in self._widths.items()}
+    def capture_seconds(self) -> Dict[Any, float]:
+        """Host seconds each shape's capture and instantiation took, keyed
+        as `ServingEngine.traces`."""
+        return {key: g.capture_s for key, g in self._graphs.items()}
 
     def check_read(self, engine: "ServingEngine") -> None:
-        """Record the tensors the graphs read (the params and the KV pools)
-        at the first call; raise at a later one if any was replaced."""
-        read = _tensors_in(engine.params) + _tensors_in(engine.caches)
+        """Record the tensors the graphs read (the params and the KV pools,
+        the draft's included) at the first call; raise at a later one if any
+        was replaced."""
+        read = [t for tree in (engine.params, engine.draft_params, engine.caches,
+                               engine.draft_caches) for t in _tensors_in(tree)]
         if self._read is None:
             self._read = read
         elif len(read) != len(self._read) or any(
@@ -1002,27 +1234,53 @@ class _StepGraphs:
                 "step was captured as a CUDA graph, which would go on reading the "
                 "old tensors; build a new engine for new weights or pools")
 
+    def _upload(self, engine: "ServingEngine", tokens: np.ndarray,
+                n_new: np.ndarray) -> torch.Tensor:
+        """The width's device upload buffer, holding this call's upload."""
+        t = tokens.shape[1]
+        up = self._uploads.get(t)
+        if up is None:
+            host = torch.empty(engine._upload_len(t), dtype=torch.int32, pin_memory=True)
+            up = self._uploads[t] = _Upload(host, torch.empty_like(host, device=engine.device))
+        engine._pack(up.host.numpy(), tokens, n_new)
+        up.dev.copy_(up.host, non_blocking=True)
+        return up.dev
+
+    def _run(self, engine: "ServingEngine", key, body) -> torch.Tensor:
+        """`body`'s result for this call: the replay's output buffer, or at
+        the key's first call the warm-up's result (and the capture)."""
+        captured = self._graphs.get(key)
+        if captured is not None:
+            captured.replay()
+            return captured.out
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(engine.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        first, self._graphs[key] = _warm_up_and_capture(body, self._stream, self._pool)
+        return first
+
     def step(self, engine: "ServingEngine", tokens: np.ndarray,
              n_new: np.ndarray) -> np.ndarray:
         self.check_read(engine)
         t = tokens.shape[1]
-        w = self._widths.get(t)
-        if w is None:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(engine.device)
-                self._pool = torch.cuda.graph_pool_handle()
-            host = torch.empty(engine._upload_len(t), dtype=torch.int32, pin_memory=True)
-            dev = torch.empty_like(host, device=engine.device)
-            engine._pack(host.numpy(), tokens, n_new)
-            dev.copy_(host, non_blocking=True)
-            nxt, captured = _warm_up_and_capture(
-                lambda: engine._step_body(engine.caches, dev, t), self._stream, self._pool)
-            self._widths[t] = _WidthGraph(host, dev, captured)
-            return nxt.cpu().numpy()
-        engine._pack(w.host.numpy(), tokens, n_new)
-        w.dev.copy_(w.host, non_blocking=True)
-        w.step.replay()
-        return w.step.out.cpu().numpy()
+        dev = self._upload(engine, tokens, n_new)
+        nxt = self._run(engine, engine._shape_key(t), lambda: engine._step_body(
+            engine.caches, dev, t, engine.draft_caches))
+        return nxt.cpu().numpy()
+
+    def round(self, engine: "ServingEngine", pend: np.ndarray,
+              n_one: np.ndarray) -> np.ndarray:
+        self.check_read(engine)
+        k = engine.spec_k
+        dev = self._upload(engine, pend, n_one)
+        drafts = self._run(engine, ("draft", k),
+                           lambda: engine._draft_body(engine.draft_caches, dev))
+        held = self._graphs[("draft", k)].out     # where the verify graph reads them
+        if drafts is not held:                    # the draft graph's warm-up round
+            held.copy_(drafts)
+        out = self._run(engine, ("verify", k + 1),
+                        lambda: engine._verify_body(engine.caches, dev, held))
+        return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -1136,7 +1394,7 @@ def _tree_bytes(tree) -> int:
 
 def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
                  target_centroids: int = 8, ecfg: Optional[EngineConfig] = None,
-                 seed: int = 0, params=None, kv_smooth=None,
+                 seed: int = 0, params=None, draft_params=None, kv_smooth=None,
                  fused_projections: bool = True, n_layers: Optional[int] = None,
                  device="cuda"):
     """(engine, params): model + params wrapped in a ready ServingEngine on
@@ -1149,9 +1407,13 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
     policy) and the report lands on the engine as `compress_report` (None
     when nothing was compressed). Clustered params without a compression run
     come from `core/clustered_params.py materialize_clustered`. With
-    `ecfg.kv_dtype == "int8"` and no `kv_smooth`, the cache smoothing vectors
-    are calibrated here (`calibrate_kv_smooth`). `n_layers` cuts the model's
-    depth (widths stay)."""
+    `ecfg.speculative_k > 0` and no `draft_params`, the 2-bit self-draft is
+    built here by re-clustering the target's weights on their device
+    (`make_draft_params`, at `ecfg.draft_centroids`; its report lands on the
+    engine as `draft_report`). With `ecfg.kv_dtype == "int8"` and no
+    `kv_smooth`, the cache smoothing vectors are calibrated here
+    (`calibrate_kv_smooth`). `n_layers` cuts the model's depth (widths
+    stay)."""
     dev = resolve_device(device)
     ecfg = EngineConfig() if ecfg is None else ecfg
     if ecfg.arch is None:
@@ -1164,6 +1426,11 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
         fused_projections=fused_projections, lcd=lcd,
         target_centroids=target_centroids, weight_bits=ecfg.weight_bits,
         bits_budget=ecfg.bits_budget, seed=seed, params=params, dev=dev)
+    draft_report = None
+    if ecfg.speculative_k and draft_params is None:
+        draft_params, draft_report = make_draft_params(
+            params, draft_centroids=ecfg.draft_centroids)
+        logger.info("LCD draft: " + draft_report.summary())
     resolved_kv = ecfg.kv_dtype or (
         "int8" if model.cfg.kv_cache_dtype == "int8" else "float")
     if (resolved_kv == "int8" and kv_smooth is None
@@ -1171,6 +1438,8 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
         kv_smooth = calibrate_kv_smooth(model, params, seed=seed)
         logger.info("int8 KV cache: smoothing calibrated "
                     "(Eq. 9 candidate search per layer x kv-head)")
-    engine = ServingEngine(model, params, ecfg, kv_smooth=kv_smooth, device=dev)
+    engine = ServingEngine(model, params, ecfg, draft_params=draft_params,
+                           kv_smooth=kv_smooth, device=dev)
     engine.compress_report = report
+    engine.draft_report = draft_report
     return engine, params

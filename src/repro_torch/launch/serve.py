@@ -10,6 +10,12 @@ Continuous batching (staggered requests, paged KV cache):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
         --continuous --requests 6 --tokens 16
 
+Self-speculative decoding (the model's own 2-bit clustering drafts K tokens
+per verify round; the tokens equal plain greedy decoding's):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
+        --continuous --speculative 3 --requests 6 --tokens 16
+
 `--lcd` compresses the dense weights drawn from `--seed` with the LCD pipeline
 (`compress_model`) before serving: `--bits` packs every layer at one width,
 `--bits-budget` mixes widths per layer under a global mean, `--describe`
@@ -44,13 +50,19 @@ __all__ = ["BlockAllocator", "EngineConfig", "Request", "ServingEngine",
 
 def _describe(engine) -> None:
     """Deployment inventory: per-layer packing width and centroid count of the
-    compressed weights, their packed bytes, and the KV pool dtype."""
+    compressed target (and of the speculative draft), their packed bytes,
+    and the KV pool dtype."""
     from repro_torch.core.clustered_params import packed_weight_bytes
     if engine.compress_report is None:
         logger.info("describe: params are not LCD-compressed (run with --lcd)")
     else:
         logger.info("target bits assignment:\n" + engine.compress_report.bits_table())
         logger.info(f"target packed weight bytes: {packed_weight_bytes(engine.params)}")
+    if engine.draft_report is not None:
+        logger.info("draft bits assignment:\n" + engine.draft_report.bits_table())
+        logger.info(f"draft packed weight bytes: "
+                    f"{packed_weight_bytes(engine.draft_params)} (int4 layout "
+                    f"would be {packed_weight_bytes(engine.draft_params, nbits=4)})")
     logger.info(f"kv_dtype: {engine.kv_dtype}")
 
 
@@ -68,6 +80,8 @@ def _run_continuous(args, device) -> list:
                         num_blocks=args.blocks,
                         max_blocks_per_slot=args.blocks_per_slot,
                         prefill_chunk=args.prefill_chunk,
+                        speculative_k=args.speculative,
+                        draft_centroids=args.draft_centroids,
                         kv_dtype=args.kv_dtype, weight_bits=args.bits,
                         bits_budget=args.bits_budget, arch=args.arch)
     engine, _ = build_engine(args.arch, use_reduced=args.reduced, lcd=args.lcd,
@@ -108,6 +122,8 @@ def _run_continuous(args, device) -> list:
                 f"{n_tok} tokens in {engine.steps} steps, {dt:.2f}s "
                 f"({n_tok / max(dt, 1e-9):.1f} tok/s), step widths "
                 f"{engine.traces}")
+    if args.speculative:
+        logger.info(f"speculative: {engine.acceptance_summary()}")
     return finished
 
 
@@ -137,6 +153,12 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
     ap.add_argument("--blocks", type=int, default=48)
     ap.add_argument("--blocks-per-slot", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="draft K tokens per verify round through the "
+                         "model's own 2-bit clustering (continuous mode "
+                         "only; 0 = off)")
+    ap.add_argument("--draft-centroids", type=int, default=4,
+                    help="centroid count of the self-draft (4 = 2-bit)")
     ap.add_argument("--kv-dtype", choices=("float", "int8"), default=None,
                     help="paged KV block-pool dtype: int8 stores smoothed "
                          "codes + per-(block-slot, kv-head) scales, the "
@@ -162,6 +184,8 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
     ap.add_argument("--device", default=device or "cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.speculative and not args.continuous:
+        ap.error("--speculative requires --continuous")
     if args.kv_dtype and not args.continuous:
         ap.error("--kv-dtype applies to the paged engine; add --continuous")
     if args.describe and not args.continuous:

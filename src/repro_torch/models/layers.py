@@ -67,10 +67,29 @@ def linear_group(x: torch.Tensor, ws, bs, cfg: ModelConfig) -> Tuple[torch.Tenso
                  for y, b in zip(ys, bs))
 
 
+# PyTorch's CUDA reduction picks its thread-block shape from the number of rows
+# it reduces until there are 16 of them (torch 2.11 on an H100: 64 x 8 threads
+# a block at 8 rows, 32 x 16 from 16 rows on), and each shape sums a row in
+# another order: a row's f32 mean has other bits at 8 rows than at 32 or 256.
+# A token is normed at S rows in a decode step but at S * T in a mixed step or
+# a speculative verify, and the same token must get the same bits in each, so
+# the norm's statistic is always taken over at least 16 rows.
+_MIN_STAT_ROWS = 16
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    nrm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (nrm * (1.0 + scale.to(torch.float32))).to(x.dtype)
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in f32, back in x's dtype.
+    Fewer than 16 rows are reduced as copies repeated up to 16 (the copies
+    come out of the f32 conversion, no extra kernel), so a row's bits do not
+    depend on how many rows are normed together."""
+    d = x.shape[-1]
+    rows = x.reshape(-1, d)
+    r = rows.shape[0]
+    reps = -(-_MIN_STAT_ROWS // r) if 0 < r < _MIN_STAT_ROWS else 1
+    xf = rows.expand(reps, r, d).to(torch.float32)
+    ms = (xf * xf).reshape(-1, d).mean(dim=-1)[:r, None]
+    nrm = xf[0] * torch.rsqrt(ms + eps)
+    return (nrm * (1.0 + scale.to(torch.float32))).to(x.dtype).view(x.shape)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

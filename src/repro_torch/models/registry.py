@@ -4,6 +4,8 @@
     params = model.init(generator, device)      # real tensors
     logits, caches = model.serving_step(params, caches, tokens, lengths,
                                         n_new, block_tables)
+    logits, caches = model.serving_verify(params, caches, tokens, lengths,
+                                          n_new, block_tables)   # every position
     cache = model.init_cache(batch, max_seq, device)          # static path
     logits, cache = model.decode(params, cache, {"tokens": t, "pos": cache["pos"]})
 
@@ -72,6 +74,7 @@ class Model:
     capabilities: frozenset = frozenset()
     _init_paged_cache: Optional[Callable] = None
     _serving_step: Optional[Callable] = None
+    _serving_verify: Optional[Callable] = None
     _decode: Optional[Callable] = None
     _init_cache: Optional[Callable] = None
 
@@ -108,10 +111,24 @@ class Model:
         return self._serving_step(params, caches, tokens, lengths, n_new,
                                   block_tables, self.cfg)
 
+    def serving_verify(self, params, caches: Dict[str, Any], tokens, lengths,
+                       n_new, block_tables):
+        """Logits at every window position (the speculative verify; paged
+        families only): ((S, T, padded_vocab), updated caches)."""
+        return self._serving_verify(params, caches, tokens, lengths, n_new,
+                                    block_tables, self.cfg)
+
 
 def _dense_serving_step(params, caches, tokens, lengths, n_new, block_tables,
                         cfg):
     logits, pool = transformer.paged_decode_step(
+        params, caches["paged"], tokens, lengths, n_new, block_tables, cfg)
+    return logits, {"paged": pool}
+
+
+def _dense_serving_verify(params, caches, tokens, lengths, n_new, block_tables,
+                          cfg):
+    logits, pool = transformer.paged_verify_step(
         params, caches["paged"], tokens, lengths, n_new, block_tables, cfg)
     return logits, {"paged": pool}
 
@@ -131,5 +148,6 @@ def get_model(cfg: Union[ModelConfig, str]) -> Model:
             f"yet; ported families: {', '.join(PORTED_FAMILIES)}")
     return Model(cfg, transformer.param_table(cfg), capabilities=caps,
                  _init_paged_cache=transformer.init_paged_cache,
-                 _serving_step=_dense_serving_step, _decode=_dense_decode,
+                 _serving_step=_dense_serving_step,
+                 _serving_verify=_dense_serving_verify, _decode=_dense_decode,
                  _init_cache=transformer.init_cache)

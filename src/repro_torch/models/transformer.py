@@ -282,3 +282,35 @@ def paged_decode_step(
     last_idx = torch.clamp(n_new - 1, min=0).long()
     last = x[torch.arange(x.shape[0], device=x.device), last_idx]      # (S, d)
     return lm_head_logits(params, last, cfg), cache
+
+
+@torch.no_grad()
+def paged_verify_step(
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,             # (S_slots, T) int32 — T = speculative_k + 1
+    lengths: torch.Tensor,            # (S_slots,) int32
+    n_new: torch.Tensor,              # (S_slots,) int32
+    block_tables: torch.Tensor,       # (S_slots, max_blocks) int32
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Multi-token verification step for speculative decoding.
+
+    The trunk of `paged_decode_step` — the same writes through the block
+    tables, the same masks — with the vocab head applied at EVERY window
+    position, so one step yields the target's next-token choice after each
+    of the k+1 fed tokens (the pending token and k drafts). The engine
+    accepts the longest matching draft prefix and rolls the rest back by not
+    advancing `lengths` past it: entries beyond `lengths` are unobservable
+    (reads are masked by `lengths + n_new`, writes land at `lengths + t`), so
+    stale K/V of rejected tokens is overwritten by the next round.
+
+    Greedy speculative output equals plain greedy output only if a
+    position's logits are the bits a width-1 step computes for it: every op
+    here gives a row the same bits at S (k+1) rows as at S (the LUT kernels'
+    row contract, B5's per-row key order, `layers.rmsnorm`'s statistic, the
+    head's one product; `chip_smoke.py` checks them on the card). Returns
+    ((S, T, padded_vocab) logits, `cache`, whose pools were updated in
+    place)."""
+    x = _paged_trunk(params, cache, tokens, lengths, n_new, block_tables, cfg)
+    return lm_head_logits(params, x, cfg), cache

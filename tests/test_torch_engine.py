@@ -135,7 +135,7 @@ def test_engine_config_fields_and_defaults_match_reference():
 
 
 UNPORTED = [
-    (dict(speculative_k=2), "speculative_k"), (dict(prefix_cache=True), "prefix_cache"),
+    (dict(prefix_cache=True), "prefix_cache"),
     (dict(scheduler="priority"), "scheduler"), (dict(chunked_prefill=True), "chunked_prefill"),
     (dict(data_parallel=2), "data_parallel"), (dict(model_parallel=4), "model_parallel"),
 ]
@@ -160,8 +160,6 @@ def test_other_unported_surface():
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         port_engine.ServingEngine(model, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="draft_params"):
-        port_engine.ServingEngine(model, params, draft_params={}, device="cpu")
     with pytest.raises(NotImplementedError, match="'moe'"):
         get_model(dataclasses.replace(model.cfg, family="moe"))
     with pytest.raises(ValueError, match="unknown model family"):

@@ -245,10 +245,10 @@ def test_replacing_what_a_captured_graph_reads_raises(replace):
 
 
 def test_a_width_record_cannot_be_reassigned():
-    rec = port_engine._WidthGraph(torch.zeros(3, dtype=torch.int32),
-                                  torch.zeros(3, dtype=torch.int32),
-                                  port_engine._CapturedStep(_FakeGraph(), None, {}, 0.0))
+    rec = port_engine._Upload(torch.zeros(3, dtype=torch.int32),
+                              torch.zeros(3, dtype=torch.int32))
+    step = port_engine._CapturedStep(_FakeGraph(), None, {}, 0.0)
     with pytest.raises(dataclasses.FrozenInstanceError):
         rec.dev = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(dataclasses.FrozenInstanceError):
-        rec.step.launches = {}
+        step.launches = {}
