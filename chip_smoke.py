@@ -5,7 +5,8 @@
 
 Builds the ten hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card at the shapes
-llama2-7b and qwen2-1.5b give it (every projection of a multi-projection
+llama2-7b and qwen2-1.5b give it, and the serving ones (B1-B5) at the shapes
+of gemma2-27b, starcoder2-15b, stablelm-12b and paligemma-3b (every projection of a multi-projection
 launch bit for bit against its solo launch, the §4 layer's int8 LUT GEMM bit
 for bit against the fused serving GEMM, the dequantizing attention over a
 gathered int8 view bit for bit against the pool-direct one, a query row's
@@ -26,6 +27,10 @@ of the KV pools (`graph` lines); serves speculatively (`serve_spec`: the
 2-bit self-draft made on the card, k = 3, a 4-layer full-width llama2-7b)
 with the same tokens as the plain engine, the verify's rows bit for bit
 those of width-1 steps and the identical draft accepting every round;
+serves the rest of the transformer family at full width (`serve_family`:
+gemma2-27b at its 46 layers, paligemma-3b at its 18, starcoder2-15b and
+stablelm-12b cut to 4) and each of the four speculatively at 2 layers
+(`serve_spec_family`);
 compresses a 2-layer full-width llama2-7b
 with the LCD pipeline on the card (twice: the same bytes; under a bits
 budget; then inside `build_engine`, whose engine serves requests that
@@ -235,66 +240,69 @@ def _lut_bound_ms(m, k, n, nbits, dtype):
             _f32_core_ms(m, k, n))
 
 
-def check_lut_kernels(gen):
+def _lut_check(gen, m, k, n, nbits, dtype, quantize):
+    """One B1 (M < 128) or B2 launch against its plain version, and a row's
+    bits against the other body's (below 128 rows the GEMM on the same
+    rows, from 128 rows on the GEMV on the first and the last 8 rows);
+    fails the run on a miss. Returns (case, kernel)."""
     from repro_torch.core.lut import padded_d_in, unpack_codes
     from repro_torch.kernels.lut_matmul import (lut_matmul_fused,
                                                 lut_matmul_fused_gemv)
     from repro_torch.kernels.ref import lut_matmul_fused_ref
+    kp = padded_d_in(k, nbits)
+    x, smooth, packed, cb = _lut_operands(gen, m, kp, n, nbits, dtype, 2)
+    s_q = 0.04
+    inv = (1.0 / (smooth * s_q)) if quantize else (1.0 / smooth)
+    l = 1
+    name = "lut_matmul_fused_gemv" if m < 128 else "lut_matmul_fused"
+    kern = lut_matmul_fused_gemv if m < 128 else lut_matmul_fused
+    y = kern(x, inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)
+    ref = lut_matmul_fused_ref(x, inv[l], packed[l], cb[l], 1.0,
+                               quantize=quantize, nbits=nbits)
+    torch.cuda.synchronize()
+    # |y - ref| <= 1e-5 * max_m ||T(x)_m|| * max_n ||w_n||  (f32 sums
+    # of K terms taken in another order)
+    xt = x.float() * inv[l]
+    if quantize:
+        xt = torch.clamp(torch.round(xt), -127, 127)
+    w = cb[l][unpack_codes(packed[l], kp, nbits).long()]
+    tol = 1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max())
+    err = float((y - ref).abs().max())
+    ok = bool(torch.isfinite(y).all()) and err <= tol
+    same = rows_same = True
+    if m < 128:
+        y2 = lut_matmul_fused(x, inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)
+        same = bool(torch.equal(y, y2))
+    else:
+        rows_same = all(bool(torch.equal(y[sl], lut_matmul_fused_gemv(
+            x[sl], inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)))
+            for sl in (slice(0, 8), slice(m - 8, m)))
+    case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits,
+                dtype=str(dtype).split(".")[-1], quantize=quantize,
+                max_abs_err=err, tol=tol, gemv_equals_gemm_bits=same,
+                first_last_8_rows_equal_gemv_bits=rows_same)
+    if not (ok and same and rows_same):
+        emit("kernels", failed=case)
+        raise SystemExit(f"LUT kernel disagrees with its plain version: {case}")
+    return case, kern
 
-    cases, worst = [], {"lut_matmul_fused_gemv": 0.0, "lut_matmul_fused": 0.0}
-    headline = {}
+
+def check_lut_kernels(gen):
+    cases, worst, headline = [], {"lut_matmul_fused_gemv": 0.0, "lut_matmul_fused": 0.0}, {}
     shapes = [(m, k, n) for (k, n) in LLAMA_KN for m in (4, 8, 32, 256)]
     shapes += [(5, 130, 37), (130, 130, 37)]          # ragged edges, K group padding
     for (m, k, n) in shapes:
         full = k >= 4096
         for nbits in (4, 3, 2):
-            kp = padded_d_in(k, nbits)
             for dtype in (torch.bfloat16, torch.float32):
                 for quantize in (True, False):
                     main = nbits == 4 and dtype == torch.bfloat16 and quantize
                     # the speculative draft's projections: 2-bit, float transform
                     draft = (nbits == 2 and dtype == torch.bfloat16 and not quantize
                              and m == 8)
-                    layers = 2
-                    x, smooth, packed, cb = _lut_operands(gen, m, kp, n, nbits, dtype, layers)
-                    s_q = 0.04
-                    inv = (1.0 / (smooth * s_q)) if quantize else (1.0 / smooth)
-                    l = 1
-                    name = "lut_matmul_fused_gemv" if m < 128 else "lut_matmul_fused"
-                    kern = lut_matmul_fused_gemv if m < 128 else lut_matmul_fused
-                    y = kern(x, inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)
-                    ref = lut_matmul_fused_ref(x, inv[l], packed[l], cb[l], 1.0,
-                                               quantize=quantize, nbits=nbits)
-                    torch.cuda.synchronize()
-                    # |y - ref| <= 1e-5 * max_m ||T(x)_m|| * max_n ||w_n||  (f32 sums
-                    # of K terms taken in another order)
-                    xt = x.float() * inv[l]
-                    if quantize:
-                        xt = torch.clamp(torch.round(xt), -127, 127)
-                    w = cb[l][unpack_codes(packed[l], kp, nbits).long()]
-                    tol = 1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max())
-                    err = float((y - ref).abs().max())
-                    ok = bool(torch.isfinite(y).all()) and err <= tol
-                    # a row's bits must not depend on which kernel served it:
-                    # below 128 rows the GEMM on the same rows; from 128 rows on
-                    # the GEMV on the first and the last 8 rows
-                    same = rows_same = True
-                    if m < 128:
-                        y2 = lut_matmul_fused(x, inv[l], packed[l], cb[l],
-                                              quantize=quantize, nbits=nbits)
-                        same = bool(torch.equal(y, y2))
-                    else:
-                        rows_same = all(bool(torch.equal(y[sl], lut_matmul_fused_gemv(
-                            x[sl], inv[l], packed[l], cb[l], quantize=quantize, nbits=nbits)))
-                            for sl in (slice(0, 8), slice(m - 8, m)))
-                    case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits,
-                                dtype=str(dtype).split(".")[-1], quantize=quantize,
-                                max_abs_err=err, tol=tol, gemv_equals_gemm_bits=same,
-                                first_last_8_rows_equal_gemv_bits=rows_same)
-                    if not (ok and same and rows_same):
-                        emit("kernels", failed=case)
-                        raise SystemExit(f"LUT kernel disagrees with its plain version: {case}")
-                    worst[name] = max(worst[name], err)
+                    case, kern = _lut_check(gen, m, k, n, nbits, dtype, quantize)
+                    name = case["kernel"]
+                    worst[name] = max(worst[name], case["max_abs_err"])
                     if full and (main or draft):
                         case.update(_time_lut(gen, kern, m, k, n, nbits, dtype, quantize))
                         if (k, n) == (4096, 4096) and main and m in (8, 256):
@@ -368,16 +376,66 @@ def _multi_bound_ms(m, k, widths, nbits, dtype):
             _f32_core_ms(m, k, n))
 
 
-def check_multi_kernels(gen):
-    """B3 / B4 against their plain version, and every projection's segment
-    against its solo B1 / B2 launch on the same operands: bits equal, also
-    after the ops wrapper's s_q rescale and the cast to x's dtype."""
+def _multi_check(gen, group, m, k, widths, nbits, quantize, dtype):
+    """One B3 (M < 128) or B4 launch against its plain version, every
+    projection's segment against its solo B1 / B2 launch on the same
+    operands (bits equal, also after the ops wrapper's s_q rescale and the
+    cast to x's dtype), and from 128 rows on the first and the last 8 rows
+    against the multi GEMV; fails the run on a miss. Returns (case, multi
+    kernel, solo kernel)."""
     from repro_torch.core.lut import unpack_codes
     from repro_torch.kernels.lut_matmul import (lut_matmul_fused, lut_matmul_fused_gemv,
                                                 lut_matmul_fused_multi,
                                                 lut_matmul_fused_multi_gemv)
     from repro_torch.kernels.ops import lut_gemm_fused, lut_gemm_fused_multi
     from repro_torch.kernels.ref import lut_matmul_fused_multi_ref
+    gemv = m < 128
+    name = "lut_matmul_fused_multi_gemv" if gemv else "lut_matmul_fused_multi"
+    multi = lut_matmul_fused_multi_gemv if gemv else lut_matmul_fused_multi
+    solo = lut_matmul_fused_gemv if gemv else lut_matmul_fused
+    x, inv, packed, cb = _multi_operands(gen, m, k, widths, nbits, quantize, dtype, 1)
+    pk = [t[0] for t in packed]
+    y = multi(x, inv[0], cb[0], *pk, quantize=quantize, nbits=nbits)
+    segs = y.split(list(widths), dim=1)
+    ref = lut_matmul_fused_multi_ref(x, list(inv[0]), pk, list(cb[0]), [1.0] * len(widths),
+                                     quantize=quantize, nbits=nbits)
+    acts = [0.04 if q else 1.0 for q in quantize]
+    wrapped = lut_gemm_fused_multi(x, inv[0], cb[0], acts, *pk, quantize=quantize,
+                                   nbits=nbits)
+    same, errs, tols = True, [], []
+    rows_same = gemv or all(bool(torch.equal(y[sl], lut_matmul_fused_multi_gemv(
+        x[sl], inv[0], cb[0], *pk, quantize=quantize, nbits=nbits)))
+        for sl in (slice(0, 8), slice(m - 8, m)))
+    for i, (seg, r) in enumerate(zip(segs, ref)):
+        same &= bool(torch.equal(seg, solo(x, inv[0, i], pk[i], cb[0, i],
+                                           quantize=quantize[i], nbits=nbits[i])))
+        alone = lut_gemm_fused(x, inv[0, i], pk[i], cb[0, i], acts[i],
+                               quantize=quantize[i], nbits=nbits[i])
+        same &= bool(torch.equal(wrapped[i].to(dtype), alone.to(dtype)))
+        # |y - ref| <= 1e-5 * max_m ||T(x)_m|| * max_n ||w_n||, per projection
+        # (f32 sums of K terms taken in another order)
+        xt = x.float() * inv[0, i]
+        if quantize[i]:
+            xt = torch.clamp(torch.round(xt), -127, 127)
+        w = cb[0, i][unpack_codes(pk[i], k, nbits[i]).long()]
+        tols.append(1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max()))
+        errs.append(float((seg - r).abs().max()))
+    torch.cuda.synchronize()
+    case = dict(kernel=name, group=group, m=m, k=k, widths=list(widths), nbits=list(nbits),
+                quantize=list(quantize), dtype=str(dtype).split(".")[-1],
+                max_abs_err=max(errs), tol=min(tols), segments_equal_solo_bits=same,
+                first_last_8_rows_equal_gemv_bits=rows_same)
+    if not (same and rows_same and bool(torch.isfinite(y).all())
+            and all(e <= t for e, t in zip(errs, tols))):
+        emit("kernels", failed=case)
+        raise SystemExit(f"multi-projection kernel disagrees: {case}")
+    return case, multi, solo
+
+
+def check_multi_kernels(gen):
+    """B3 / B4 at the projection groups of MULTI_GROUPS (`_multi_check`), and
+    a ragged K beside mixed widths through the ops wrapper."""
+    from repro_torch.kernels.ops import lut_gemm_fused, lut_gemm_fused_multi
 
     names = ("lut_matmul_fused_multi_gemv", "lut_matmul_fused_multi")
     cases, worst, headline = [], {n: 0.0 for n in names}, {}
@@ -396,49 +454,9 @@ def check_multi_kernels(gen):
                      (group, m, (4,) * p, (True, False, True)[:p], torch.float32)]
     for group, m, nbits, quantize, dtype in plan:
         k, widths = MULTI_GROUPS[group]
-        gemv = m < 128
-        name = names[0] if gemv else names[1]
-        multi = lut_matmul_fused_multi_gemv if gemv else lut_matmul_fused_multi
-        solo = lut_matmul_fused_gemv if gemv else lut_matmul_fused
-        x, inv, packed, cb = _multi_operands(gen, m, k, widths, nbits, quantize, dtype, 1)
-        pk = [t[0] for t in packed]
-        y = multi(x, inv[0], cb[0], *pk, quantize=quantize, nbits=nbits)
-        segs = y.split(list(widths), dim=1)
-        ref = lut_matmul_fused_multi_ref(x, list(inv[0]), pk, list(cb[0]), [1.0] * len(widths),
-                                         quantize=quantize, nbits=nbits)
-        acts = [0.04 if q else 1.0 for q in quantize]
-        wrapped = lut_gemm_fused_multi(x, inv[0], cb[0], acts, *pk, quantize=quantize,
-                                       nbits=nbits)
-        same, errs, tols = True, [], []
-        # from 128 rows on, the first and the last 8 rows are the multi GEMV's bits
-        rows_same = gemv or all(bool(torch.equal(y[sl], lut_matmul_fused_multi_gemv(
-            x[sl], inv[0], cb[0], *pk, quantize=quantize, nbits=nbits)))
-            for sl in (slice(0, 8), slice(m - 8, m)))
-        for i, (seg, r) in enumerate(zip(segs, ref)):
-            same &= bool(torch.equal(seg, solo(x, inv[0, i], pk[i], cb[0, i],
-                                               quantize=quantize[i], nbits=nbits[i])))
-            alone = lut_gemm_fused(x, inv[0, i], pk[i], cb[0, i], acts[i],
-                                   quantize=quantize[i], nbits=nbits[i])
-            same &= bool(torch.equal(wrapped[i].to(dtype), alone.to(dtype)))
-            # |y - ref| <= 1e-5 * max_m ||T(x)_m|| * max_n ||w_n||, per projection
-            # (f32 sums of K terms taken in another order)
-            xt = x.float() * inv[0, i]
-            if quantize[i]:
-                xt = torch.clamp(torch.round(xt), -127, 127)
-            w = cb[0, i][unpack_codes(pk[i], k, nbits[i]).long()]
-            tols.append(1e-5 * float(xt.norm(dim=1).max() * w.norm(dim=0).max()))
-            errs.append(float((seg - r).abs().max()))
-        torch.cuda.synchronize()
-        err = max(errs)
-        case = dict(kernel=name, group=group, m=m, k=k, widths=list(widths), nbits=list(nbits),
-                    quantize=list(quantize), dtype=str(dtype).split(".")[-1],
-                    max_abs_err=err, tol=min(tols), segments_equal_solo_bits=same,
-                    first_last_8_rows_equal_gemv_bits=rows_same)
-        if not (same and rows_same and bool(torch.isfinite(y).all())
-                and all(e <= t for e, t in zip(errs, tols))):
-            emit("kernels", failed=case)
-            raise SystemExit(f"multi-projection kernel disagrees: {case}")
-        worst[name] = max(worst[name], err)
+        case, multi, solo = _multi_check(gen, group, m, k, widths, nbits, quantize, dtype)
+        name = case["kernel"]
+        worst[name] = max(worst[name], case["max_abs_err"])
         llama = group.startswith("llama2-7b")
         timed = m in (8, 256) or (m in (4, 32) and llama)
         main = dtype == torch.bfloat16 and nbits == (4,) * len(widths) and all(quantize)
@@ -573,10 +591,14 @@ def _time_multi(gen, multi, solo, m, k, widths, nbits, quantize, dtype):
 
 
 def _attn_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths=None, n_new=None,
-               d=128):
+               d=128, nbw=32):
+    """B5's operands at the `serve` engine's geometry (8 slots, 16-token
+    blocks, `nbw` table entries a slot, at least 256 blocks), and the bound
+    of the work this data needs."""
     from repro_torch.models.layers import quantize_kv
     dev = gen.device
-    s, bs, nb, nbw = 8, 16, 256, 32
+    s, bs = 8, 16
+    nb = max(256, s * nbw)
     # ragged: a long slot, short ones, one idle slot, one chunk with n_new < T
     if lengths is None:
         lengths = torch.tensor([200, 37, 0, 95, 16, 0, 130, 63], dtype=torch.int32)
@@ -690,10 +712,11 @@ def _attn_verify_rows_match_t1(gen):
     return held
 
 
-def _row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths, n_new):
+def _row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths, n_new, d=128,
+                   nbw=32):
     from repro_torch.kernels.paged_attention import paged_pool_attention
     args, kw, _ = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap,
-                             lengths=lengths, n_new=n_new)
+                             lengths=lengths, n_new=n_new, d=d, nbw=nbw)
     q, kp, vp, tables, lens, nn, win = args
     wide = paged_pool_attention(*args, **kw)
     one = paged_pool_attention(q[:, :1].contiguous(), kp, vp, tables, lens,
@@ -701,7 +724,7 @@ def _row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths, n_new)
     torch.cuda.synchronize()
     live = [i for i, n in enumerate(n_new.tolist()) if n > 0]
     decoding = [i for i, n in enumerate(n_new.tolist()) if n == 1]
-    case = dict(t=t, h=h, kv=kv, pool=pool, q=str(qdtype).split(".")[-1],
+    case = dict(t=t, h=h, kv=kv, d=d, pool=pool, q=str(qdtype).split(".")[-1],
                 window=window, softcap=softcap, decoding_slots=decoding,
                 row0_equal=all(torch.equal(wide[i, 0], one[i, 0]) for i in live))
     if not case["row0_equal"]:
@@ -710,11 +733,13 @@ def _row_bits_case(gen, t, h, kv, qdtype, pool, window, softcap, lengths, n_new)
     return case
 
 
-def _attn_vs_plain(gen, t, h, kv, qdtype, pool, window, softcap, d=128):
+def _attn_vs_plain(gen, t, h, kv, qdtype, pool, window, softcap, d=128, lengths=None,
+                   n_new=None, nbw=32):
     """One B5 case against its plain version; fails the run on a miss."""
     from repro_torch.kernels.paged_attention import paged_pool_attention
     from repro_torch.kernels.ref import paged_pool_attention_ref
-    args, kw, bound = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap, d=d)
+    args, kw, bound = _attn_case(gen, t, h, kv, qdtype, pool, window, softcap,
+                                 lengths=lengths, n_new=n_new, d=d, nbw=nbw)
     out = paged_pool_attention(*args, **kw)
     ref = paged_pool_attention_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -798,6 +823,94 @@ def _time_attn(case, args, kw, bound):
     case["ms"] = time_ms(lambda i: paged_pool_attention(*args, **kw), 50)
     case["plain_ms"] = time_ms(lambda i: paged_pool_attention_ref(*args, **kw), 5, warmup=1)
     case.update(bound)
+
+
+# the rest of the transformer family: each arch's projections at M = 8 (B1,
+# B3), gemma2-27b's, the widest, at M = 256 (B2, B4), and each arch's
+# attention (B5) at T = 1 and 32
+FAMILY = ("gemma2-27b", "starcoder2-15b", "stablelm-12b", "paligemma-3b")
+# slots past gemma2-27b's 4096-token window, one just inside it, short and idle ones
+WINDOW_LENGTHS = torch.tensor([4400, 37, 0, 4090, 16, 0, 130, 4500], dtype=torch.int32)
+
+
+def _family_shapes(arch):
+    """(solo launches {projection: (K, N)}, multi launches {group: (K,
+    widths)}) of an arch's layer: QKV is one multi launch, and gate+up where
+    the MLP has a gate; wo, w_down and the gelu MLP's w_up are solo."""
+    from repro_torch.models.config import get_config
+    cfg = get_config(arch)
+    d, q, kv, f = cfg.d_model, cfg.q_dim_eff, cfg.kv_dim, cfg.d_ff
+    solo, groups = {"wo": (q, d), "w_down": (f, d)}, {"qkv": (d, (q, kv, kv))}
+    if cfg.mlp == "swiglu":
+        groups["gate_up"] = (d, (f, f))
+    else:
+        solo["w_up"] = (d, f)
+    return solo, groups
+
+
+def check_family_kernels(gen):
+    """B1-B5 at the shapes and options the rest of the family gives them,
+    4-bit codes, bf16 activations, quantized transform, bf16 pool: each case
+    against its plain version (the tolerances of `_lut_check`,
+    `_multi_check`, `_attn_vs_plain`, stated per case), timed by CUDA-graph
+    replay with the weights cold. B5 at each arch's heads and D (stablelm
+    D 160, paligemma 16 query heads over one kv head at D 256, starcoder2 48
+    over 4, gemma2 32 over 16 with its softcap of 50 and window of 4096 over
+    slots holding up to 4500 tokens, where the same launch without the window
+    must differ on every slot past it), and a row's bits at T = 32 against
+    T = 1 for each. Returns (cases, worst error per kernel)."""
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    from repro_torch.models.config import get_config
+    bf16, cases, worst = torch.bfloat16, [], {}
+
+    def keep(case):
+        worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), case["max_abs_err"])
+        cases.append(case)
+
+    for arch in FAMILY:
+        solo, groups = _family_shapes(arch)
+        for m in ((8, 256) if arch == "gemma2-27b" else (8,)):
+            for proj, (k, n) in solo.items():
+                case, kern = _lut_check(gen, m, k, n, 4, bf16, True)
+                case.update(arch=arch, group=proj,
+                            **_time_lut(gen, kern, m, k, n, 4, bf16, True))
+                keep(case)
+            for group, (k, widths) in groups.items():
+                bits, quant = (4,) * len(widths), (True,) * len(widths)
+                case, multi, one = _multi_check(gen, f"{arch} {group}", m, k, widths, bits,
+                                                quant, bf16)
+                case.update(arch=arch, **_time_multi(gen, multi, one, m, k, widths, bits,
+                                                     quant, bf16))
+                keep(case)
+        cfg = get_config(arch)
+        h, kv, d = cfg.n_heads_eff, cfg.n_kv_heads, cfg.hd
+        window, softcap = cfg.local_window, cfg.attn_softcap
+        lengths, nbw = (WINDOW_LENGTHS, 320) if window else (None, 32)
+        for t in (1, 32):
+            n_new = None if lengths is None else torch.tensor(
+                [t, t, 0, max(t // 2, 1), t, t, 1, t], dtype=torch.int32)
+            case, args, kw, bound = _attn_vs_plain(gen, t, h, kv, bf16, "bf16", window,
+                                                   softcap, d=d, lengths=lengths,
+                                                   n_new=n_new, nbw=nbw)
+            case["arch"] = arch
+            if window:
+                out = paged_pool_attention(*args, **kw)
+                unwindowed = paged_pool_attention(*args[:-1], 0, **kw)
+                past = [i for i, (a, b) in enumerate(zip(lengths.tolist(), n_new.tolist()))
+                        if b and a + b > window]
+                case["window_cuts_slots"] = past
+                if not past or any(torch.equal(out[i], unwindowed[i]) for i in past):
+                    emit("kernels", failed=case)
+                    raise SystemExit(f"paged_pool_attention: the window cut nothing: {case}")
+            _time_attn(case, args, kw, bound)
+            keep(case)
+        rows_lengths = (WINDOW_LENGTHS if window else
+                        torch.tensor([200, 37, 0, 95, 16, 480, 130, 63], dtype=torch.int32))
+        rows_n_new = torch.tensor([1, 32, 0, 1, 32, 1, 1, 17], dtype=torch.int32)
+        case = _row_bits_case(gen, 32, h, kv, bf16, "bf16", window, softcap, rows_lengths,
+                              rows_n_new, d=d, nbw=nbw)
+        cases.append(dict(kernel="paged_pool_attention", arch=arch, **case))
+    return cases, worst
 
 
 # the §4 layer's kernels: B6 (float activations), B7 (int8 codes), B10
@@ -1317,6 +1430,11 @@ def phase_kernels(seed: int):
     plain_cases, plain_worst, plain_head = check_plain_kernels(gen)
     dq_cases, dq_worst = check_dequant_attention(gen)
     fa_cases, fa_worst = check_flash_attention(gen)
+    fam_cases, fam_worst = check_family_kernels(gen)
+    for worsts in (lut_worst, multi_worst):
+        for name in worsts:
+            worsts[name] = max(worsts[name], fam_worst.get(name, 0.0))
+    att_worst = max(att_worst, fam_worst.get("paged_pool_attention", 0.0))
     every = lut_cases + multi_cases + edge_cases + att_cases + plain_cases + dq_cases + fa_cases
     # B8 / B9: per kernel and dtype, the cases held and the worst ratio of an
     # element's error to its limit (_attention_close; B8 f32: 5e-5 * scale)
@@ -1333,6 +1451,12 @@ def phase_kernels(seed: int):
          paged_pool_attention_row_bits_same_at_t1_and_t2_to_32=len(t_independent),
          paged_pool_attention_verify_rows_same_as_t1=verify_rows,
          launches_during_comparison=launch_counts(), timed=[c for c in every if "ms" in c])
+    # the rest of the family on a line of its own: the kernels line is already long
+    emit("kernels_family", compared=len(fam_cases), worst_abs_err=fam_worst,
+         paged_pool_attention_row_bits_same_at_t1_and_t32=[
+             dict(arch=c["arch"], d=c["d"], row0_equal=c["row0_equal"])
+             for c in fam_cases if "row0_equal" in c],
+         cases=fam_cases)
     out = {name: (lut_head[name], lut_worst[name]) for name in lut_head}
     out.update({name: (multi_head[name], multi_worst[name]) for name in multi_head})
     out["paged_pool_attention"] = (att_head, att_worst)
@@ -1746,11 +1870,22 @@ NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0,
                "paged_dequant_attention": 0, "flash_attention": 0}
 
 
-def _expected_launches(fused, n_layers, widths):
-    """LUT and attention launches of the engine's steps: per layer 2 multi
-    launches (QKV, gate+up) + 2 solo (wo, w_down) fused, 7 solo unfused."""
+def _lut_launches_per_layer(fused, mlp="swiglu"):
+    """(multi, solo) LUT launches of one layer's step: the SwiGLU MLP's
+    layer runs 2 multi launches (QKV, gate+up) and 2 solo (wo, w_down)
+    fused, 7 solo unfused; the gelu MLP has no gate, so its layer runs one
+    multi launch (QKV) and 3 solo (wo, w_up, w_down) fused, 6 solo unfused."""
+    n = 7 if mlp == "swiglu" else 6
+    if not fused:
+        return 0, n
+    return (2, 2) if mlp == "swiglu" else (1, 3)
+
+
+def _expected_launches(fused, n_layers, widths, mlp="swiglu"):
+    """LUT and attention launches of the engine's steps
+    (`_lut_launches_per_layer`), one attention launch per layer and step."""
     w32, w1 = widths.get(32, 0), widths.get(1, 0)
-    per = (2, 2) if fused else (0, 7)
+    per = _lut_launches_per_layer(fused, mlp)
     return {"lut_matmul_fused_multi_gemv": per[0] * n_layers * w1,
             "lut_matmul_fused_multi": per[0] * n_layers * w32,
             "lut_matmul_fused_gemv": per[1] * n_layers * w1,
@@ -1912,18 +2047,47 @@ def _graph_check(name, engine, seed):
           and all(seen["replays"].get(w, 0) > 0 for w in graphs_of)
           and all(r.state == "finished" and len(r.out_tokens) == 20 for r in requests)
           and not (spec and (seen["verify_row_misses"] or not seen["verify_rows_compared"])))
-    emit("graph", engine=name, ok=ok, steps_compared=sum(seen["replays"].values())
+    emit("graph", engine=name, arch=cfg.arch_id, layers=cfg.n_layers, ok=ok,
+         steps_compared=sum(seen["replays"].values())
          + sum(seen["warm_ups"].values()), **seen)
     if not ok:
         raise SystemExit(f"graph: {name}: a replay differs from the eager body, or the drive "
                          f"missed a case: {seen}")
 
 
+def _step_ms(engine, seed):
+    """A prefill-width step and a decode step of `engine` with all 8 slots
+    busy (8 prompts of 128 tokens): host-clock ms per step and the CUDA-event
+    span per step over 2 and 8 steps (`_wall_ms_per_step`, profiler off), and
+    the device ms of one replay of the width's graph (`_replay_ms`: the last
+    upload again, the same writes)."""
+    cfg = engine.model.cfg
+    rng = np.random.default_rng(seed + 13)
+    for _ in range(engine.ecfg.num_slots):
+        engine.submit(rng.integers(0, cfg.vocab, 128).astype(np.int32), max_new_tokens=16)
+    out = {}
+    engine.step()
+    for key, width, n in (("prefill_width_32", 32, 2), ("decode_width_1", 1, 8)):
+        ran = engine.traces.get(width, 0)
+        wall, span = _wall_ms_per_step(engine, n)
+        if engine.traces.get(width, 0) - ran != n or any(r is None for r in engine.slots):
+            raise SystemExit(f"step times: {key}: not every step was of width {width} with "
+                             f"all 8 slots busy")
+        out[key] = dict(steps=n, wall_ms_per_step=round(wall, 3),
+                        event_span_ms_per_step=round(span, 3),
+                        device_ms_per_replay=round(_replay_ms(engine._graphs._graphs[width]), 3))
+        while any(r is not None and r.prefilling for r in engine.slots):
+            engine.step()
+    engine.run()
+    return out
+
+
 def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids,
-           fused=True, params=None, want_tokens=None):
+           fused=True, params=None, want_tokens=None, step_times=False):
     """The engine at full width: staggered requests, launch counts per model
     step, engine-vs-solo token identity for `solo_ids` and, with
-    `want_tokens`, token identity with another configuration's run."""
+    `want_tokens`, token identity with another configuration's run; with
+    `step_times`, the step times of `_step_ms` on the same engine."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
 
@@ -1959,7 +2123,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     widths = dict(engine.traces)
     model_steps = sum(widths.values())
     n_tok = sum(len(r.out_tokens) for r in requests)
-    expected = _expected_launches(fused, n_layers, widths)
+    expected = _expected_launches(fused, n_layers, widths, cfg.mlp)
     ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
           and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
           and counts == expected
@@ -1968,6 +2132,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     capture_s = {str(w): round(c, 3) for w, c in engine._graphs.capture_seconds().items()}
     # every replay against the eager body, on the engine whose graphs this drive captured
     _graph_check(name, engine, seed)
+    steps_ms = _step_ms(engine, seed) if step_times else None
     # engine-vs-solo token identity: the same request alone, same engine geometry
     tokens = [list(r.out_tokens) for r in requests]
     model = engine.model
@@ -1987,7 +2152,10 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
                tokens_per_s=round(n_tok / wall, 2), launches=counts,
                launches_expected=expected, solo_redecode_same_tokens=solo_same,
                preemptions=sum(r.preemptions for r in requests),
-               engine_build_s=round(build_s, 3), graph_capture_s=capture_s)
+               engine_build_s=round(build_s, 3), graph_capture_s=capture_s,
+               peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if steps_ms is not None:
+        row["step_ms_8_slots_busy"] = steps_ms
     if want_tokens is not None:
         row["same_tokens_as_fused"] = tokens == want_tokens
     emit(name, **row)
@@ -1999,6 +2167,60 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     if want_tokens is not None and tokens != want_tokens:
         raise SystemExit(f"{name}: tokens differ from the fused configuration's")
     return counts, tokens
+
+
+def _first_layers(params, n):
+    """The first `n` layers of a stacked parameter tree: views, nothing copied."""
+    from repro_torch.core.api import is_clustered, map_arrays
+
+    def cut(tree):
+        if is_clustered(tree):
+            return map_arrays(tree, lambda a: a[:n])
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+    return {**params, "blocks": cut(params["blocks"])}
+
+
+# the rest of the transformer family at full width: gemma2-27b and paligemma-3b
+# at full depth, starcoder2-15b and stablelm-12b cut to 4 layers (the run's time)
+FAMILY_DEPTHS = (("gemma2-27b", 46), ("paligemma-3b", 18), ("starcoder2-15b", 4),
+                 ("stablelm-12b", 4))
+
+
+def phase_serve_family(seed: int) -> dict:
+    """Each arch of FAMILY_DEPTHS served like `serve`: LCD 4-bit weights from
+    the seed with the quantized transform, the `serve` engine's geometry and
+    request mix, launch counts per arch (the gelu MLP: one multi launch a
+    layer), engine = solo tokens, every replay = its eager body; gemma2-27b
+    also its step times with 8 slots busy. Then on the first 4 layers of the
+    same weights fused = unfused tokens, and for starcoder2-15b (layernorm)
+    a drive over the int8 pool. Returns the full-depth drives' launches
+    summed over the archs."""
+    total = {}
+    for arch, layers in FAMILY_DEPTHS:
+        t0 = time.perf_counter()
+        _, params = _served_params(arch, seed, layers)
+        counts, tokens = _serve("serve_family", arch, seed, layers, 12, 24, None,
+                                solo_ids=(0, 11), params=params,
+                                step_times=arch == "gemma2-27b")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        four = params if layers == 4 else _first_layers(params, 4)
+        if layers != 4:
+            _, tokens = _serve("serve_family_4_layers", arch, seed, 4, 12, 24, None,
+                               solo_ids=(), params=four)
+        _serve("serve_family_unfused", arch, seed, 4, 12, 24, None, solo_ids=(), fused=False,
+               params=four, want_tokens=tokens)
+        if arch == "starcoder2-15b":
+            _serve("serve_family_int8", arch, seed, 4, 4, 24, "int8", solo_ids=(1, 3),
+                   params=four)
+        del params, four
+        # the peak since the phase began: gemma2-27b's own, as it runs first
+        emit("serve_family_arch", arch=arch, layers=layers,
+             seconds=round(time.perf_counter() - t0, 1),
+             peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    return total
 
 
 def _static_graph_check(model, params, batch, prompt_len, seed, gen=8) -> dict:
@@ -2327,34 +2549,37 @@ def phase_profile(seed: int, params) -> None:
 SPEC_K = 3
 
 
-def _spec_expected_launches(n_layers, traces, k):
+def _spec_expected_launches(n_layers, traces, k, mlp="swiglu"):
     """LUT and attention launches of the speculative engine's graphs, fused:
     the prefill step runs both models (M = 256: B4 / B2), a round k + 1
     draft feeds (M = 8) and one verify (M = 8 (k + 1) < 128: the GEMVs B3 /
-    B1), each feed per layer 2 multi launches, 2 solo and one attention."""
+    B1), each feed per layer the multi and solo launches of
+    `_lut_launches_per_layer` and one attention."""
     pre = traces.get(("prefill", 32), 0)
     feeds = traces.get(("draft", k), 0) * (k + 1) + traces.get(("verify", k + 1), 0)
-    return {"lut_matmul_fused_multi_gemv": 2 * n_layers * feeds,
-            "lut_matmul_fused_multi": 2 * 2 * n_layers * pre,
-            "lut_matmul_fused_gemv": 2 * n_layers * feeds,
-            "lut_matmul_fused": 2 * 2 * n_layers * pre,
+    multi, solo = _lut_launches_per_layer(True, mlp)
+    return {"lut_matmul_fused_multi_gemv": multi * n_layers * feeds,
+            "lut_matmul_fused_multi": 2 * multi * n_layers * pre,
+            "lut_matmul_fused_gemv": solo * n_layers * feeds,
+            "lut_matmul_fused": 2 * solo * n_layers * pre,
             "paged_pool_attention": n_layers * (2 * pre + feeds), **NOT_SERVING}
 
 
 def _row_count_ops(model, params, k):
     """Whether the PyTorch ops of a step give a row the same bits at S (k + 1)
     rows (the verify) and at S * 32 (a mixed step) as at S rows (a decode
-    step): the RMS norm, the plain f32 `torch.mean` it took its statistic
-    with before (`layers._MIN_STAT_ROWS` says why it no longer does), the vocab
-    head as one product over every window position, and the int8 pool's
-    absmax quantizer. A diagnostic; the verify-row check in `_graph_check`
-    is what fails the run."""
-    from repro_torch.models.layers import quantize_kv, rmsnorm
+    step): both norms (`layers._stat_rows`), the model's vocab head as one
+    product over every window position with its final softcap, and the int8
+    pool's absmax quantizer. Returns (those ops, all must hold; the plain f32
+    `torch.mean` the norms took their statistics with before, which does not
+    hold, and is why `layers._MIN_STAT_ROWS` exists)."""
+    from repro_torch.models.layers import layernorm, quantize_kv, rmsnorm
     from repro_torch.models.transformer import lm_head_logits
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(5)
-    scale = params["ln_final"]["scale"]
-    out = {}
+    scale = torch.randn((cfg.d_model,), generator=gen, device="cuda").mul_(0.1)
+    bias = torch.randn((cfg.d_model,), generator=gen, device="cuda").mul_(0.1)
+    ops, raw = {}, {}
     with torch.no_grad():
         for t in (k + 1, 32):
             x = torch.randn((8, t, cfg.d_model), generator=gen, device="cuda").mul_(3)
@@ -2370,15 +2595,20 @@ def _row_count_ops(model, params, k):
             q, sc = quantize_kv(kv.reshape(8 * t, cfg.n_kv_heads, cfg.hd), sm)
             q, sc = q.view(8, t, -1, cfg.hd), sc.view(8, t, -1)
             per_pos = [quantize_kv(kv[:, j].contiguous(), sm) for j in range(t)]
-            out[f"rows_{8 * t}"] = {
+            ops[f"rows_{8 * t}"] = {
                 "rmsnorm": same(lambda a: rmsnorm(a, scale)),
-                "torch_mean_f32": same(lambda a: torch.mean(
-                    a.float() * a.float(), dim=-1, keepdim=True)),
+                "layernorm": same(lambda a: layernorm(a, 1.0 + scale, bias)),
                 "lm_head_one_product": same(lambda a: lm_head_logits(params, a, cfg)),
                 "quantize_kv": all(torch.equal(q[:, j], a) and torch.equal(sc[:, j], b)
                                    for j, (a, b) in enumerate(per_pos)),
             }
-    return out
+            raw[f"rows_{8 * t}"] = same(lambda a: torch.mean(
+                a.float() * a.float(), dim=-1, keepdim=True))
+    return ops, raw
+
+
+def _row_count_ops_hold(ops) -> bool:
+    return all(v for rows in ops.values() for v in rows.values())
 
 
 def _drive_counting_rounds(engine, prompts, new_tokens, k):
@@ -2510,9 +2740,9 @@ def phase_serve_spec(seed: int):
 
     graph_ms = _graph_ms_at_full_batch(spec, seed, (("draft", k), ("verify", k + 1)))
     graph_ms.update(_graph_ms_at_full_batch(plain, seed, (1,)))
-    rows = _row_count_ops(model, params, k)
+    rows, raw_mean = _row_count_ops(model, params, k)
     ok = (same and finished and counts == expected and set(traces) == want_keys
-          and packing_ok and full_same and full_accept
+          and packing_ok and full_same and full_accept and _row_count_ops_hold(rows)
           and all(counts[n] > 0 for n in expected if n not in NOT_SERVING))
     emit("serve_spec", arch="llama2-7b", layers=n_layers, dtype=cfg.dtype, weight_bits=4,
          draft_bits=2, speculative_k=k, requests=len(prompts), new_tokens_each=new_tokens,
@@ -2526,22 +2756,90 @@ def phase_serve_spec(seed: int):
                     int4_layout_bytes=int4_bytes, all_2_bit=packing_ok,
                     summary=report.summary()),
          device_ms_per_graph_8_slots=graph_ms, graph_capture_s=capture_s,
-         row_count_ops_same_bits=rows,
+         row_count_ops_same_bits=rows, unrepeated_torch_mean_f32_same_bits=raw_mean,
          peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
     if not ok:
         raise SystemExit(f"serve_spec: tokens, launch counts, shapes or the draft are wrong: "
                          f"same={same} full_same={full_same} full_accept={full_accept} "
-                         f"packing={packing_ok} traces={traces} {counts} vs {expected}")
+                         f"packing={packing_ok} traces={traces} row-count ops={rows} "
+                         f"{counts} vs {expected}")
     # every replay of the three graphs against the eager bodies, verify rows included
     _graph_check("serve_spec", spec, seed)
     return counts
+
+
+def _serve_spec_arch(arch, seed, n_layers=2, k=SPEC_K, new_tokens=16):
+    """Speculative self-drafting on one arch at full width cut to `n_layers`:
+    its 2-bit draft made on the card, the speculative engine (k = 3) and the
+    plain one over the same 8 staggered requests: the same tokens, launch
+    counts per role, bounded shapes, the row-count ops of `_row_count_ops`
+    over this arch's width and head (final softcap included), then every
+    replay against its eager body with the verify's rows torch.equal to
+    width-1 steps (`_graph_check`). Returns the speculative drive's
+    launches."""
+    from repro_torch.core.clustered_params import make_draft_params
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
+
+    model, params = _served_params(arch, seed, n_layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draft, report = make_draft_params(params, draft_centroids=4)
+    torch.cuda.synchronize()
+    draft_s = time.perf_counter() - t0
+    base = dict(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                max_blocks_per_slot=32)
+    plain = ServingEngine(model, params, EngineConfig(**base), device="cuda")
+    spec, _ = build_engine(arch, use_reduced=False, lcd=True, n_layers=n_layers,
+                           ecfg=EngineConfig(speculative_k=k, **base), params=params,
+                           draft_params=draft, device="cuda")
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(8)]
+    want = [list(r.out_tokens) for r in _drive(plain, prompts, new_tokens)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [list(r.out_tokens) for r in _drive(spec, prompts, new_tokens)]
+    torch.cuda.synchronize()
+    counts, traces = launch_counts(), dict(spec.traces)
+    spec.assert_bounded_traces()
+    expected = _spec_expected_launches(n_layers, traces, k, cfg.mlp)
+    rows, raw_mean = _row_count_ops(model, params, k)
+    ok = (got == want and all(len(t) == new_tokens for t in got) and counts == expected
+          and set(traces) == {("prefill", 32), ("draft", k), ("verify", k + 1)}
+          and _row_count_ops_hold(rows)
+          and all(counts[n] > 0 for n in expected if n not in NOT_SERVING))
+    emit("serve_spec_family", arch=arch, layers=n_layers, speculative_k=k,
+         requests=len(prompts), new_tokens_each=new_tokens, spec_tokens_equal_plain=got == want,
+         acceptance_summary=spec.acceptance_summary(),
+         traces={str(key): c for key, c in traces.items()}, launches=counts,
+         launches_expected=expected,
+         draft=dict(make_draft_params_s=round(draft_s, 2), summary=report.summary()),
+         row_count_ops_same_bits=rows, unrepeated_torch_mean_f32_same_bits=raw_mean,
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if not ok:
+        raise SystemExit(f"serve_spec_family: {arch}: tokens, launch counts, shapes or the "
+                         f"row-count ops are wrong: same={got == want} rows={rows} "
+                         f"traces={traces} {counts} vs {expected}")
+    _graph_check("serve_spec_family", spec, seed)
+    return counts
+
+
+def phase_serve_spec_family(seed: int) -> dict:
+    """`_serve_spec_arch` for each arch of FAMILY at full width, 2 layers."""
+    total = {}
+    for arch in FAMILY:
+        for n, c in _serve_spec_arch(arch, seed).items():
+            total[n] = total.get(n, 0) + c
+    return total
 
 
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
-              "compress", "profile")
+              "serve_family", "serve_spec_family", "compress", "profile")
 
 
 def main() -> int:
@@ -2559,12 +2857,15 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     phases = [p for p in args.phases.split(",") if p]
 
-    seconds = {}
+    seconds, peak_gib = {}, {}
 
     def timed(name, fn, *a, **kw):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*a, **kw)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        peak_gib[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+        peak_gib["run"] = max(peak_gib.get("run", 0.0), peak_gib[name])
         return out
 
     t_start = time.perf_counter()
@@ -2602,12 +2903,17 @@ def main() -> int:
               solo_ids=(0, 2))
     # speculative self-drafting: llama2-7b full width, 4 layers, its own launch counts
     spec_counts = timed("serve_spec", phase_serve_spec, args.seed) if "serve_spec" in phases else {}
+    # the rest of the transformer family, each arch with its own launch counts
+    family_counts = (timed("serve_family", phase_serve_family, args.seed)
+                     if "serve_family" in phases else {})
+    family_spec_counts = (timed("serve_spec_family", phase_serve_spec_family, args.seed)
+                          if "serve_spec_family" in phases else {})
     if "compress" in phases:
         timed("compress", phase_compress, args.seed)
     if "profile" in phases:
         timed("profile", phase_profile, args.seed, params)
     emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1),
-         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+         peak_device_memory_gib=peak_gib)
 
     meta = {
         "lut_matmul_fused_gemv": ("src/repro_torch/kernels/csrc/lut_gemv.cu",
@@ -2647,6 +2953,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst,
             # the speculative engine's run (serve_spec), counted on its own
             "launches_serve_spec": spec_counts.get(name, 0),
+            # the rest of the family: its full-depth drives and its speculative ones
+            "launches_serve_family": family_counts.get(name, 0),
+            "launches_serve_spec_family": family_spec_counts.get(name, 0),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
             "f32_core_bound_ms": head.get("f32_core_bound_ms"),

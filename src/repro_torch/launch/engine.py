@@ -69,7 +69,8 @@ device first, at `weight_bits` or under a `bits_budget`, as in the reference.
 
 Not ported yet, and refused with NotImplementedError naming the knob: the
 prefix cache with copy-on-write, the priority scheduler, chunked-prefill
-admission, serving meshes, and every model family but the dense transformer.
+admission, serving meshes, and every model family but the dense and vlm
+transformers (`models/registry.py PORTED_FAMILIES`).
 """
 from __future__ import annotations
 
@@ -91,7 +92,8 @@ from repro_torch.kernels.ops import add_launches, capture_launches
 from repro_torch.models.config import get_config, reduced
 from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
                                          CAP_PREFIX_CACHE, CAP_SPECULATIVE,
-                                         Model, arch_capabilities, get_model)
+                                         PORTED_FAMILIES, Model,
+                                         arch_capabilities, get_model)
 from repro_torch.utils import cdiv, human_bytes, logger, resolve_device
 
 
@@ -604,10 +606,10 @@ def _refuse_unported(ecfg: EngineConfig, model: Model) -> None:
     """NotImplementedError, naming the knob, for everything the reference
     engine serves and this one does not yet."""
     later = "not ported yet"
-    if model.cfg.family != "dense":
+    if model.cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"ServingEngine: model family {model.cfg.family!r} is not ported "
-            f"yet (only 'dense'); {later}")
+            f"yet (only {', '.join(PORTED_FAMILIES)}); {later}")
     if ecfg.prefix_cache:
         raise NotImplementedError(
             f"EngineConfig.prefix_cache=True: the prefix cache with "

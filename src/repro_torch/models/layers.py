@@ -73,31 +73,44 @@ def linear_group(x: torch.Tensor, ws, bs, cfg: ModelConfig) -> Tuple[torch.Tenso
 # another order: a row's f32 mean has other bits at 8 rows than at 32 or 256.
 # A token is normed at S rows in a decode step but at S * T in a mixed step or
 # a speculative verify, and the same token must get the same bits in each, so
-# the norm's statistic is always taken over at least 16 rows.
+# every statistic of a norm is taken over at least 16 rows.
 _MIN_STAT_ROWS = 16
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in f32, back in x's dtype.
-    Fewer than 16 rows are reduced as copies repeated up to 16 (the copies
-    come out of the f32 conversion, no extra kernel), so a row's bits do not
-    depend on how many rows are normed together."""
+def _stat_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(f32 rows of x, repeated to at least _MIN_STAT_ROWS, as (reps, r, d);
+    r). Fewer than 16 rows are reduced as copies (they come out of the f32
+    conversion, no extra kernel), so a row's bits do not depend on how many
+    rows are normed together."""
     d = x.shape[-1]
     rows = x.reshape(-1, d)
     r = rows.shape[0]
     reps = -(-_MIN_STAT_ROWS // r) if 0 < r < _MIN_STAT_ROWS else 1
-    xf = rows.expand(reps, r, d).to(torch.float32)
-    ms = (xf * xf).reshape(-1, d).mean(dim=-1)[:r, None]
+    return rows.expand(reps, r, d).to(torch.float32), r
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in f32, back in x's dtype;
+    the statistic over at least 16 rows (`_stat_rows`)."""
+    xf, r = _stat_rows(x)
+    ms = (xf * xf).reshape(-1, x.shape[-1]).mean(dim=-1)[:r, None]
     nrm = xf[0] * torch.rsqrt(ms + eps)
     return (nrm * (1.0 + scale.to(torch.float32))).to(x.dtype).view(x.shape)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+    """(x - mean) * rsqrt(var + eps) * scale + bias, in f32, back in x's
+    dtype. Both statistics are reductions over a row, so both are taken
+    over at least 16 rows (`_stat_rows`): the mean of every repeated row,
+    then the variance of the rows centred by it."""
+    d = x.shape[-1]
+    xf, r = _stat_rows(x)
+    mu = xf.reshape(-1, d).mean(dim=-1).view(xf.shape[0], r, 1)
+    xc = xf - mu
+    var = (xc * xc).reshape(-1, d).mean(dim=-1)[:r, None]
+    out = xc[0] * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype).view(x.shape)
 
 
 def norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:

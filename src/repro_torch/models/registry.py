@@ -12,7 +12,10 @@
 Serving surface (launch/engine.py): a family publishes the sequence caches it
 serves through, keyed by kind ("paged": a block-table pool over
 (num_blocks, block_size) rows), plus a capability set telling the engine which
-features apply. Only the dense family is ported.
+features apply. The dense family and the vlm family are ported; a vlm arch
+(paligemma-3b) serves its text decoder through the dense paged step, as the
+JAX package's does (its image prefix belongs to the full-sequence forward,
+which is not ported yet).
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ FAMILY_CAPS: Dict[str, frozenset] = {
     "audio": frozenset({CAP_SLOT_STATE, CAP_SNAPSHOT, CAP_ENCODER}),
 }
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "vlm")
 
 
 def family_capabilities(family: str) -> frozenset:

@@ -1,9 +1,13 @@
 """Dense decoder-only transformer family — the paged serving path of the
 continuous-batching engine and the contiguous-cache decode of the static path.
 
-Covers llama2-7b (the paper's own subject) and qwen2-1.5b (GQA, QKV bias,
-padded heads). Parameters are stacked (L, ...) tensors under the JAX package's
-names (`embed`, `blocks/{ln_attn,attn,ln_mlp,mlp}`, `ln_final`, `lm_head`), so
+Covers llama2-7b (the paper's own subject), qwen2-1.5b (GQA, QKV bias,
+padded heads), gemma2-27b (alternating local/global windows, attention and
+final softcaps), starcoder2-15b (layernorm, the gelu MLP with biases, QKV
+bias), stablelm-12b (layernorm, head_dim 160) and paligemma-3b's text decoder
+(16-into-1 GQA over padded heads, head_dim 256). Parameters are stacked
+(L, ...) tensors under the JAX package's names (`embed`,
+`blocks/{ln_attn,attn,ln_mlp,mlp}`, `ln_final`, `lm_head`), so
 carrying weights across is a rename-free copy; where the JAX package scans
 over the layer axis, this module loops over layers in Python and indexes the
 stacked tensors.
@@ -308,9 +312,9 @@ def paged_verify_step(
     Greedy speculative output equals plain greedy output only if a
     position's logits are the bits a width-1 step computes for it: every op
     here gives a row the same bits at S (k+1) rows as at S (the LUT kernels'
-    row contract, B5's per-row key order, `layers.rmsnorm`'s statistic, the
-    head's one product; `chip_smoke.py` checks them on the card). Returns
-    ((S, T, padded_vocab) logits, `cache`, whose pools were updated in
-    place)."""
+    row contract, B5's per-row key order, the norms' statistics
+    (`layers._stat_rows`), the head's one product; `chip_smoke.py` checks
+    them on the card). Returns ((S, T, padded_vocab) logits, `cache`, whose
+    pools were updated in place)."""
     x = _paged_trunk(params, cache, tokens, lengths, n_new, block_tables, cfg)
     return lm_head_logits(params, x, cfg), cache

@@ -121,7 +121,7 @@ def test_engine_config_value_errors_keep_the_reference_wording(kw):
     with pytest.raises(ValueError) as port_err:
         port_engine.EngineConfig(**kw)
     want, got = str(ref_err.value), str(port_err.value)
-    if "arch" in kw:        # the registered arch list differs: two archs are ported
+    if "arch" in kw:        # the registered arch lists differ: six transformer archs are ported
         want, got = want.split(";")[0], got.split(";")[0]
     assert got == want
 
