@@ -2836,10 +2836,359 @@ def phase_serve_spec_family(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the engine's production features: prefix cache with copy-on-write, the
+# priority / weighted-fair scheduler, chunked-prefill admission
+# ---------------------------------------------------------------------------
+
+# the shared system prompt: 9 blocks of 16 tokens but 4.5 prefill chunks of 32,
+# so the cache-on run cuts every tail into other chunks than the cache-off run
+SYSTEM_PROMPT_LEN = 144
+# the per-block pool tensors a copy-on-write copies (the smoothing vectors are
+# per layer, not per block)
+COW_TENSORS = ("k", "v", "k_scale", "v_scale")
+
+
+def _prefix_traffic(cfg, seed, n=12):
+    """(main, bare): `n` prompts that open with one 144-token system prompt and
+    end in a tail of 8-56 random tokens, and twice the bare system prompt,
+    which is block-aligned and fully cached once the main drive has run, so
+    its last token is re-fed into a shared block: a copy-on-write."""
+    rng = np.random.default_rng(seed + 21)
+    system = rng.integers(0, cfg.vocab, SYSTEM_PROMPT_LEN).astype(np.int32)
+    main = [np.concatenate([system, rng.integers(0, cfg.vocab, int(rng.integers(8, 57)))
+                            .astype(np.int32)]) for _ in range(n)]
+    return main, [system.copy(), system.copy()]
+
+
+def _cow_watch(engine):
+    """Wrap the engine's copy-on-write copy and its step: right after every
+    copy, whether the new block is torch.equal to its source in every pool
+    tensor copied (the draft's too), and after the next step whether each
+    source is still what it was at the copy (the writer wrote into its own
+    copy). Returns the record; `_cow_unwatch` takes the wrappers off."""
+    seen = dict(copies=0, equal_after_copy=[], source_kept_after_step=[], pools=set())
+    pending = []
+    inner_copy, inner_step = engine._cow_copy, engine.step
+
+    def copy(src, dst):
+        inner_copy(src, dst)
+        seen["copies"] += 1
+        for tag, caches in (("target", engine.caches), ("draft", engine.draft_caches)):
+            if caches is None:
+                continue
+            for name in COW_TENSORS:
+                t = caches["paged"].get(name)
+                if t is not None:
+                    seen["equal_after_copy"].append(torch.equal(t[:, dst], t[:, src]))
+                    seen["pools"].add(f"{tag} {name}")
+                    pending.append((t, src, t[:, src].clone()))
+
+    def step():
+        done = inner_step()
+        while pending:
+            t, src, before = pending.pop()
+            seen["source_kept_after_step"].append(torch.equal(t[:, src], before))
+        return done
+
+    engine._cow_copy, engine.step = copy, step
+    return seen
+
+
+def _cow_unwatch(engine, seen):
+    engine.__dict__.pop("_cow_copy", None)
+    engine.__dict__.pop("step", None)
+    return dict(copies=seen["copies"], pools=sorted(seen["pools"]),
+                equal_after_copy=bool(seen["equal_after_copy"])
+                and all(seen["equal_after_copy"]),
+                source_kept_after_step=bool(seen["source_kept_after_step"])
+                and all(seen["source_kept_after_step"]))
+
+
+def _cow_copy_ms(engine, n=20):
+    """(device ms of one copy-on-write copy, its byte bound in ms): the
+    engine's own `_cow_copy` between `n` distinct pairs of free blocks (n x
+    the bytes of a block pair pass through a 50 MB L2, so each copy finds its
+    source cold), captured and replayed by `time_ms`. The bound reads every
+    per-block pool tensor's block once and writes it once, over 3.35 TB/s."""
+    free = list(engine.alloc._free)
+    pairs = [(free[2 * i], free[2 * i + 1]) for i in range(n)]
+    traces = dict(engine.traces)
+    ms = time_ms(lambda i: engine._cow_copy(*pairs[i]), n)
+    engine.traces.clear()
+    engine.traces.update(traces)            # the timing's copies are no engine step
+    nbytes = sum(2 * t[:, 0].numel() * t.element_size()
+                 for caches in (engine.caches, engine.draft_caches) if caches is not None
+                 for name, t in caches["paged"].items() if name in COW_TENSORS)
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def _ttft_ms(requests):
+    """Time to first token per request, `first_token_t - submit_t` on the
+    engine's host clock, as {p50, p99, each} in ms."""
+    ttft = [(r.first_token_t - r.submit_t) * 1e3 for r in requests]
+    return dict(p50=round(float(np.percentile(ttft, 50)), 3),
+                p99=round(float(np.percentile(ttft, 99)), 3),
+                each=[round(t, 1) for t in ttft])
+
+
+def _prefix_pair(name, seed, n_layers, params, *, kv_dtype=None, spec_k=0, new_tokens=24,
+                 graph_check=False, cow_ms=False):
+    """The same prefix traffic (`_prefix_traffic`) through two engines of the
+    `serve` geometry built by `build_engine` on `params`: the plain engine
+    with the prefix cache off, then the cache on (with `spec_k`, speculative
+    over the 2-bit draft made on the card). Each drive: the 12 prompts one
+    every other step (timed, launch counts from zero), then after the drain
+    the two bare system prompts (the copy-on-write, watched by `_cow_watch`
+    on the cache-on engine). Checks tokens equal request for request, at
+    least one copy (in both pools with speculation), a reuse rate above 0,
+    bounded shapes, launch counts against the run's own widths, the
+    allocator's conservation after the drain; with `graph_check` every replay
+    against its eager body after the copies; with `cow_ms` the copy's device
+    time. Returns the cache-on main drive's launch counts."""
+    from repro_torch.core.clustered_params import make_draft_params
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, build_engine
+
+    base = dict(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                max_blocks_per_slot=32, kv_dtype=kv_dtype)
+    draft, draft_s = None, None
+    if spec_k:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draft, _ = make_draft_params(params, draft_centroids=4)
+        torch.cuda.synchronize()
+        draft_s = round(time.perf_counter() - t0, 2)
+    kv_smooth, runs = None, {}
+    for cache in (False, True):
+        ecfg = EngineConfig(prefix_cache=cache, speculative_k=spec_k if cache else 0, **base)
+        engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                                 params=params, draft_params=draft if cache else None,
+                                 kv_smooth=kv_smooth, n_layers=n_layers, device="cuda")
+        if kv_dtype == "int8" and kv_smooth is None:   # calibrated once, on the card
+            pool = engine.caches["paged"]
+            kv_smooth = (pool["k_smooth"].cpu().numpy(), pool["v_smooth"].cpu().numpy())
+        cfg = engine.model.cfg
+        main, bare = _prefix_traffic(cfg, seed)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        requests = _drive(engine, main, new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, widths = launch_counts(), dict(engine.traces)
+        if spec_k and cache:
+            expected = _spec_expected_launches(n_layers, widths, spec_k)
+        else:
+            expected = _expected_launches(True, n_layers, widths)
+        watch = _cow_watch(engine) if cache else None
+        tail = _drive(engine, bare, new_tokens)
+        run = dict(tokens=[list(r.out_tokens) for r in requests + tail],
+                   tokens_per_s=round(sum(len(r.out_tokens) for r in requests) / wall, 2),
+                   wall_s=round(wall, 3), ttft_ms=_ttft_ms(requests),
+                   launches_as_expected=counts == expected and all(
+                       c > 0 for n, c in expected.items() if n not in NOT_SERVING),
+                   widths={str(w): c for w, c in engine.traces.items()})
+        engine.assert_bounded_traces()
+        if cache:
+            run["cow"] = _cow_unwatch(engine, watch)
+            run["report"] = engine.prefix_cache_report()
+            run["cached_tokens_per_request"] = [r.cached_tokens for r in requests + tail]
+            run["conserved"] = engine.alloc.num_free + engine.alloc.num_cached == base["num_blocks"]
+            run["launches"] = counts
+            if cow_ms:
+                ms, bound, nbytes = _cow_copy_ms(engine)
+                run["cow_copy"] = dict(device_ms=round(ms, 5), bound_ms=round(bound, 5),
+                                       bytes=nbytes, bound_by="bytes", copies_timed=20)
+            if graph_check:
+                _graph_check(name, engine, seed)
+            if spec_k:
+                run["acceptance_summary"] = engine.acceptance_summary()
+        runs["on" if cache else "off"] = run
+        del engine
+    off, on = runs["off"], runs["on"]
+    same = on["tokens"] == off["tokens"]
+    pools = {"target k", "target v"} | ({"draft k", "draft v"} if spec_k else set())
+    ok = (same and all(len(t) == new_tokens for t in on["tokens"])
+          and off["launches_as_expected"] and on["launches_as_expected"]
+          and on["report"]["cow_copies"] >= 1 and "cow" in on["widths"]
+          and on["report"]["block_reuse_rate"] > 0 and on["conserved"]
+          and on["cow"]["copies"] >= 1 and pools <= set(on["cow"]["pools"])
+          and on["cow"]["equal_after_copy"] and on["cow"]["source_kept_after_step"])
+    emit(name, arch="llama2-7b", layers=n_layers, kv_dtype=kv_dtype or "float",
+         speculative_k=spec_k, draft_s=draft_s, requests=len(off["tokens"]),
+         system_prompt_tokens=SYSTEM_PROMPT_LEN, new_tokens_each=new_tokens,
+         tokens_equal_cache_off=same, ok=ok,
+         **{f"cache_{k}": {f: v for f, v in run.items() if f not in ("tokens",)}
+            for k, run in runs.items()},
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if not ok:
+        raise SystemExit(f"{name}: cache on != cache off, or a copy-on-write, launch or "
+                         f"allocator check failed (tokens equal: {same}); see the line above")
+    return on["launches"]
+
+
+def phase_serve_prefix(seed: int, params) -> dict:
+    """Prefix caching on LCD 4-bit llama2-7b at full width and depth, on the
+    `serve` phase's weights: cache on = cache off, the copy-on-write, every
+    replay = its eager body after the copies, the copy's device time."""
+    return _prefix_pair("serve_prefix", seed, 32, params, graph_check=True, cow_ms=True)
+
+
+def phase_serve_prefix_spec(seed: int, params) -> dict:
+    """The same traffic on the first 4 layers, speculative (k = 3, the 2-bit
+    draft made on the card) with the cache on against plain with it off."""
+    return _prefix_pair("serve_prefix_spec", seed, 4, _first_layers(params, 4),
+                        spec_k=SPEC_K, graph_check=True)
+
+
+def phase_serve_prefix_int8(seed: int, params) -> dict:
+    """The same traffic on the first 4 layers over the int8 pool: a copy
+    carries the per-token scales with the codes."""
+    return _prefix_pair("serve_prefix_int8", seed, 4, _first_layers(params, 4), kv_dtype="int8")
+
+
+SCHED_WEIGHTS = {"a": 1.0, "b": 2.0}
+SCHED_BUDGET = 600
+
+
+def _reference_pick(queue, inflight, served, weights, budget):
+    """The reference scheduler's "priority" pick (its `_pick_next`), on the
+    host over the port's queued requests: among requests whose tenant stays
+    within `budget` (feed = prompt + generated, plus the tokens still to
+    generate), the highest priority, then the smallest served / weight share
+    of its tenant, then arrival."""
+    def need(r):
+        return len(r.prompt) + r.max_new_tokens
+
+    eligible = [r for r in queue
+                if budget is None or inflight.get(r.tenant, 0) + need(r) <= budget]
+    if not eligible:
+        return None
+    return min(eligible, key=lambda r: (-r.priority, served.get(r.tenant, 0)
+                                        / weights.get(r.tenant, 1.0), r.rid))
+
+
+def _first_wave(requests, slots, budget):
+    """The first admission wave of a burst, replayed on the host: the
+    reference rule's picks (`_reference_pick`, nothing served yet) as long as
+    a slot is free and a request fits its tenant's budget (chunked
+    admission's first-chunk grants leave the pool no say here). Returns the
+    picked rids in order."""
+    queue, inflight, order = list(requests), {}, []
+    while queue and len(order) < slots:
+        r = _reference_pick(queue, inflight, {}, {}, budget)
+        if r is None:
+            break
+        queue.remove(r)
+        inflight[r.tenant] = inflight.get(r.tenant, 0) + len(r.prompt) + r.max_new_tokens
+        order.append(r.rid)
+    return order
+
+
+def phase_serve_sched(seed: int, params) -> dict:
+    """The priority / weighted-fair scheduler with chunked-prefill admission
+    on the first 4 layers of the `serve` weights, under pool pressure (64
+    blocks for 8 slots: the run must preempt): 12 requests in one burst, two
+    tenants weighted {a: 1, b: 2} under a token budget that defers
+    admissions, priorities 0-2. Every pick is held to the reference's rule over the same queue and
+    tenant state (`_reference_pick`), the first wave to a host-only replay
+    (`_first_wave`); each request's tokens equal its solo run; launch counts
+    against the run's widths. Returns the drive's launch counts."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, build_engine
+
+    n_layers, new_tokens = 4, 24
+    params = _first_layers(params, n_layers)
+    ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=64,
+                        max_blocks_per_slot=32, chunked_prefill=True, scheduler="priority",
+                        tenant_weights=SCHED_WEIGHTS, tenant_token_budget=SCHED_BUDGET)
+    engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                             params=params, n_layers=n_layers, device="cuda")
+    cfg = engine.model.cfg
+    rng = np.random.default_rng(seed + 31)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(12)]
+    tags = [dict(tenant="ab"[i % 2], priority=i % 3) for i in range(12)]
+    seen = dict(picks=0, mismatches=[], deferred=0)
+    order = []
+    inner_pick, inner_acquire = engine._pick_next, engine._tenant_acquire
+
+    def pick():
+        want = _reference_pick(list(engine.queue), dict(engine._tenant_inflight),
+                               dict(engine._tenant_served), SCHED_WEIGHTS, SCHED_BUDGET)
+        got = inner_pick()
+        seen["picks"] += 1
+        if got is not want:
+            seen["mismatches"].append((None if got is None else got.rid,
+                                       None if want is None else want.rid))
+        seen["deferred"] += int(got is None and bool(engine.queue))
+        return got
+
+    def acquire(r):
+        if r.rid not in order:
+            order.append(r.rid)
+        inner_acquire(r)
+
+    engine._pick_next, engine._tenant_acquire = pick, acquire
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    requests = [engine.submit(p, new_tokens, **kw) for p, kw in zip(prompts, tags)]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, widths = launch_counts(), dict(engine.traces)
+    engine.__dict__.pop("_pick_next")
+    engine.__dict__.pop("_tenant_acquire")
+    engine.assert_bounded_traces()
+    expected = _expected_launches(True, n_layers, widths)
+    served = dict(engine._tenant_served)
+    first = _first_wave(requests, ecfg.num_slots, SCHED_BUDGET)
+    tokens = [list(r.out_tokens) for r in requests]
+    del engine
+    solo_engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                                  params=params, n_layers=n_layers, device="cuda")
+    solo = []
+    for p in prompts:                   # one at a time: each request alone in the engine
+        r = solo_engine.submit(p, new_tokens)
+        solo_engine.run()
+        solo.append(list(r.out_tokens))
+    del solo_engine
+    ok = (tokens == solo and all(len(t) == new_tokens for t in tokens)
+          and not seen["mismatches"] and seen["deferred"] >= 1
+          and sum(r.preemptions for r in requests) >= 1
+          and order[:len(first)] == first and order != sorted(order)
+          and counts == expected
+          and all(c > 0 for n, c in expected.items() if n not in NOT_SERVING))
+    emit("serve_sched", arch="llama2-7b", layers=n_layers, ok=ok, requests=len(prompts),
+         new_tokens_each=new_tokens, num_blocks=ecfg.num_blocks,
+         tenant_weights=SCHED_WEIGHTS, tenant_token_budget=SCHED_BUDGET,
+         requests_meta=[dict(rid=r.rid, prompt=len(r.prompt), **t)
+                        for r, t in zip(requests, tags)],
+         admission_order=order, first_wave_replayed=first,
+         picks_held_to_reference=seen["picks"], pick_mismatches=seen["mismatches"],
+         deferred_admissions=seen["deferred"],
+         preemptions=sum(r.preemptions for r in requests), tenant_served_tokens=served,
+         tokens_equal_solo=tokens == solo, tokens_per_s=round(sum(map(len, tokens)) / wall, 2),
+         widths={str(w): c for w, c in widths.items()}, launches=counts,
+         launches_expected=expected,
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if not ok:
+        raise SystemExit(f"serve_sched: the picks, the first wave, solo tokens or launch "
+                         f"counts are wrong: {seen} order={order} first={first}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
+              "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile")
+# the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
+# their first 4 layers)
+ON_SERVE_WEIGHTS = {"serve", "serve_unfused", "serve_static", "profile", "serve_prefix",
+                    "serve_prefix_spec", "serve_prefix_int8", "serve_sched"}
 
 
 def main() -> int:
@@ -2881,7 +3230,7 @@ def main() -> int:
         timed("model_parity", phase_model_parity, args.seed)
     # llama2-7b, full width and depth: one set of weights for every phase below
     params = None
-    if {"serve", "serve_unfused", "serve_static", "profile"} & set(phases):
+    if ON_SERVE_WEIGHTS & set(phases):
         _, params = timed("weights", _served_params, "llama2-7b", args.seed, 32)
     counts, tokens = {}, None
     if "serve" in phases:
@@ -2903,6 +3252,14 @@ def main() -> int:
               solo_ids=(0, 2))
     # speculative self-drafting: llama2-7b full width, 4 layers, its own launch counts
     spec_counts = timed("serve_spec", phase_serve_spec, args.seed) if "serve_spec" in phases else {}
+    # the engine's production features, each path with its own launch counts
+    feature_counts = {}
+    for name, fn in (("serve_prefix", phase_serve_prefix),
+                     ("serve_prefix_spec", phase_serve_prefix_spec),
+                     ("serve_prefix_int8", phase_serve_prefix_int8),
+                     ("serve_sched", phase_serve_sched)):
+        if name in phases:
+            feature_counts[name] = timed(name, fn, args.seed, params)
     # the rest of the transformer family, each arch with its own launch counts
     family_counts = (timed("serve_family", phase_serve_family, args.seed)
                      if "serve_family" in phases else {})
@@ -2956,6 +3313,8 @@ def main() -> int:
             # the rest of the family: its full-depth drives and its speculative ones
             "launches_serve_family": family_counts.get(name, 0),
             "launches_serve_spec_family": family_spec_counts.get(name, 0),
+            # the production features: each path's drive, counted on its own
+            **{f"launches_{phase}": c.get(name, 0) for phase, c in feature_counts.items()},
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
             "f32_core_bound_ms": head.get("f32_core_bound_ms"),

@@ -63,13 +63,29 @@ Continuous batching (`ServingEngine`)
     prefill step, the k+1 draft feeds, the verify — and a round is one upload
     and one download.
 
+    Production features, as in the reference:
+      * prefix caching (`EngineConfig.prefix_cache`): every full block a
+        slot has written is published under a position-0-anchored chain
+        hash of its tokens (salted by the kv dtype and the layer config);
+        an admitted request shares the longest cached block-aligned prefix
+        of its feed read-only and prefills only the tail. A write into a
+        block another reference still holds copies it first
+        (copy-on-write): on the card an in-place copy of the block's rows
+        of every pool tensor, eager, on the current stream between two
+        replays, so every graph goes on reading the same tensors. Output
+        equals the cache-off run's, request for request, within a kv dtype;
+      * chunked-prefill admission (`chunked_prefill`): a request is admitted
+        with blocks for its first prefill chunk only, the rest grown lazily;
+      * the "priority" scheduler: the highest priority first, then the
+        tenant with the smallest weighted share of served tokens, then
+        arrival, among tenants under `tenant_token_budget`.
+
 With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
 from `seed`, or passed in) go through `compress_model` (core/api.py) on their
 device first, at `weight_bits` or under a `bits_budget`, as in the reference.
 
-Not ported yet, and refused with NotImplementedError naming the knob: the
-prefix cache with copy-on-write, the priority scheduler, chunked-prefill
-admission, serving meshes, and every model family but the dense and vlm
+Not ported yet, and refused with NotImplementedError naming the knob: serving
+meshes, snapshot preemption, and every model family but the dense and vlm
 transformers (`models/registry.py PORTED_FAMILIES`).
 """
 from __future__ import annotations
@@ -465,8 +481,19 @@ class Request:
     submit_t: float = 0.0
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
+    # multi-tenant scheduling: admission weight / budget key and the
+    # intra-tenant priority (higher admits first)
+    tenant: str = "default"
+    priority: int = 0
+    # prefix caching: prompt tokens served from shared cached blocks instead
+    # of re-prefilled, and the chain hashes of this request's full blocks
+    # registered so far (position-0-anchored, block-granular)
+    cached_tokens: int = 0
+    hash_chain: List[int] = dataclasses.field(default_factory=list)
     # streaming: called as on_token(request, token) for every emitted token
     on_token: Optional[Any] = None
+    # tokens counted against this request's tenant budget while admitted
+    inflight_tokens: int = 0
     # speculative mode: accepted draft tokens per verify round (0..k each;
     # round i emits accept_lens[i] + 1 tokens, a budget cap included)
     accept_lens: List[int] = dataclasses.field(default_factory=list)
@@ -516,13 +543,20 @@ class EngineConfig:
     # global element-weighted mean.
     weight_bits: int = 4
     bits_budget: Optional[float] = None
-    # prefix caching, chunked-prefill admission and the admission policy
-    # ("fcfs" | "priority") with its tenant knobs. (Validated here; only
-    # "fcfs" without prefix cache or chunked admission is served yet.)
+    # prefix caching: content-hashed block reuse with copy-on-write block
+    # tables; output equals a cache-off run's within a kv dtype
     prefix_cache: bool = False
+    # chunked-prefill admission: admit a prompt once blocks for its FIRST
+    # prefill chunk are grantable (later chunks grow the table lazily)
     chunked_prefill: bool = False
+    # admission policy: "fcfs" is strict arrival order; "priority" picks by
+    # (priority desc, weighted-fair tenant share asc, arrival) among tenants
+    # under their token budget
     scheduler: str = "fcfs"
+    # tenant -> fair-share weight (unlisted tenants weigh 1.0); "priority" only
     tenant_weights: Optional[Dict[str, float]] = None
+    # max concurrently admitted tokens (feed + generation budget) per tenant;
+    # None = unbounded. "priority" only
     tenant_token_budget: Optional[int] = None
     # architecture binding: when set, capability-dependent knobs are
     # validated EAGERLY against the arch's family capabilities at config
@@ -610,18 +644,6 @@ def _refuse_unported(ecfg: EngineConfig, model: Model) -> None:
         raise NotImplementedError(
             f"ServingEngine: model family {model.cfg.family!r} is not ported "
             f"yet (only {', '.join(PORTED_FAMILIES)}); {later}")
-    if ecfg.prefix_cache:
-        raise NotImplementedError(
-            f"EngineConfig.prefix_cache=True: the prefix cache with "
-            f"copy-on-write block tables is {later}")
-    if ecfg.scheduler == "priority":
-        raise NotImplementedError(
-            f"EngineConfig.scheduler='priority': the priority / weighted-fair "
-            f"scheduler is {later}; use 'fcfs'")
-    if ecfg.chunked_prefill:
-        raise NotImplementedError(
-            f"EngineConfig.chunked_prefill=True: chunked-prefill admission is "
-            f"{later}")
     for knob in ("data_parallel", "model_parallel"):
         v = getattr(ecfg, knob)
         if v not in (None, 1):
@@ -697,6 +719,10 @@ class ServingEngine:
             self.kv_dtype = "float"
         if kv_smooth is not None and self.kv_dtype != "int8":
             raise ValueError("kv_smooth only applies to the int8 KV cache")
+        if ecfg.prefix_cache and CAP_PREFIX_CACHE not in caps:
+            raise ValueError(
+                f"EngineConfig.prefix_cache=True needs the 'prefix_cache' "
+                f"capability; family '{model.cfg.family}' has {sorted(caps)}")
         self.model, self.params, self.ecfg = model, params, ecfg
         # the CompressReport of the params, when build_engine compressed them
         self.compress_report = None
@@ -710,6 +736,24 @@ class ServingEngine:
         self.lengths = np.zeros(ecfg.num_slots, np.int32)
         self.queue: collections.deque = collections.deque()
         self.finished: List[Request] = []
+        # prefix cache: chain hashes are salted with the kv dtype and the
+        # layer config, so two engines only ever share content computed by
+        # an identical paged stack
+        self._prefix_salt = hash((self.kv_dtype, repr(model.cfg)))
+        # tenant accounting for the "priority" scheduler: tokens currently
+        # admitted (feed + generation budget) and total tokens served, per
+        # tenant; the weighted-fair share is served / weight
+        self._tenant_inflight: Dict[str, int] = {}
+        self._tenant_served: Dict[str, int] = {}
+        # prefix-cache telemetry
+        self.cache_stats: Dict[str, int] = {
+            "cached_tokens": 0,        # prompt tokens served from the cache
+            "shared_block_grants": 0,  # block grants satisfied by sharing
+            "fresh_block_grants": 0,   # block grants satisfied by alloc
+            "cow_copies": 0,           # copy-on-write block copies
+            "registered_blocks": 0,    # blocks published to the hash index
+        }
+
         def pools():
             return model.init_seq_caches(
                 num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
@@ -762,10 +806,12 @@ class ServingEngine:
 
     # -- public API ---------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens: int, *, on_token=None) -> Request:
-        """Queue a request. `on_token(request, token)` streams every emitted
-        token as it is decoded (a speculative round streams each accepted
-        token in order)."""
+    def submit(self, prompt, max_new_tokens: int, *, tenant: str = "default",
+               priority: int = 0, on_token=None) -> Request:
+        """Queue a request. `tenant` / `priority` feed the "priority"
+        scheduler; `on_token(request, token)` streams every emitted token as
+        it is decoded (a speculative round streams each accepted token in
+        order)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         # a speculative round writes up to k tokens past the accepted length
         # before rolling back, so a request needs k tokens of headroom
@@ -775,15 +821,17 @@ class ServingEngine:
                 f"request needs {need} tokens (incl. speculative headroom "
                 f"{self.spec_k}); engine max_seq is {self.ecfg.max_seq} "
                 f"(max_blocks_per_slot * block_size)")
-        r = Request(self._next_rid, prompt, max_new_tokens,
-                    submit_t=self.clock(), on_token=on_token)
+        r = Request(self._next_rid, prompt, max_new_tokens, submit_t=self.clock(),
+                    tenant=tenant, priority=priority, on_token=on_token)
         self._next_rid += 1
         self.queue.append(r)
         return r
 
     def cancel(self, r: Request) -> bool:
         """Abort a queued or running request. A running request's slot and
-        blocks are released immediately. Returns False if the request already
+        blocks are released immediately; frees go through the refcounted
+        allocator, so blocks other slots or the prefix-cache index still
+        reference survive untouched. Returns False if the request already
         finished or was already cancelled."""
         if r.state == QUEUED:
             self.queue.remove(r)
@@ -794,6 +842,15 @@ class ServingEngine:
             r.state, r.finish_t = CANCELLED, self.clock()
             return True
         return False
+
+    def preempt(self, r: Request) -> None:
+        """Preempt a RUNNING request back to the queue front: recompute
+        preemption, identical to block-pressure eviction (its blocks are
+        surrendered, and re-admission re-prefills prompt + generated, from
+        the prefix cache where it is on)."""
+        if r.state != RUNNING:
+            raise ValueError(f"cannot preempt a {r.state!r} request")
+        self._evict(r)
 
     @property
     def busy(self) -> bool:
@@ -813,8 +870,9 @@ class ServingEngine:
         interleave, the engine runs a FIXED set of step shapes. Normal mode:
         at most two token-window widths, prefill_chunk and 1. Speculative
         mode: at most three — the two-model prefill step (width
-        prefill_chunk), the k draft feeds and the width-(k+1) verify. (The
-        JAX package counts traced computations; this engine counts the
+        prefill_chunk), the k draft feeds and the width-(k+1) verify. With
+        the prefix cache on, the copy-on-write block copy ("cow") besides.
+        (The JAX package counts traced computations; this engine counts the
         shapes it has run.)"""
         k = self.spec_k
         if k:
@@ -822,6 +880,9 @@ class ServingEngine:
                        ("verify", k + 1)}
         else:
             allowed = {1, self.ecfg.prefill_chunk}
+        if self.ecfg.prefix_cache:
+            # the copy-on-write block copy: block ids are data, one more shape
+            allowed = allowed | {"cow"}
         if not set(self.traces) <= allowed:
             raise AssertionError(
                 f"unexpected step shapes {set(self.traces)} (allowed {allowed})")
@@ -845,6 +906,17 @@ class ServingEngine:
                                   if entries else 0.0),
             "accepted_len_hist": {str(n): c for n, c in sorted(hist.items())},
         }
+
+    def prefix_cache_report(self) -> Dict[str, Any]:
+        """Prefix-cache telemetry: the cache_stats counters plus the derived
+        block-reuse rate (shared grants over all grants) and the index's
+        current size."""
+        out: Dict[str, Any] = dict(self.cache_stats)
+        grants = out["shared_block_grants"] + out["fresh_block_grants"]
+        out["block_reuse_rate"] = (
+            round(out["shared_block_grants"] / grants, 4) if grants else 0.0)
+        out["cached_blocks_now"] = self.alloc.num_cached
+        return out
 
     # -- scheduler ----------------------------------------------------------
 
@@ -876,7 +948,21 @@ class ServingEngine:
                 continue           # evicted by an earlier reservation
             self._ensure_blocks(r, int(self.lengths[s]) + want(r))
 
-        # pass 2 — pack the surviving slots into one batch
+        # pass 1.5 — copy-on-write: a slot about to write into a block the
+        # prefix cache granted read-only (refcount > 1) gets a private copy
+        # first. Like pass 1 this can evict, so it completes before any
+        # tokens are packed (and before the block tables are uploaded).
+        if ecfg.prefix_cache:
+            for s, r in enumerate(self.slots):
+                if r is None:
+                    continue
+                w = want(r)
+                if len(r.blocks) * ecfg.block_size >= int(self.lengths[s]) + w:
+                    self._cow_for_write(r, s, w)
+
+        # pass 2 — pack the surviving slots into one batch (a slot whose
+        # write would still touch a shared block, COW having found no block,
+        # waits this step, like starvation)
         tokens = np.zeros((ecfg.num_slots, t), np.int32)
         n_new = np.zeros(ecfg.num_slots, np.int32)
         active = [(s, r) for s, r in enumerate(self.slots) if r is not None]
@@ -884,6 +970,8 @@ class ServingEngine:
             w = want(r)
             if len(r.blocks) * ecfg.block_size < int(self.lengths[s]) + w:
                 continue               # starved of blocks: waits this step
+            if self._write_shared(r, s, w):
+                continue               # COW starved: waits this step
             if r.prefilling:
                 tokens[s, :w] = r.feed[r.fed:r.fed + w]
             else:
@@ -901,6 +989,8 @@ class ServingEngine:
                 continue               # evicted by _ensure_blocks, or starved
             r.fed += int(n_new[s])
             self.lengths[s] += int(n_new[s])
+            if ecfg.prefix_cache:
+                self._register_blocks(s, r)
             if not r.prefilling:       # last valid token's logits are usable
                 if r.first_token_t is None:
                     r.first_token_t = self.clock()
@@ -917,10 +1007,12 @@ class ServingEngine:
 
         1. RESERVE: a round writes K/V up to `lengths + k` (the pending token
            and k drafts) before any rollback, so each slot's block table must
-           cover lengths + k + 1 tokens first. A reservation may evict a slot
-           that reserved earlier, so participation is decided only after all
-           of them; a slot that cannot be covered sits the round out (n_new
-           = 0 masks it everywhere), and a round nobody joins emits nothing.
+           cover lengths + k + 1 tokens first, and with the prefix cache on
+           every shared block in that span is copied first (copy-on-write,
+           both pools). A reservation or a copy may evict a slot that
+           reserved earlier, so participation is decided only after all of
+           them; a slot that cannot be covered sits the round out (n_new = 0
+           masks it everywhere), and a round nobody joins emits nothing.
         2. DRAFT: k+1 width-1 feeds of the draft model, k greedy tokens.
         3. VERIFY: one width-(k+1) target step over [pending, d_1..d_k]
            gives the target's argmax after every fed token.
@@ -931,14 +1023,22 @@ class ServingEngine:
            `lengths` advances by exactly the emitted count, so the K/V of
            rejected drafts stays past the readable horizon and is overwritten
            by the next round; the draft pool rolls back the same way, since
-           both pools share block tables and `lengths`."""
+           both pools share block tables and `lengths`. Only then are the
+           newly completed blocks published to the prefix cache, so a
+           rejected draft's K/V never enters the index."""
         ecfg, k = self.ecfg, self.spec_k
         for s, r in active:
             if self.slots[s] is not r:
                 continue               # evicted by an earlier reservation
             self._ensure_blocks(r, int(self.lengths[s]) + k + 1)
+        if ecfg.prefix_cache:
+            for s, r in enumerate(self.slots):
+                if r is not None and (len(r.blocks) * ecfg.block_size
+                                      >= int(self.lengths[s]) + k + 1):
+                    self._cow_for_write(r, s, k + 1)
         live = [(s, r) for s, r in enumerate(self.slots) if r is not None
-                and len(r.blocks) * ecfg.block_size >= int(self.lengths[s]) + k + 1]
+                and len(r.blocks) * ecfg.block_size >= int(self.lengths[s]) + k + 1
+                and not self._write_shared(r, s, k + 1)]
         if not live:
             self.steps += 1            # starved round: everyone waits
             return []
@@ -968,6 +1068,8 @@ class ServingEngine:
             for tok in emit:
                 self._emit(r, tok)
             self.lengths[s] += len(emit)       # the rollback
+            if ecfg.prefix_cache:
+                self._register_blocks(s, r)
             if r.done:
                 self._finish(r)
                 done.append(r)
@@ -1095,29 +1197,192 @@ class ServingEngine:
         return torch.cat([drafts, self._greedy(logits)], dim=1)
 
     def _admit(self) -> None:
-        """FCFS admission: the queue head gets a free slot and, all or
-        nothing, the blocks for its whole feed."""
+        """Admission: pick the next queued request under the configured
+        policy (`_pick_next`), then grant blocks all-or-nothing for its feed
+        (with `chunked_prefill`, only through its first chunk: later chunks
+        grow the table lazily through `_ensure_blocks`). With `prefix_cache`
+        on, the feed's longest block-aligned prefix already in the hash index
+        is shared read-only instead of re-prefilled; at least the feed's last
+        token is always re-fed, because its logits seed the first generated
+        token."""
         ecfg = self.ecfg
         for s in range(ecfg.num_slots):
             if self.slots[s] is not None or not self.queue:
                 continue
-            r = self.queue[0]
+            r = self._pick_next()
+            if r is None:
+                return                 # nothing admissible this step
             feed = r.resume_feed()
-            blocks = self.alloc.alloc(cdiv(len(feed), ecfg.block_size))
+            shared, hashes = self._match_prefix(feed) if ecfg.prefix_cache else ([], [])
+            cached_len = len(shared) * ecfg.block_size
+            if shared and cached_len >= len(feed):
+                cached_len = len(feed) - 1
+            # protect the matched blocks from alloc()'s cache reclaim by
+            # taking our reference BEFORE allocating the fresh remainder
+            for b in shared:
+                self.alloc.share(b)
+            need_tokens = len(feed)
+            if ecfg.chunked_prefill:
+                need_tokens = min(len(feed), cached_len + ecfg.prefill_chunk)
+            blocks = self.alloc.alloc(max(cdiv(need_tokens, ecfg.block_size) - len(shared), 0))
             if blocks is None:
+                self.alloc.free(shared)    # undo the shares; r stays queued
                 return             # all-or-nothing: don't starve the pick
             self.queue.remove(r)
+            self.cache_stats["cached_tokens"] += cached_len
+            self.cache_stats["shared_block_grants"] += len(shared)
+            self.cache_stats["fresh_block_grants"] += len(blocks)
+            r.cached_tokens = cached_len
+            r.hash_chain = hashes
             r.feed = feed
-            r.blocks = blocks
-            r.state, r.slot, r.fed = RUNNING, s, 0
+            r.blocks = shared + blocks
+            r.state, r.slot, r.fed = RUNNING, s, cached_len
             self.slots[s] = r
-            self.lengths[s] = 0
+            self.lengths[s] = cached_len
             self.block_tables[s] = 0
             self.block_tables[s, :len(r.blocks)] = r.blocks
+            self._tenant_acquire(r)
+
+    # -- prefix cache, copy-on-write and tenant accounting --------------------
+
+    def _chunk_hash(self, prev: int, chunk: np.ndarray) -> int:
+        """Chain hash of one full token block given the chain value of
+        everything before it: position-0-anchored, so equal hashes mean the
+        ENTIRE prefix up to this block matches, not just the chunk."""
+        return hash((prev, np.ascontiguousarray(chunk, np.int32).tobytes()))
+
+    def _match_prefix(self, feed: np.ndarray):
+        """(shared_blocks, chain_hashes): the longest prefix of `feed`'s full
+        blocks present in the hash index, at block granularity."""
+        bs = self.ecfg.block_size
+        shared: List[int] = []
+        hashes: List[int] = []
+        h = self._prefix_salt
+        for i in range(len(feed) // bs):
+            h = self._chunk_hash(h, feed[i * bs:(i + 1) * bs])
+            b = self.alloc.lookup(h)
+            if b is None:
+                break
+            shared.append(b)
+            hashes.append(h)
+        return shared, hashes
+
+    def _register_blocks(self, s: int, r: Request) -> None:
+        """Publish every newly COMPLETED full block of slot `s` (its end is
+        at or below the accepted `lengths`, so speculative writes past
+        `lengths` never reach a registered block) to the hash index. The
+        index takes its own reference, so the entry outlives the request."""
+        bs = self.ecfg.block_size
+        full = int(self.lengths[s]) // bs
+        if full <= len(r.hash_chain):
+            return
+        stream = (np.concatenate([r.prompt, np.asarray(r.out_tokens, np.int32)])
+                  if r.out_tokens else r.prompt)
+        for i in range(len(r.hash_chain), full):
+            prev = r.hash_chain[-1] if r.hash_chain else self._prefix_salt
+            h = self._chunk_hash(prev, stream[i * bs:(i + 1) * bs])
+            if self.alloc.register(r.blocks[i], h):
+                self.cache_stats["registered_blocks"] += 1
+            r.hash_chain.append(h)
+
+    def _touched_blocks(self, r: Request, s: int, w: int):
+        """Logical block indices the next `w`-token write at `lengths[s]`
+        lands in (clipped to the table)."""
+        bs = self.ecfg.block_size
+        start = int(self.lengths[s])
+        return range(start // bs, min(cdiv(start + w, bs), len(r.blocks)))
+
+    def _write_shared(self, r: Request, s: int, w: int) -> bool:
+        """True if any block the next write touches is still shared: writing
+        would corrupt another reference's read-only view."""
+        if not self.ecfg.prefix_cache:
+            return False
+        return any(self.alloc.refcount(r.blocks[i]) > 1
+                   for i in self._touched_blocks(r, s, w))
+
+    def _cow_for_write(self, r: Request, s: int, w: int) -> bool:
+        """Copy-on-write: give `r` a private copy of every shared block its
+        next `w`-token write touches, before the step appends to it (both
+        pools in speculative mode). Under pool exhaustion the youngest other
+        running request is evicted, as in `_ensure_blocks`; False means `r`
+        waits this step."""
+        for i in self._touched_blocks(r, s, w):
+            old = r.blocks[i]
+            if self.alloc.refcount(old) <= 1:
+                continue               # sole owner: write in place
+            got = self.alloc.alloc(1)
+            while got is None:
+                victim = self._youngest_running(exclude=r)
+                if victim is None:
+                    return False       # nothing to evict; r waits this step
+                self._evict(victim)
+                got = self.alloc.alloc(1)
+            new = self._count_fresh(got)[0]
+            self._cow_copy(old, new)
+            r.blocks[i] = new
+            self.block_tables[s, i] = new      # reaches the step through its upload
+            self.alloc.free([old])     # drop our reference; sharers keep it
+            self.cache_stats["cow_copies"] += 1
+        return True
+
+    @torch.no_grad()
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Block `src`'s rows of every per-block pool tensor (K, V and the
+        int8 pools' scales; the per-layer smoothing vectors are not per
+        block) copied into block `dst`, in the target pool and the draft's.
+        In place, so the tensors the step graphs read stay the same; eager,
+        on the current stream, so it runs after the last replay and before
+        the next upload. Block ids are host ints: no sync, no new tensor.
+        Counted as one "cow" step shape."""
+        for caches in (self.caches, self.draft_caches):
+            if caches is None:
+                continue
+            pool = caches["paged"]
+            for name in ("k", "v", "k_scale", "v_scale"):
+                if name in pool:
+                    pool[name][:, dst].copy_(pool[name][:, src])
+        self.traces["cow"] = self.traces.get("cow", 0) + 1
+
+    def _pick_next(self) -> Optional[Request]:
+        """The admission pick. "fcfs": the queue head. "priority": among
+        requests whose tenant stays under `tenant_token_budget`, the highest
+        priority wins; ties go to the tenant with the smallest weighted fair
+        share (tokens served / weight), then to arrival order."""
+        if not self.queue:
+            return None
+        if self.ecfg.scheduler == "fcfs":
+            return self.queue[0]
+        budget = self.ecfg.tenant_token_budget
+        weights = self.ecfg.tenant_weights or {}
+
+        def admissible(r: Request) -> bool:
+            if budget is None:
+                return True
+            need = len(r.resume_feed()) + r.max_new_tokens - len(r.out_tokens)
+            return self._tenant_inflight.get(r.tenant, 0) + need <= budget
+
+        eligible = [r for r in self.queue if admissible(r)]
+        if not eligible:
+            return None
+        return min(eligible, key=lambda r: (
+            -r.priority,
+            self._tenant_served.get(r.tenant, 0) / weights.get(r.tenant, 1.0),
+            r.rid))
+
+    def _tenant_acquire(self, r: Request) -> None:
+        r.inflight_tokens = len(r.feed) + r.max_new_tokens - len(r.out_tokens)
+        self._tenant_inflight[r.tenant] = (
+            self._tenant_inflight.get(r.tenant, 0) + r.inflight_tokens)
+
+    def _tenant_release(self, r: Request) -> None:
+        self._tenant_inflight[r.tenant] = (
+            self._tenant_inflight.get(r.tenant, 0) - r.inflight_tokens)
+        r.inflight_tokens = 0
 
     def _emit(self, r: Request, tok: int) -> None:
         """Append one generated token: bookkeeping + streaming callback."""
         r.out_tokens.append(tok)
+        self._tenant_served[r.tenant] = self._tenant_served.get(r.tenant, 0) + 1
         if r.on_token is not None:
             r.on_token(r, tok)
 
@@ -1132,6 +1397,7 @@ class ServingEngine:
                 return True
             got = self.alloc.alloc(need)
             if got is not None:
+                self._count_fresh(got)
                 self.block_tables[r.slot, len(r.blocks):len(r.blocks) + len(got)] = got
                 r.blocks.extend(got)
                 continue
@@ -1140,15 +1406,21 @@ class ServingEngine:
                 return False           # nothing to evict; r waits this step
             self._evict(victim)
 
+    def _count_fresh(self, got: List[int]) -> List[int]:
+        self.cache_stats["fresh_block_grants"] += len(got)
+        return got
+
     def _youngest_running(self, exclude: Request) -> Optional[Request]:
         running = [r for r in self.slots
                    if r is not None and r is not exclude]
         return max(running, key=lambda r: r.rid) if running else None
 
     def _release(self, r: Request) -> None:
-        """Give back `r`'s slot and blocks."""
+        """Give back `r`'s slot, its blocks (refcounted: sharers and the
+        hash index keep theirs) and its tenant's inflight tokens."""
         s = r.slot
         self.alloc.free(r.blocks)
+        self._tenant_release(r)
         r.blocks, r.slot, r.feed = [], None, None
         self.slots[s] = None
         self.lengths[s] = 0
@@ -1160,7 +1432,7 @@ class ServingEngine:
         logger.info(f"engine: preempting request {r.rid} "
                     f"({len(r.out_tokens)}/{r.max_new_tokens} tokens done)")
         self._release(r)
-        r.fed = 0
+        r.fed, r.hash_chain = 0, []
         r.state, r.preemptions = QUEUED, r.preemptions + 1
         self.queue.appendleft(r)
 

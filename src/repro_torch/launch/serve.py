@@ -16,6 +16,16 @@ per verify round; the tokens equal plain greedy decoding's):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
         --continuous --speculative 3 --requests 6 --tokens 16
 
+The engine's production features (continuous mode): `--prefix-cache` shares
+the KV blocks of a common prompt prefix between requests (copy-on-write; the
+same tokens as without it), `--chunked-prefill` admits a prompt with one
+prefill chunk's blocks, `--priority` admits by priority and weighted-fair
+tenant share; the demo traffic then opens every other request with one
+shared prompt and alternates tenants and priorities:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
+        --continuous --prefix-cache --chunked-prefill --priority
+
 `--lcd` compresses the dense weights drawn from `--seed` with the LCD pipeline
 (`compress_model`) before serving: `--bits` packs every layer at one width,
 `--bits-budget` mixes widths per layer under a global mean, `--describe`
@@ -83,7 +93,10 @@ def _run_continuous(args, device) -> list:
                         speculative_k=args.speculative,
                         draft_centroids=args.draft_centroids,
                         kv_dtype=args.kv_dtype, weight_bits=args.bits,
-                        bits_budget=args.bits_budget, arch=args.arch)
+                        bits_budget=args.bits_budget, prefix_cache=args.prefix_cache,
+                        chunked_prefill=args.chunked_prefill,
+                        scheduler="priority" if args.priority else "fcfs",
+                        arch=args.arch)
     engine, _ = build_engine(args.arch, use_reduced=args.reduced, lcd=args.lcd,
                              target_centroids=args.centroids, ecfg=ecfg,
                              seed=args.seed, fused_projections=args.fused_projections,
@@ -95,15 +108,26 @@ def _run_continuous(args, device) -> list:
     cfg = engine.model.cfg
     # staggered submissions: a fresh request every other scheduler step, with
     # varying prompt lengths — the continuous-batching case a static batch
-    # cannot serve without padding everyone to the slowest request
-    pending = [rng.integers(0, cfg.vocab, rng.integers(4, args.prompt_len + 1))
-               for _ in range(args.requests)]
+    # cannot serve without padding everyone to the slowest request. With
+    # --prefix-cache every other request opens with the same "system prompt"
+    # so that the demo exercises block reuse; with --priority the requests
+    # alternate between two tenants and cycle through three priorities.
+    shared = (rng.integers(0, cfg.vocab, max(4, args.prompt_len // 2))
+              if args.prefix_cache else None)
+    pending = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, rng.integers(4, args.prompt_len + 1))
+        if shared is not None and i % 2 == 0:
+            prompt = np.concatenate([shared, prompt])
+        pending.append((prompt, dict(tenant=f"tenant{i % 2}", priority=i % 3)
+                        if args.priority else {}))
     finished = []
     _build_kernels(device)
     t0 = time.perf_counter()
     while pending or engine.busy:
         if pending and engine.steps % 2 == 0:
-            engine.submit(pending.pop(0), max_new_tokens=args.tokens)
+            prompt, kw = pending.pop(0)
+            engine.submit(prompt, max_new_tokens=args.tokens, **kw)
         if engine.busy:
             finished.extend(engine.step())
         else:
@@ -124,6 +148,8 @@ def _run_continuous(args, device) -> list:
                 f"{engine.traces}")
     if args.speculative:
         logger.info(f"speculative: {engine.acceptance_summary()}")
+    if args.prefix_cache:
+        logger.info(f"prefix cache: {engine.prefix_cache_report()}")
     return finished
 
 
@@ -171,6 +197,20 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
                          "element-weighted mean-bits cap (e.g. 3.0): "
                          "empirical-Fisher scores keep sensitive layers at "
                          "4-bit and drop the rest to 3/2 (overrides --bits)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-hashed prefix caching with copy-on-write "
+                         "block tables: requests sharing a prompt prefix "
+                         "share physical KV blocks, the same tokens as "
+                         "without it (continuous mode only)")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="admit long prompts with one prefill chunk's worth "
+                         "of blocks instead of the whole prompt's, so they "
+                         "start behind a busy pool (continuous mode only)")
+    ap.add_argument("--priority", action="store_true",
+                    help="priority / weighted-fair multi-tenant admission in "
+                         "place of FCFS; the demo tags requests with "
+                         "alternating tenants and priorities (continuous "
+                         "mode only)")
     ap.add_argument("--no-fused-projections", dest="fused_projections",
                     action="store_false",
                     help="serve same-input projection groups (QKV; gate+up) "
@@ -190,6 +230,11 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
         ap.error("--kv-dtype applies to the paged engine; add --continuous")
     if args.describe and not args.continuous:
         ap.error("--describe inspects the paged engine; add --continuous")
+    for flag, name in ((args.prefix_cache, "--prefix-cache"),
+                       (args.chunked_prefill, "--chunked-prefill"),
+                       (args.priority, "--priority")):
+        if flag and not args.continuous:
+            ap.error(f"{name} applies to the paged engine; add --continuous")
     dev = resolve_device(args.device)
     if args.continuous:
         return _run_continuous(args, dev)

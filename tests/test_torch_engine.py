@@ -134,11 +134,7 @@ def test_engine_config_fields_and_defaults_match_reference():
     assert port_engine.EngineConfig(block_size=8, max_blocks_per_slot=4).max_seq == 32
 
 
-UNPORTED = [
-    (dict(prefix_cache=True), "prefix_cache"),
-    (dict(scheduler="priority"), "scheduler"), (dict(chunked_prefill=True), "chunked_prefill"),
-    (dict(data_parallel=2), "data_parallel"), (dict(model_parallel=4), "model_parallel"),
-]
+UNPORTED = [(dict(data_parallel=2), "data_parallel"), (dict(model_parallel=4), "model_parallel")]
 
 
 @pytest.mark.parametrize("kw,knob", UNPORTED, ids=[k for _, k in UNPORTED])
