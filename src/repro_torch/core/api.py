@@ -31,6 +31,7 @@ from repro_torch.core.lut import (SUPPORTED_NBITS, pack_codes, pack_codes_torch,
                                   unpack_codes)
 from repro_torch.core.smoothing import adaptive_smooth, fold_into_weight
 from repro_torch.optim.compress import allocate_bits
+from repro_torch.tree import dict_key, flatten_with_paths
 from repro_torch.utils import logger, resolve_device
 
 
@@ -179,18 +180,16 @@ def default_predicate(path: str, x: Any) -> bool:
 
 def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs of a parameter tree (nested dicts) in the
-    reference's order and spelling: keys sorted, a path reads "['a']['b']";
-    a ClusteredTensor is one leaf."""
-    if isinstance(tree, dict):
-        return [pl for k in sorted(tree)
-                for pl in _flatten_with_paths(tree[k], f"{prefix}[{k!r}]")]
-    return [(prefix, tree)]
+    reference's order and spelling (`repro_torch.tree`): keys sorted, a path
+    reads "['a']['b']"; everything but a dict, a ClusteredTensor too, is one
+    leaf."""
+    return flatten_with_paths(tree, prefix, is_leaf=lambda n: not isinstance(n, dict))
 
 
 def _rebuild(tree, leaves: Dict[str, Any], prefix: str = ""):
     """`tree` with the leaf at each path replaced by leaves[path]."""
     if isinstance(tree, dict):
-        return {k: _rebuild(v, leaves, f"{prefix}[{k!r}]") for k, v in tree.items()}
+        return {k: _rebuild(v, leaves, prefix + dict_key(k)) for k, v in tree.items()}
     return leaves[prefix]
 
 

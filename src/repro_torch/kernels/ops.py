@@ -193,11 +193,37 @@ def lut_gemm_fused(
     return y * act_scale if quantize else y
 
 
+def _reaches_kernel(x: torch.Tensor) -> bool:
+    """Whether a call on `x` launches a CUDA kernel: the wrappers send a CUDA
+    tensor to the kernel and any other to its plain version."""
+    return x.device.type == "cuda"
+
+
+def _refuse_grad(x: torch.Tensor, cts) -> None:
+    """The CUDA LUT kernels have no backward, so autograd would see their
+    outputs as constants: a codebook (or an input) that requires grad would
+    get a silent zero gradient. Refuse that call. The plain versions that
+    serve CPU tensors differentiate as the reference's gather contraction
+    does; under `torch.no_grad()` nothing is differentiated."""
+    if not (torch.is_grad_enabled() and _reaches_kernel(x)):
+        return
+    fields = [getattr(ct, f) for ct in cts
+              for f in ("codebook", "smooth", "inv_scale", "act_scale")]
+    if x.requires_grad or any(f is not None and f.requires_grad for f in fields):
+        raise NotImplementedError(
+            "clustered_linear: gradients through the LUT kernels (the codebook "
+            "fine-tune of the LCD student) are not ported - the CUDA kernels have "
+            "no backward; run the student under torch.no_grad(), or fine-tune its "
+            "codebooks on the CPU")
+
+
 def clustered_linear(x: torch.Tensor, ct: ClusteredTensor) -> torch.Tensor:
     """Model-facing clustered matmul: the fused LUT contraction over the
     tensor's packed codes, cast back to x's dtype. `ct` is one layer's
     tensor: a stacked (expert) codebook belongs to the MoE family, which is
-    not ported."""
+    not ported. On the card, a call that autograd would have to
+    differentiate raises NotImplementedError (`_refuse_grad`)."""
+    _refuse_grad(x, (ct,))
     if ct.codebook.ndim != 1:
         raise NotImplementedError(
             f"clustered_linear: stacked codebook {tuple(ct.codebook.shape)}; the "
@@ -255,8 +281,10 @@ def clustered_linear_multi(x: torch.Tensor, cts) -> Tuple[torch.Tensor, ...]:
     nbits and quantize flags may differ.
 
     A single projection, or a stacked (expert) codebook, goes through
-    per-projection `clustered_linear` calls."""
+    per-projection `clustered_linear` calls. On the card, a call that
+    autograd would have to differentiate raises NotImplementedError."""
     cts = tuple(cts)
+    _refuse_grad(x, cts)
     if len(cts) < 2 or any(ct.codebook.ndim != 1 for ct in cts):
         return tuple(clustered_linear(x, ct) for ct in cts)
     params = [_transform_params(ct) for ct in cts]

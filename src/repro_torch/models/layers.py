@@ -1,6 +1,7 @@
-"""Layer library of the dense transformer family's serving paths: the paged
-attention block of the continuous-batching engine and the contiguous-cache
-attention block of the static-batch path.
+"""Layer library of the dense transformer family: the paged attention block
+of the continuous-batching engine, and the contiguous-cache attention block
+of the static-batch path and of the full-sequence forward (train, prefill,
+evaluation).
 
 Everything is functional: `fn(params_subtree, inputs, cfg, ...) -> outputs`,
 on plain tensors and nested dicts of tensors. Names and conventions are those
@@ -14,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import _unpack_codes, is_clustered
 from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
@@ -192,12 +194,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_pos = torch.arange(sk, device=q.device)
     if sq > chunk and sq % chunk:
         chunk = next(c for c in range(chunk, 0, -1) if sq % c == 0)
+    # with more than one chunk under autograd, each chunk's body is
+    # recomputed in the backward instead of keeping its S x chunk scores and
+    # probabilities (the JAX package checkpoints its chunk scan the same way):
+    # the numbers are the same, only the memory differs
+    remat = sq > chunk and torch.is_grad_enabled()
     outs = []
     for c0 in range(0, sq, min(sq, chunk)):
         c1 = min(sq, c0 + chunk)
         q_pos = q_offset + torch.arange(c0, c1, device=q.device)
-        outs.append(_attn_chunk(q[:, c0:c1], k, v, q_pos, k_pos, causal=causal,
-                                window=window, softcap=softcap, scale=scale))
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        if remat:
+            outs.append(checkpoint(_attn_chunk, q[:, c0:c1], k, v, q_pos, k_pos,
+                                   use_reentrant=False, **kw))
+        else:
+            outs.append(_attn_chunk(q[:, c0:c1], k, v, q_pos, k_pos, **kw))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 

@@ -2,6 +2,8 @@
 
     model = get_model(cfg)                      # cfg or arch-id string
     params = model.init(generator, device)      # real tensors
+    logits, aux = model.apply(params, {"tokens": t})    # full sequence
+    loss = lm_loss(logits, targets, loss_mask, model.cfg.vocab)
     logits, caches = model.serving_step(params, caches, tokens, lengths,
                                         n_new, block_tables)
     logits, caches = model.serving_verify(params, caches, tokens, lengths,
@@ -14,8 +16,8 @@ serves through, keyed by kind ("paged": a block-table pool over
 (num_blocks, block_size) rows), plus a capability set telling the engine which
 features apply. The dense family and the vlm family are ported; a vlm arch
 (paligemma-3b) serves its text decoder through the dense paged step, as the
-JAX package's does (its image prefix belongs to the full-sequence forward,
-which is not ported yet).
+JAX package's does, and takes its image prefix in the full-sequence forward
+(`batch["img_embeds"]`).
 """
 from __future__ import annotations
 
@@ -75,6 +77,7 @@ class Model:
     cfg: ModelConfig
     table: PT.Table
     capabilities: frozenset = frozenset()
+    _apply: Optional[Callable] = None
     _init_paged_cache: Optional[Callable] = None
     _serving_step: Optional[Callable] = None
     _serving_verify: Optional[Callable] = None
@@ -84,6 +87,12 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda"):
         return PT.init_params(generator, self.table, self.cfg.torch_dtype,
                               device)
+
+    def apply(self, params, batch: Dict[str, Any]):
+        """Full-sequence forward: batch = {"tokens": (B, S)[, "img_embeds":
+        (B, P, d)]}. Returns (logits (B, S, padded_vocab) aligned with the
+        text tokens, aux). Differentiable; not under `torch.no_grad()`."""
+        return self._apply(params, batch, self.cfg)
 
     def decode(self, params, cache, batch: Dict[str, Any]):
         """One static-path step: batch = {"tokens": (B, S), "pos": the 0-d
@@ -122,6 +131,15 @@ class Model:
                                     block_tables, self.cfg)
 
 
+def _dense_apply(params, batch, cfg):
+    prefix = batch.get("img_embeds")
+    logits, aux = transformer.forward(params, batch["tokens"], cfg,
+                                      prefix_embeds=prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]   # align logits with text tokens
+    return logits, aux
+
+
 def _dense_serving_step(params, caches, tokens, lengths, n_new, block_tables,
                         cfg):
     logits, pool = transformer.paged_decode_step(
@@ -150,7 +168,24 @@ def get_model(cfg: Union[ModelConfig, str]) -> Model:
             f"model family {cfg.family!r} (arch {cfg.arch_id!r}) is not ported "
             f"yet; ported families: {', '.join(PORTED_FAMILIES)}")
     return Model(cfg, transformer.param_table(cfg), capabilities=caps,
-                 _init_paged_cache=transformer.init_paged_cache,
+                 _apply=_dense_apply, _init_paged_cache=transformer.init_paged_cache,
                  _serving_step=_dense_serving_step,
                  _serving_verify=_dense_serving_verify, _decode=_dense_decode,
                  _init_cache=transformer.init_cache)
+
+
+# --- loss ---------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+            vocab: int) -> torch.Tensor:
+    """Masked next-token cross-entropy in f32; padded-vocab logits are
+    excluded (set to -1e30)."""
+    lf = logits.to(torch.float32)
+    if lf.shape[-1] != vocab:
+        valid = torch.arange(lf.shape[-1], device=lf.device) < vocab
+        lf = torch.where(valid, lf, torch.full((), -1e30, device=lf.device))
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    mask = mask.to(torch.float32)
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

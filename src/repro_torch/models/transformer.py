@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer family — the paged serving path of the
-continuous-batching engine and the contiguous-cache decode of the static path.
+"""Dense decoder-only transformer family — the full-sequence forward (train,
+prefill, evaluation), the paged serving path of the continuous-batching
+engine and the contiguous-cache decode of the static path.
 
 Covers llama2-7b (the paper's own subject), qwen2-1.5b (GQA, QKV bias,
 padded heads), gemma2-27b (alternating local/global windows, attention and
@@ -157,6 +158,73 @@ def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, window: int,
     x = x + attn_block(p["attn"], h, cfg, layer_window=window, cache=cache)
     h = norm(x, p["ln_mlp"], cfg.norm)
     return x + mlp_block(p["mlp"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence: train / prefill / evaluation)
+# ---------------------------------------------------------------------------
+
+# what remat_policy="dots" keeps: the outputs of the matmuls with no batch
+# dimension (the projections; the JAX package's
+# dots_with_no_batch_dims_saveable). Attention's batched products and
+# everything else are recomputed in the backward.
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    """`_block` under `torch.utils.checkpoint`: "nothing" keeps only the
+    layer's input and recomputes the rest in the backward; "dots" also keeps
+    the projections' outputs."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_save_dots)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"remat_policy must be 'nothing' or 'dots'; got "
+                         f"{cfg.remat_policy!r}")
+    return checkpoint(_block, cfg, p, x, window, use_reentrant=False, **kw)
+
+
+def forward(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,                        # (B, S)
+    cfg: ModelConfig,
+    *,
+    prefix_embeds: Optional[torch.Tensor] = None,   # (B, P, d) VLM patch embeds
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B, P + S, padded_vocab), aux),
+    aux an f32 zero (the dense family has no auxiliary loss).
+
+    Differentiable: training takes gradients through it, so there is no
+    `torch.no_grad()` here and evaluation callers wrap it themselves. With
+    `cfg.remat` and autograd on, each layer's body runs under
+    `torch.utils.checkpoint` (`cfg.remat_policy`), as the JAX package wraps
+    its scanned body in `jax.checkpoint`. Clustered weights go through
+    `kernels.ops.clustered_linear` / `clustered_linear_multi`: on the card
+    the LUT GEMMs at B * S rows."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "mixture-of-experts MLPs (moe_block) are not ported yet")
+    x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (B, S, d)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    windows = layer_windows(cfg)
+    blocks = params["blocks"]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for l in range(cfg.n_layers):
+        p, w = layer_slice(blocks, l), int(windows[l])
+        x = _remat_block(cfg, p, x, w) if remat else _block(cfg, p, x, w)
+    x = norm(x, params["ln_final"], cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_head_logits(params, x, cfg), aux
 
 
 @torch.no_grad()

@@ -1,12 +1,23 @@
-"""`allocate_bits` — the mixed-precision weight-bit allocator behind
-`compress_model(bits_budget=...)`, ported from the JAX package's
-`repro.optim.compress`: given per-layer empirical-Fisher sensitivity scores,
-assign each layer a packing width in {2, 3, 4} so the element-weighted mean
-stays under a global budget. Plain Python, as in the reference.
+"""Compression-side optimization utilities, ported from the JAX package's
+`repro.optim.compress`:
+
+1. `allocate_bits` — the mixed-precision weight-bit allocator behind
+   `compress_model(bits_budget=...)`: given per-layer empirical-Fisher
+   sensitivity scores, assign each layer a packing width in {2, 3, 4} so the
+   element-weighted mean stays under a global budget. Plain Python, as in
+   the reference.
+2. Gradient compression with error feedback: int8 symmetric per-tensor
+   quantization of each gradient, with a residual re-injected at the next
+   step so the applied gradient stays unbiased over time (`EFState`,
+   `apply_ef`; the train step's `grad_compress`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 def allocate_bits(
@@ -63,3 +74,29 @@ def allocate_bits(
         if not moved:
             break
     return bits
+
+
+class EFState(NamedTuple):
+    residual: Any          # same structure as the grads, f32; None = off
+
+
+def init_ef(params) -> EFState:
+    return EFState(tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params))
+
+
+def compress_decompress(g: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize (g + residual) to int8 with one absmax scale, return
+    (dequantized in g's dtype, new f32 residual)."""
+    gf = g.to(torch.float32) + r
+    scale = torch.clamp(torch.amax(torch.abs(gf)), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(gf / scale), -127, 127)
+    deq = q * scale
+    return deq.to(g.dtype), gf - deq
+
+
+def apply_ef(grads, ef: EFState):
+    """(compressed grads, EFState of the new residuals), leaf by leaf."""
+    out = [compress_decompress(g, r) for g, r in zip(leaves(grads), leaves(ef.residual))]
+    return (unflatten(grads, [d for d, _ in out]),
+            EFState(unflatten(ef.residual, [r for _, r in out])))

@@ -1,9 +1,11 @@
 """What the port may import and where it builds: an AST walk over
-`src/repro_torch/**/*.py` and `chip_smoke.py` (no `jax`, no `repro` anywhere;
-no `triton` at module level; no library attention or `torch.compile`, except
+`src/repro_torch/**/*.py` and `chip_smoke.py` (no `jax`, no `repro` and no
+`ml_dtypes`, which the card's machine lacks, anywhere; no `triton` at module
+level; no library attention or `torch.compile`, except
 the smoke script's one timed yardstick), the kernel sources the build names,
 the build directory in `.gitignore`, and the notes every CUDA source opens
-with."""
+with; and the trainer's entry points default to the card and raise
+without one."""
 import ast
 import pathlib
 import re
@@ -15,7 +17,7 @@ pytestmark = pytest.mark.tier1
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN_ANYWHERE = {"jax", "jaxlib", "repro", "flax", "optax"}
+FORBIDDEN_ANYWHERE = {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
 FORBIDDEN_AT_MODULE_LEVEL = {"triton"}
 
 
@@ -33,7 +35,8 @@ def test_the_walk_sees_the_whole_package():
     names = {f.relative_to(ROOT).as_posix() for f in FILES}
     for want in ("src/repro_torch/launch/engine.py", "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/models/layers.py", "src/repro_torch/convert.py",
-                 "chip_smoke.py"):
+                 "src/repro_torch/launch/train.py", "src/repro_torch/checkpoint/manager.py",
+                 "src/repro_torch/data/pipeline.py", "chip_smoke.py"):
         assert want in names
     assert len(FILES) >= 20
 
@@ -42,7 +45,8 @@ def test_the_walk_sees_the_whole_package():
 def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [(m, ln) for m, ln in _imports(tree, False) if m in FORBIDDEN_ANYWHERE]
-    assert not bad, f"{path}: imports {bad}; the port imports nothing of JAX or of `repro`"
+    assert not bad, (f"{path}: imports {bad}; the port imports nothing of JAX, of `repro` "
+                     f"or `ml_dtypes`")
     bad = [(m, ln) for m, ln in _imports(tree, True) if m in FORBIDDEN_AT_MODULE_LEVEL]
     assert not bad, f"{path}: module-level import of {bad}; import it where it is launched"
     text = path.read_text()
@@ -123,3 +127,15 @@ def test_resource_usage_reads_the_ptxas_reports(tmp_path):
         "lut_gemv_kernel": {"registers": [104, 106], "stack_bytes": 24, "spill_bytes": 12},
         "paged_attn_kernel": {"registers": [40, 40], "stack_bytes": 0, "spill_bytes": 0}}
     assert _build.resource_usage(tmp_path / "none") == {}
+
+
+def test_trainer_entry_points_default_to_cuda_and_raise_without_one():
+    import torch
+
+    from repro_torch.launch import train as port_train
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card; the refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="pass device='cpu' explicitly"):
+        port_train.train("qwen2-1.5b", steps=1)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        port_train.main(["--arch", "qwen2-1.5b", "--reduced", "--steps", "1"])
