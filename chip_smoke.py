@@ -41,7 +41,14 @@ teacher and student CE with the student's forward through the LUT GEMMs at
 4096 rows, then an engine on the student); shows, by the kernels' launch counts (a replay adds
 what its capture recorded), that each path really went through the
 kernels, and reads under torch.profiler where a prefill step's and a
-decode step's time goes, graph and eager body in turns. Every phase prints
+decode step's time goes, graph and eager body in turns; serves the
+mixture-of-experts family (`moe_parity`: a 2-layer full-width phi3.5-moe
+with its stacked experts clustered, kernels against their plain versions,
+the MoE block alone against its f32 run, B1-B5 at both MoE archs' shapes;
+`serve_moe`: phi3.5-moe at its 32 layers and llama4-scout cut to 4 at full
+width, every replay equal to its eager body, where a step's time goes,
+then phi3.5-moe's first 2 layers over an int8 pool and speculatively).
+Every phase prints
 one JSON line; any failed phase ends the process with a non-zero exit
 code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
@@ -840,19 +847,22 @@ WINDOW_LENGTHS = torch.tensor([4400, 37, 0, 4090, 16, 0, 130, 4500], dtype=torch
 def _family_shapes(arch):
     """(solo launches {projection: (K, N)}, multi launches {group: (K,
     widths)}) of an arch's layer: QKV is one multi launch, and gate+up where
-    the MLP has a gate; wo, w_down and the gelu MLP's w_up are solo."""
+    the MLP has a gate; wo, w_down and the gelu MLP's w_up are solo. An MoE
+    layer's LUT launches are its attention's (QKV and wo)."""
     from repro_torch.models.config import get_config
     cfg = get_config(arch)
     d, q, kv, f = cfg.d_model, cfg.q_dim_eff, cfg.kv_dim, cfg.d_ff
     solo, groups = {"wo": (q, d), "w_down": (f, d)}, {"qkv": (d, (q, kv, kv))}
-    if cfg.mlp == "swiglu":
+    if cfg.n_experts:
+        del solo["w_down"]
+    elif cfg.mlp == "swiglu":
         groups["gate_up"] = (d, (f, f))
     else:
         solo["w_up"] = (d, f)
     return solo, groups
 
 
-def check_family_kernels(gen):
+def check_family_kernels(gen, archs=None, rows=None):
     """B1-B5 at the shapes and options the rest of the family gives them,
     4-bit codes, bf16 activations, quantized transform, bf16 pool: each case
     against its plain version (the tolerances of `_lut_check`,
@@ -862,7 +872,9 @@ def check_family_kernels(gen):
     over 4, gemma2 32 over 16 with its softcap of 50 and window of 4096 over
     slots holding up to 4500 tokens, where the same launch without the window
     must differ on every slot past it), and a row's bits at T = 32 against
-    T = 1 for each. Returns (cases, worst error per kernel)."""
+    T = 1 for each. `archs` (FAMILY by default) and `rows` (the LUT
+    kernels' M; 8, and 256 too for gemma2-27b, by default) choose the
+    cases. Returns (cases, worst error per kernel)."""
     from repro_torch.kernels.paged_attention import paged_pool_attention
     from repro_torch.models.config import get_config
     bf16, cases, worst = torch.bfloat16, [], {}
@@ -871,9 +883,9 @@ def check_family_kernels(gen):
         worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), case["max_abs_err"])
         cases.append(case)
 
-    for arch in FAMILY:
+    for arch in archs or FAMILY:
         solo, groups = _family_shapes(arch)
-        for m in ((8, 256) if arch == "gemma2-27b" else (8,)):
+        for m in rows or ((8, 256) if arch == "gemma2-27b" else (8,)):
             for proj, (k, n) in solo.items():
                 case, kern = _lut_check(gen, m, k, n, 4, bf16, True)
                 case.update(arch=arch, group=proj,
@@ -1917,15 +1929,24 @@ NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0,
                "paged_dequant_attention": 0, "flash_attention": 0}
 
 
+def _mlp_kind(cfg):
+    """What a layer's MLP launches: "moe" (no LUT launch: the experts are
+    resolved by `layers.resolve_weight` and multiplied by plain products, as
+    in the JAX package), else the dense MLP's kind."""
+    return "moe" if cfg.n_experts else cfg.mlp
+
+
 def _lut_launches_per_layer(fused, mlp="swiglu"):
     """(multi, solo) LUT launches of one layer's step: the SwiGLU MLP's
     layer runs 2 multi launches (QKV, gate+up) and 2 solo (wo, w_down)
     fused, 7 solo unfused; the gelu MLP has no gate, so its layer runs one
-    multi launch (QKV) and 3 solo (wo, w_up, w_down) fused, 6 solo unfused."""
-    n = 7 if mlp == "swiglu" else 6
+    multi launch (QKV) and 3 solo (wo, w_up, w_down) fused, 6 solo unfused;
+    an MoE layer's LUT launches are its attention's: one multi (QKV) and
+    one solo (wo) fused, 4 solo unfused."""
+    n = {"swiglu": 7, "gelu": 6, "moe": 4}[mlp]
     if not fused:
         return 0, n
-    return (2, 2) if mlp == "swiglu" else (1, 3)
+    return {"swiglu": (2, 2), "gelu": (1, 3), "moe": (1, 1)}[mlp]
 
 
 def _expected_launches(fused, n_layers, widths, mlp="swiglu"):
@@ -2007,12 +2028,16 @@ def _graph_check(name, engine, seed):
     over the clones, with any host synchronisation an error; the tokens and
     every pool tensor must be torch.equal.
     In speculative mode every round also holds the verify's rows to width-1
-    steps (`_verify_rows_check`). Fails the run on a miss, or when a graph
-    was never replayed or the drive lacked block growth or a re-admission."""
+    steps (`_verify_rows_check`), except for an MoE model: its layers route
+    all rows of a step together under a capacity, so a verify row is not a
+    width-1 step's row there, in the JAX package either. Fails the run on a
+    miss, or when a graph was never replayed or the drive lacked block
+    growth or a re-admission."""
     graphs = engine._graphs
     spec = engine.spec_k > 0
+    rows_checked = spec and not engine.model.cfg.n_experts
     seen = dict(replays={}, warm_ups={}, misses=[], idle_slot_steps=0, grown=0, readmitted=0)
-    if spec:
+    if rows_checked:
         seen.update(verify_rows_compared=0, verify_row_misses=[])
 
     def checked(tokens, n_new):
@@ -2054,7 +2079,8 @@ def _graph_check(name, engine, seed):
         if not np.array_equal(got, want) or bad:
             seen["misses"].append(dict(step=engine.steps, round=True, tokens=got.tolist(),
                                        eager_tokens=want.tolist(), pools_differ=bad))
-        _verify_rows_check(engine, buf, drafts, *rows_pools, seen)
+        if rows_checked:
+            _verify_rows_check(engine, buf, drafts, *rows_pools, seen)
         return got
 
     engine_step, engine_round = engine._model_step, engine._model_round
@@ -2093,7 +2119,8 @@ def _graph_check(name, engine, seed):
           and seen["idle_slot_steps"] > 0
           and all(seen["replays"].get(w, 0) > 0 for w in graphs_of)
           and all(r.state == "finished" and len(r.out_tokens) == 20 for r in requests)
-          and not (spec and (seen["verify_row_misses"] or not seen["verify_rows_compared"])))
+          and not (rows_checked and (seen["verify_row_misses"]
+                                     or not seen["verify_rows_compared"])))
     emit("graph", engine=name, arch=cfg.arch_id, layers=cfg.n_layers, ok=ok,
          steps_compared=sum(seen["replays"].values())
          + sum(seen["warm_ups"].values()), **seen)
@@ -2170,7 +2197,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     widths = dict(engine.traces)
     model_steps = sum(widths.values())
     n_tok = sum(len(r.out_tokens) for r in requests)
-    expected = _expected_launches(fused, n_layers, widths, cfg.mlp)
+    expected = _expected_launches(fused, n_layers, widths, _mlp_kind(cfg))
     ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
           and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
           and counts == expected
@@ -2214,6 +2241,16 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     if want_tokens is not None and tokens != want_tokens:
         raise SystemExit(f"{name}: tokens differ from the fused configuration's")
     return counts, tokens
+
+
+def _cloned(tree):
+    """A copy of every tensor of a parameter tree (ClusteredTensor fields too)."""
+    from repro_torch.core.api import is_clustered, map_arrays
+    if is_clustered(tree):
+        return map_arrays(tree, lambda a: a.clone())
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def _first_layers(params, n):
@@ -2851,7 +2888,7 @@ def _serve_spec_arch(arch, seed, n_layers=2, k=SPEC_K, new_tokens=16):
     torch.cuda.synchronize()
     counts, traces = launch_counts(), dict(spec.traces)
     spec.assert_bounded_traces()
-    expected = _spec_expected_launches(n_layers, traces, k, cfg.mlp)
+    expected = _spec_expected_launches(n_layers, traces, k, _mlp_kind(cfg))
     rows, raw_mean = _row_count_ops(model, params, k)
     ok = (got == want and all(len(t) == new_tokens for t in got) and counts == expected
           and set(traces) == {("prefill", 32), ("draft", k), ("verify", k + 1)}
@@ -3243,6 +3280,7 @@ FISHER_PATH, FISHER_TOL = "['blocks']['attn']['wq']", 1e-4
 # the kernels the pipeline's path launches: B2 / B4 in the student's forward,
 # B1-B5 in its engine
 TRAIN_PATH_KERNELS = PLAIN_LUT + ("paged_pool_attention",)
+MOE_PATH_KERNELS = TRAIN_PATH_KERNELS
 
 
 def _on_card(batch):
@@ -3524,10 +3562,408 @@ def phase_train(seed: int):
     return counts, _check_train_kernels(gen)
 
 
+# ---------------------------------------------------------------------------
+# the mixture-of-experts family
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+# the MoE block alone against its own plain-f32 run: bf16 weights, products
+# and activations against f32 ones on the same routing
+MOE_BLOCK_TOL_REL = 3e-2
+MOE_RANGES = ("moe.resolve_weight", "moe.expert_matmul", "moe.routing",
+              "moe.dispatch_combine")
+
+
+def _moe_block_alone(model, params, seed) -> dict:
+    """Layer 0's MoE block of `params` alone at the card's decode (8 x 1
+    tokens) and prefill (8 x 32) widths: the bf16 block against the same
+    block run in f32 (`resolve_weight` in f32, f32 products) on the same
+    inputs. The routing reads the same f32 router logits, so the drops and
+    the aux loss must be equal; the outputs within MOE_BLOCK_TOL_REL of the
+    f32 output's largest value. Then the device ms of the block, of
+    resolving one expert weight (against its bound: the packed codes read
+    and the bf16 weight written once) and of the whole-stack route it
+    replaces."""
+    import dataclasses
+
+    from repro_torch.core.api import _unpack_codes
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import layer_slice
+
+    cfg = model.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = layer_slice(params["blocks"], 0)["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    out, fails = {}, []
+    for name, (s, t) in (("decode", (8, 1)), ("prefill", (8, 32))):
+        x = torch.randn((s, t, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            y, aux = layers.moe_block(p, x, cfg)
+            y32, aux32 = layers.moe_block(p, x.float(), cfg32)
+            g, sg = layers.moe_groups(s * t)
+            r = layers.moe_routing(p["router"], x.reshape(g, sg, -1), cfg.n_experts,
+                                   cfg.moe_topk)
+            r32 = layers.moe_routing(p["router"], x.float().reshape(g, sg, -1),
+                                     cfg.n_experts, cfg.moe_topk)
+        drops = s * t * cfg.moe_topk - int(r.dispatch.sum())
+        same_routing = (torch.equal(r.dispatch, r32.dispatch)
+                        and torch.equal(r.combine, r32.combine))
+        err = float((y.float() - y32).abs().max())
+        scale = float(y32.abs().max())
+        row = dict(tokens=s * t, groups=g, group_size=sg, capacity=r.cap,
+                   topk=cfg.moe_topk, experts=cfg.n_experts, dropped_token_slots=drops,
+                   of_token_slots=s * t * cfg.moe_topk, same_routing_as_f32=same_routing,
+                   aux_equal=bool(torch.equal(aux, aux32)), max_abs_err=err,
+                   f32_abs_max=scale, tol=MOE_BLOCK_TOL_REL * scale,
+                   mean_abs_err=float((y.float() - y32).abs().mean()))
+        with torch.no_grad():
+            row["block_ms"] = round(time_ms(lambda i: layers.moe_block(p, x, cfg), 3), 4)
+        if not (same_routing and row["aux_equal"] and bool(torch.isfinite(y.float()).all())
+                and err <= MOE_BLOCK_TOL_REL * scale):
+            fails.append(name)
+        out[name] = row
+    w = p["w_gate"]
+    n_el = w.smooth.shape[0] * w.smooth.shape[1] * w.codes.shape[-1]
+    bound = (w.codes.numel() + 2 * n_el) / HBM_BYTES_PER_S * 1e3
+    whole = torch.empty((n_el,), dtype=torch.bfloat16, device="cuda")
+
+    def whole_stack(i):
+        # the route per expert replaces: int64 indices over the whole stack
+        codes = _unpack_codes(w.codes, w.smooth.shape[-1], w.nbits).long()
+        dense = torch.stack([cb[cd] for cb, cd in zip(w.codebook, codes)])
+        whole.copy_((dense / w.smooth[..., :, None]).view(-1))
+    with torch.no_grad():
+        per_expert = layers.resolve_weight(w, torch.bfloat16)
+        whole_stack(0)
+        equal = bool(torch.equal(per_expert.view(-1), whole))
+        del per_expert
+        out["resolve_weight_one_expert_weight"] = dict(
+            shape=[w.smooth.shape[0], w.smooth.shape[1], w.codes.shape[-1]], nbits=w.nbits,
+            ms=round(time_ms(lambda i: layers.resolve_weight(w, torch.bfloat16), 3), 4),
+            whole_stack_ms=round(time_ms(whole_stack, 2), 4), bound_ms=round(bound, 4),
+            bound_by="bytes", per_expert_equals_whole_stack=equal)
+    del whole
+    if not equal:
+        fails.append("resolve_weight per expert != whole stack")
+    return out, fails
+
+
+def phase_moe_parity(seed: int) -> dict:
+    """phi3.5-moe-42b-a6.6b at full width, 2 layers, LCD 4-bit with the
+    stacked experts clustered too (`materialize_clustered`): the same params
+    and steps (one prefill chunk, two decode steps, an idle slot) through
+    the kernels and through their plain versions (`_plain_versions`), both
+    on the card: in f32 with the float transform at `model_parity`'s tight
+    limits, and in bf16 with the quantized transform at limits of its own
+    (see `variants`) and argmax where the plain side's margin is clear. The MoE block itself has no kernel:
+    both sides run it alike, and its routing sees what the kernels gave
+    it. Then the block alone (`_moe_block_alone`), and B1-B5 at both MoE
+    archs' attention shapes against their plain versions, timed
+    (`kernels_moe` line). Returns the kernel sides' launch counts."""
+    import dataclasses
+
+    from repro_torch.core.clustered_params import materialize_clustered
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+
+    arch = MOE_ARCHS[0]
+    s, t, nbw, nb, bs = 8, 32, 8, 64, 16
+    rng = np.random.default_rng(seed)
+    tables = rng.permutation(nb)[:s * nbw].reshape(s, nbw).astype(np.int32)
+    n_first = rng.integers(5, t + 1, s).astype(np.int32)
+    n_first[3] = 0                                         # an idle slot
+    active = n_first > 0
+    vocab = get_config(arch).vocab
+    steps = [(rng.integers(0, vocab, (s, t)).astype(np.int32), n_first)]
+    for _ in range(2):
+        steps.append((rng.integers(0, vocab, (s, 1)).astype(np.int32),
+                      active.astype(np.int32)))
+    # (dtype, quantized transform, layers, max |dlogit| allowed, mean allowed).
+    # f32: model_parity's limits. bf16: this model's own, about 3x its
+    # readings on the H100 (max 0.03125, one bf16 ulp at its largest logits,
+    # about 5.8; mean 0.00187; the same in three runs). model_parity's
+    # 0.75 / 0.03 fit its llama2-7b model, which reads 0.367 / 0.0126.
+    variants = (("float32", False, 2, 1e-3, 1e-4), ("bfloat16", True, 2, 0.1, 0.006))
+    clear_margin = 0.12
+    report, counts, block = [], {}, None
+    for dtype, quantized, n_layers, tol_max, tol_mean in variants:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype=dtype)
+        model = get_model(cfg)
+        p = materialize_clustered(model, torch.Generator(device="cuda").manual_seed(seed),
+                                  nbits=4, device="cuda")
+        if quantized:
+            p = calibrate(p)
+        logits = {}
+        for side in ("kernels", "plain"):
+            caches = model.init_seq_caches(num_blocks=nb, block_size=bs, num_slots=s,
+                                           max_seq=nbw * bs, kv_dtype="float", device="cuda")
+            lengths = np.zeros(s, np.int32)
+            outs = []
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            for tokens, n_new in steps:
+                args = [torch.from_numpy(a).cuda() for a in (tokens, lengths, n_new, tables)]
+                if side == "plain":
+                    with _plain_versions():
+                        lg, caches = model.serving_step(p, caches, *args)
+                else:
+                    with _no_host_sync():
+                        lg, caches = model.serving_step(p, caches, *args)
+                outs.append(lg[active][:, :vocab].float().cpu())
+                lengths = lengths + n_new
+            if side == "kernels":
+                for n, c in launch_counts().items():
+                    counts[n] = counts.get(n, 0) + c
+            logits[side] = torch.stack(outs)
+            del caches
+        diff = (logits["kernels"] - logits["plain"]).abs()
+        top2 = logits["plain"].topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > clear_margin
+        same = logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)
+        row = dict(dtype=dtype, quantized_transform=quantized, layers=n_layers,
+                   max_abs_logit_err=float(diff.max()), tol_max=tol_max,
+                   mean_abs_logit_err=float(diff.mean()), tol_mean=tol_mean,
+                   argmax_agreement=float(same.float().mean()),
+                   rows=same.numel(), rows_with_clear_margin=int(clear.sum()),
+                   clear_margin=clear_margin,
+                   logit_abs_max=float(logits["plain"].abs().max()),
+                   logit_std=float(logits["plain"].std()))
+        row["ok"] = (bool(torch.isfinite(logits["kernels"]).all())
+                     and row["max_abs_logit_err"] <= tol_max
+                     and row["mean_abs_logit_err"] <= tol_mean
+                     and bool(same[clear].all()) and int(clear.sum()) > 0)
+        if not row["ok"]:
+            row["diagnosis"] = _parity_diagnosis(logits, diff)
+        report.append(row)
+        if dtype == "bfloat16":
+            block = _moe_block_alone(model, p, seed)
+        del p
+        torch.cuda.empty_cache()
+    block, block_fails = block
+    emit("moe_parity", arch=arch, steps=len(steps), experts_clustered=True, variants=report,
+         moe_block_alone=block, launches=counts)
+    if not all(r["ok"] for r in report) or block_fails:
+        raise SystemExit(f"moe_parity: the kernels' and the plain versions' logits disagree, "
+                         f"or the MoE block alone is wrong ({block_fails}): {report}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    cases, worst = check_family_kernels(gen, archs=MOE_ARCHS, rows=(8, 256))
+    emit("kernels_moe", cases=cases, worst=worst)
+    return counts
+
+
+def _moe_breakdown(engine, width, n_steps):
+    """Device ms per step of `engine` at `width` with all 8 slots busy, under
+    torch.profiler: through the step's graph (kernels by name: the LUT
+    kernels, B5, everything) and through the eager body, where the MoE
+    block's profiler ranges (`MOE_RANGES`) split its time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def run(eager):
+        rows = {}
+
+        def add(key, us, per=1e3):
+            rows[key] = rows.get(key, 0.0) + us / per / n_steps
+
+        def read(prof):
+            # a range's device time: the kernels launched inside it (its CPU
+            # event's kernels and its children's); the profiler mirrors each
+            # range, and each step, as a device-side annotation, which is no
+            # kernel and is left out of the sums by kind
+            for ev in prof.events():
+                if ev.name in MOE_RANGES and ev.device_type == torch.autograd.DeviceType.CPU:
+                    add(ev.name, ev.device_time_total)
+            for ev in prof.key_averages():
+                if (ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in MOE_RANGES
+                        or ev.key.startswith("ProfilerStep")):
+                    continue
+                dev = getattr(ev, "self_device_time_total", None)
+                if dev is None:
+                    dev = ev.self_cuda_time_total
+                if dev > 0:
+                    add("lut_kernels" if "lut_" in ev.key else
+                        "attention_b5" if "paged_attn" in ev.key else "other", dev)
+                    add("device_busy", dev)
+                    add("kernels", ev.count, per=1)
+        ran = engine.traces.get(width, 0)
+        with _eager_body(engine, eager):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=n_steps, repeat=1),
+                         on_trace_ready=read) as prof:
+                for _ in range(n_steps + 1):
+                    engine.step()
+                    prof.step()
+        if engine.traces.get(width, 0) - ran != n_steps + 1 or any(
+                r is None for r in engine.slots):
+            raise SystemExit(f"serve_moe: the profiled steps were not all of width {width} "
+                             f"with 8 slots busy")
+        return {k: round(v, 3) for k, v in rows.items()}
+    graph, eager = run(False), run(True)
+    wall, span = _wall_ms_per_step(engine, n_steps)
+    return dict(graph=graph, eager=eager, graph_wall_ms_per_step=round(wall, 3),
+                graph_event_span_ms_per_step=round(span, 3))
+
+
+def _moe_step_profile(arch, params, n_layers, seed) -> dict:
+    """A prefill-width step and a decode step of an engine on `params` with
+    all 8 slots busy (8 prompts of 192 tokens): `_moe_breakdown` of each,
+    the captures' seconds and the peak device memory since the engine was
+    built (the graph pool holds one transient per step shape)."""
+    from repro_torch.launch.engine import EngineConfig, build_engine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                        max_blocks_per_slot=32)
+    engine, _ = build_engine(arch, use_reduced=False, lcd=True, ecfg=ecfg, seed=seed,
+                             params=params, n_layers=n_layers, device="cuda")
+    rng = np.random.default_rng(seed + 13)
+    # 6 prefill-width steps (192 / 32) and 10 decode steps: a warm-up each,
+    # then 2 + 2 + 1 (graph, eager, wall) prefill and 3 + 3 + 2 decode steps
+    for _ in range(8):
+        engine.submit(rng.integers(0, engine.model.cfg.vocab, 192).astype(np.int32),
+                      max_new_tokens=11)
+    engine.step()                                   # the prefill width's warm-up, capture
+    out = {"prefill_width_32": _moe_breakdown(engine, 32, 1)}
+    while any(r is not None and r.prefilling for r in engine.slots):
+        engine.step()
+    engine.step()                                   # the decode width's warm-up, capture
+    out["decode_width_1"] = _moe_breakdown(engine, 1, 2)
+    out["graph_capture_s"] = {str(w): round(c, 3)
+                              for w, c in engine._graphs.capture_seconds().items()}
+    engine.run()
+    torch.cuda.synchronize()
+    out["peak_over_params_gib"] = round((torch.cuda.max_memory_allocated() - base) / 2**30, 2)
+    out["peak_device_memory_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    del engine
+    return out
+
+
+def _serve_spec_moe(arch, seed, params, n_layers=2, k=SPEC_K, new_tokens=16):
+    """Speculative self-drafting on an MoE model cut to `n_layers`: its
+    2-bit draft made on the card (the attention re-clustered; the experts,
+    which `compress_model`'s default predicate does not take, dequantized
+    and kept dense, as in the JAX package), the speculative engine (k = 3)
+    over 8 staggered requests: launch counts per role, bounded shapes, the
+    mean accepted length, then every replay of the three graphs against
+    their eager bodies (`_graph_check`). Spec = plain greedy, engine = solo
+    and verify rows = width-1 rows are not asserted: an MoE layer routes
+    every row of a step together under a capacity, so a token's output
+    depends on what shares its step (the JAX package bounds its own forward
+    against decode by 1.0 for MoE); the port is held to the JAX package's
+    engine in lockstep on the CPU instead (tests/test_torch_moe_engine.py).
+    Returns the drive's launches."""
+    from repro_torch.core.clustered_params import make_draft_params
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, build_engine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draft, report = make_draft_params(params, draft_centroids=4)
+    torch.cuda.synchronize()
+    draft_s = time.perf_counter() - t0
+    base = dict(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                max_blocks_per_slot=32)
+    spec, _ = build_engine(arch, use_reduced=False, lcd=True, n_layers=n_layers,
+                           ecfg=EngineConfig(speculative_k=k, **base), params=params,
+                           draft_params=draft, device="cuda")
+    cfg = spec.model.cfg
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(8)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [list(r.out_tokens) for r in _drive(spec, prompts, new_tokens)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, traces = launch_counts(), dict(spec.traces)
+    spec.assert_bounded_traces()
+    expected = _spec_expected_launches(n_layers, traces, k, "moe")
+    ok = (all(len(t) == new_tokens for t in got)
+          and all(0 <= tok < cfg.vocab for t in got for tok in t) and counts == expected
+          and set(traces) == {("prefill", 32), ("draft", k), ("verify", k + 1)}
+          and all(counts[n] > 0 for n in expected if n not in NOT_SERVING))
+    emit("serve_moe_spec", arch=arch, layers=n_layers, speculative_k=k,
+         requests=len(prompts), new_tokens_each=new_tokens,
+         tokens_per_s=round(sum(map(len, got)) / wall, 2),
+         acceptance_summary=spec.acceptance_summary(),
+         traces={str(key): c for key, c in traces.items()}, launches=counts,
+         launches_expected=expected,
+         draft=dict(make_draft_params_s=round(draft_s, 2), summary=report.summary()),
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if not ok:
+        raise SystemExit(f"serve_moe_spec: {arch}: tokens, launch counts or shapes are wrong: "
+                         f"traces={traces} {counts} vs {expected}")
+    _graph_check("serve_moe_spec", spec, seed)
+    del spec, draft
+    return counts
+
+
+# the MoE family at full width: phi3.5-moe at its 32 layers, llama4-scout cut to
+# 4 (its 48 would need ~54 GB of packed experts; at 8 layers the script ran
+# 771 s, run 24b, and a decode step resolves 2 B expert weights a layer)
+MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 32), ("llama4-scout-17b-a16e", 4))
+
+
+def phase_serve_moe(seed: int) -> dict:
+    """The MoE family served like `serve`: LCD 4-bit weights from the seed
+    with the stacked experts clustered too (`materialize_clustered`) and the
+    quantized transform armed, fused projections, the `serve` engine's
+    geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b at
+    its 32 layers and llama4-scout-17b-a16e cut to 4, at full width. Launch
+    counts per model step (an MoE layer's LUT launches are its attention's),
+    bounded shapes, every replay equal to its eager body in tokens and pools
+    (`_graph_check`), tokens/s, and the step times with 8 slots busy and
+    where their device time goes (`_moe_step_profile`). Then on phi3.5-moe's
+    first 2 layers an int8 pool and speculation (k = 3, `_serve_spec_moe`).
+
+    Engine = solo, spec = plain greedy, verify rows = width-1 rows and
+    `_row_count_ops` are not asserted here, unlike for every dense arch: an
+    MoE layer routes every token of a step together (idle slots' pad tokens
+    included) and drops tokens past an expert's capacity, so a request's
+    tokens depend on what shares its steps, in the JAX package too; the port
+    is held to the JAX package's engine in lockstep under the same schedule
+    on the CPU (tests/test_torch_moe_engine.py). Returns the launches of
+    the full-width drives, summed."""
+    total = {}
+
+    def add(counts):
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+
+    for arch, layers in MOE_DEPTHS:
+        t0 = time.perf_counter()
+        _, params = _served_params(arch, seed, layers)
+        counts, _ = _serve("serve_moe", arch, seed, layers, 12, 24, None, solo_ids=(),
+                           params=params)
+        add(counts)
+        prof = _moe_step_profile(arch, params, layers, seed)
+        emit("serve_moe_profile", arch=arch, layers=layers, **prof)
+        if arch == MOE_ARCHS[0]:
+            # copies of the first 2 layers, so that the 32 layers' storage goes
+            two = _first_layers(params, 2)
+            two["blocks"] = _cloned(two["blocks"])
+            del params
+            torch.cuda.empty_cache()
+            add(_serve("serve_moe_int8", arch, seed, 2, 4, 24, "int8", solo_ids=(),
+                       params=two)[0])
+            add(_serve_spec_moe(arch, seed, two))
+            del two
+        else:
+            del params
+        torch.cuda.empty_cache()
+        emit("serve_moe_arch", arch=arch, layers=layers,
+             seconds=round(time.perf_counter() - t0, 1),
+             peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    return total
+
+
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
-              "serve_family", "serve_spec_family", "compress", "profile", "train")
+              "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
+              "serve_moe", "train")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
 ON_SERVE_WEIGHTS = {"serve", "serve_unfused", "serve_static", "profile", "serve_prefix",
@@ -3612,12 +4048,22 @@ def main() -> int:
         timed("compress", phase_compress, args.seed)
     if "profile" in phases:
         timed("profile", phase_profile, args.seed, params)
+    params = None                       # the serve weights are not needed any more
+    # the MoE family: the kernels against their plain versions inside a 2-layer
+    # model and at the archs' shapes, then served at full width, each path
+    # counted on its own
+    moe_parity_counts = (timed("moe_parity", phase_moe_parity, args.seed)
+                         if "moe_parity" in phases else {})
+    moe_counts = timed("serve_moe", phase_serve_moe, args.seed) if "serve_moe" in phases else {}
+    if "serve_moe" in phases and not all(moe_counts.get(n, 0) > 0 for n in MOE_PATH_KERNELS):
+        print(f"chip_smoke: serve_moe did not launch every kernel of its path: {moe_counts}",
+              file=sys.stderr)
+        return 1
     # the trainer and the paper's pipeline: the student's forward (B2 / B4 at
     # 4096 rows) and its engine (B1-B5), counted on their own; B2 / B4 at
     # those rows against their plain versions, timed
     train_counts, train_cases = ({}, {})
     if "train" in phases:
-        params = None                   # the serve weights are not needed any more
         train_counts, train_cases = timed("train", phase_train, args.seed)
     emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1),
          peak_device_memory_gib=peak_gib)
@@ -3665,6 +4111,9 @@ def main() -> int:
             "launches_serve_spec_family": family_spec_counts.get(name, 0),
             # the production features: each path's drive, counted on its own
             **{f"launches_{phase}": c.get(name, 0) for phase, c in feature_counts.items()},
+            # the MoE family: the 2-layer model's kernel side, and its serving drives
+            "launches_moe_parity": moe_parity_counts.get(name, 0),
+            "launches_serve_moe": moe_counts.get(name, 0),
             # the trainer's pipeline: the student's evaluation and its engine
             "launches_train": train_counts.get(name, 0),
             "train_shapes": [{k: c.get(k) for k in (

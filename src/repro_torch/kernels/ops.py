@@ -220,14 +220,16 @@ def _refuse_grad(x: torch.Tensor, cts) -> None:
 def clustered_linear(x: torch.Tensor, ct: ClusteredTensor) -> torch.Tensor:
     """Model-facing clustered matmul: the fused LUT contraction over the
     tensor's packed codes, cast back to x's dtype. `ct` is one layer's
-    tensor: a stacked (expert) codebook belongs to the MoE family, which is
-    not ported. On the card, a call that autograd would have to
-    differentiate raises NotImplementedError (`_refuse_grad`)."""
+    tensor with one codebook: stacked (expert) codebooks never come here,
+    as in the JAX package's models - `models/layers.py moe_block` resolves
+    them through `layers.resolve_weight`. On the card, a call that autograd
+    would have to differentiate raises NotImplementedError (`_refuse_grad`)."""
     _refuse_grad(x, (ct,))
     if ct.codebook.ndim != 1:
         raise NotImplementedError(
-            f"clustered_linear: stacked codebook {tuple(ct.codebook.shape)}; the "
-            f"expert (MoE) contraction is not ported - index the layer first")
+            f"clustered_linear: stacked codebook {tuple(ct.codebook.shape)}; "
+            f"stacked experts are resolved by models/layers.py resolve_weight "
+            f"(moe_block's route), and a stacked layer axis is indexed first")
     inv, act, quantize = _transform_params(ct)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

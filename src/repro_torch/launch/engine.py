@@ -1191,7 +1191,11 @@ class ServingEngine:
         the verify graph captures, reading `drafts` from the draft graph's
         output."""
         pend, lengths, n_one, tables = self._unpack(buf, 1)
-        tokens = torch.cat([pend, drafts], dim=1)
+        # a slot out of the round feeds token 0 in every position, as in the
+        # JAX package: its drafts are not fed. The rows of a dense model do
+        # not see each other, but an MoE layer routes every row of the step
+        # together, so what an idle row holds can drop another's token.
+        tokens = torch.cat([pend, drafts * n_one[:, None]], dim=1)
         logits, _ = self.model.serving_verify(self.params, caches, tokens, lengths,
                                               n_one * (self.spec_k + 1), tables)
         return torch.cat([drafts, self._greedy(logits)], dim=1)

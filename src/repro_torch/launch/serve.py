@@ -58,16 +58,29 @@ __all__ = ["BlockAllocator", "EngineConfig", "Request", "ServingEngine",
            "build_decode_fns", "build_engine", "serve", "main"]
 
 
+def _dense_weight_bytes(tree) -> int:
+    """Bytes of the dense (unclustered) tensors of a parameter tree."""
+    from repro_torch.core.api import is_clustered
+    if isinstance(tree, dict):
+        return sum(_dense_weight_bytes(v) for v in tree.values())
+    if is_clustered(tree) or tree is None:
+        return 0
+    return tree.numel() * tree.element_size()
+
+
 def _describe(engine) -> None:
     """Deployment inventory: per-layer packing width and centroid count of the
-    compressed target (and of the speculative draft), their packed bytes,
-    and the KV pool dtype."""
+    compressed target (and of the speculative draft), their packed bytes and
+    the bytes left dense (embedding, head, norms; an MoE model's router, and
+    its stacked experts, which `compress_model`'s default predicate does not
+    cluster), and the KV pool dtype."""
     from repro_torch.core.clustered_params import packed_weight_bytes
     if engine.compress_report is None:
         logger.info("describe: params are not LCD-compressed (run with --lcd)")
     else:
         logger.info("target bits assignment:\n" + engine.compress_report.bits_table())
         logger.info(f"target packed weight bytes: {packed_weight_bytes(engine.params)}")
+    logger.info(f"target dense weight bytes: {_dense_weight_bytes(engine.params)}")
     if engine.draft_report is not None:
         logger.info("draft bits assignment:\n" + engine.draft_report.bits_table())
         logger.info(f"draft packed weight bytes: "

@@ -10,11 +10,14 @@ of the JAX package's `models/layers.py`; its sharding annotations
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import _unpack_codes, is_clustered
@@ -27,16 +30,29 @@ from repro_torch.models.config import ModelConfig
 # ---------------------------------------------------------------------------
 
 def resolve_weight(w, dtype) -> torch.Tensor:
-    """Dense view of a (possibly clustered) weight: codebook[codes] / smooth."""
+    """Dense view of a (possibly clustered, possibly stacked-expert) weight:
+    codebook[codes] / smooth, in `dtype`.
+
+    A clustered leaf is resolved one codebook at a time (once for a plain
+    (K,) codebook, once per expert for a stacked (E, K) one) with int32
+    indices into one `dtype` output: every element is `(codebook[e][code] /
+    smooth[e][i])` computed alone, so the bits are those of resolving the
+    whole tensor at once, while the transient is one expert's (d_in, d_out)
+    instead of the whole stack's int64 indices and f32 copies."""
     if not is_clustered(w):
         return w.to(dtype)
-    d_in = w.smooth.shape[-1]
-    codes = _unpack_codes(w.codes, d_in, w.nbits).long()   # (..., d_in, d_out)
-    if w.codebook.ndim == 1:
-        dense = w.codebook[codes]
-    else:                                                  # stacked (E, K)
-        dense = torch.stack([cb[cd] for cb, cd in zip(w.codebook, codes)])
-    return (dense / w.smooth[..., :, None]).to(dtype)
+    d_in, d_out = w.smooth.shape[-1], w.codes.shape[-1]
+    lead = tuple(w.codebook.shape[:-1])
+    out = torch.empty(lead + (d_in, d_out), dtype=dtype, device=w.codebook.device)
+    flat_out = out.view(-1, d_in, d_out)
+    codes = w.codes.reshape((-1,) + tuple(w.codes.shape[-2:]))
+    cbs = w.codebook.reshape(-1, w.codebook.shape[-1])
+    smooth = w.smooth.reshape(-1, d_in)
+    for e in range(cbs.shape[0]):
+        idx = _unpack_codes(codes[e], d_in, w.nbits)              # int32
+        dense = cbs[e].index_select(0, idx.reshape(-1)).view(d_in, d_out)
+        flat_out[e].copy_(dense / smooth[e][:, None])
+    return out
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -402,3 +418,169 @@ def mlp_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
         return linear(F.silu(gate) * up, p["w_down"])
     h = F.gelu(linear(x, p["w_up"], p.get("b_up")), approximate="tanh")
     return linear(h, p["w_down"], p.get("b_down"))
+
+
+# ---------------------------------------------------------------------------
+# MoE (grouped, capacity-based)
+# ---------------------------------------------------------------------------
+
+# The JAX package's `moe_block(capacity_factor=1.25, group_size=512)`
+# defaults, which nothing there overrides.
+MOE_CAPACITY_FACTOR = 1.25
+MOE_GROUP_SIZE = 512
+
+
+@contextlib.contextmanager
+def _full_f32_matmuls():
+    """Inside, f32 matmuls run in full f32 whatever the caller set (TF32
+    off). A host-side setting, so it is free under a CUDA-graph capture."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+class _FullF32Einsum(torch.autograd.Function):
+    """`torch.einsum(eq, a, b)` whose forward and backward products both run
+    in full f32 (`_full_f32_matmuls`): autograd runs a backward after the
+    forward's `with` block has exited, under whatever the caller set then.
+    The router's logits decide the routing, and the dispatch product is a
+    gather only in exact f32. Each operand's gradient is the einsum of the
+    output's gradient with the other operand, so every index of an operand
+    must appear in the other operand or in the output (true of the block's
+    five products)."""
+
+    @staticmethod
+    def forward(ctx, eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.eq = eq
+        ctx.save_for_backward(a, b)
+        with _full_f32_matmuls():
+            return torch.einsum(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        sa, sb = ins.split(",")
+        ga = gb = None
+        with _full_f32_matmuls():
+            if ctx.needs_input_grad[1]:
+                ga = torch.einsum(f"{out},{sb}->{sa}", g, b)
+            if ctx.needs_input_grad[2]:
+                gb = torch.einsum(f"{sa},{out}->{sb}", a, g)
+        return None, ga, gb
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _FullF32Einsum.apply(eq, a, b)
+
+
+class MoeRouting(NamedTuple):
+    """The routing of one `moe_block` call: (G, Sg, E, C) dispatch (0/1) and
+    combine (the gate where dispatched) tensors in f32, the Switch-style aux
+    loss and the capacity C. A (token, top-k slot) pair that dropped is
+    dispatched nowhere."""
+    dispatch: torch.Tensor
+    combine: torch.Tensor
+    aux: torch.Tensor
+    cap: int
+
+
+def moe_groups(t: int) -> Tuple[int, int]:
+    """(G, Sg): the t tokens of a call in G groups of Sg, Sg the largest
+    power-of-two fraction of min(MOE_GROUP_SIZE, t) that divides t."""
+    sg = min(MOE_GROUP_SIZE, t)
+    while t % sg:
+        sg //= 2
+    return t // sg, sg
+
+
+def moe_routing(router: torch.Tensor, xt: torch.Tensor, n_experts: int,
+                topk: int) -> MoeRouting:
+    """Top-k routing with per-group expert capacity, as the JAX package's
+    `moe_block` routes: xt (G, Sg, d); f32 router logits and softmax; the
+    aux loss E * sum(mean prob * share of argmax); for each of the top-k
+    slots the argmax of the gates not taken yet (first index on a tie),
+    the token's place at its expert counted over the group in token order
+    after every earlier slot's tokens, and a drop at or past the capacity
+    C = ceil(Sg * topk * MOE_CAPACITY_FACTOR / E / 4) * 4 (at most Sg).
+
+    One-hots are comparisons with an arange, so a place past the capacity
+    is a zero row (as `jax.nn.one_hot` gives) and nothing checks an index
+    on the host."""
+    g, sg, _ = xt.shape
+    e = n_experts
+    cap = min(int(np.ceil(sg * topk * MOE_CAPACITY_FACTOR / e / 4.0) * 4), sg)
+    dev = xt.device
+    experts_r = torch.arange(e, device=dev)
+    places_r = torch.arange(cap, device=dev)
+    logits = _einsum("gsd,de->gse", xt.to(torch.float32), router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+
+    me = probs.mean(dim=(0, 1))
+    top = (torch.argmax(probs, dim=-1)[..., None] == experts_r).to(torch.float32)
+    aux = e * torch.sum(me * top.mean(dim=(0, 1)))
+
+    gates_rem = probs
+    dispatch = torch.zeros((g, sg, e, cap), dtype=torch.float32, device=dev)
+    combine = torch.zeros_like(dispatch)
+    prev_count = torch.zeros((g, 1, e), dtype=torch.float32, device=dev)
+    for _ in range(topk):
+        idx = torch.argmax(gates_rem, dim=-1)                       # (G, Sg)
+        onehot = (idx[..., None] == experts_r).to(torch.float32)    # (G, Sg, E)
+        gate = torch.sum(probs * onehot, dim=-1, keepdim=True)      # (G, Sg, 1)
+        pos = torch.cumsum(onehot, dim=1) - onehot + prev_count     # (G, Sg, E)
+        keep = (pos < cap).to(torch.float32) * onehot
+        posc = (pos.to(torch.int32)[..., None] == places_r).to(torch.float32)
+        disp = keep[..., None] * posc                               # (G, Sg, E, C)
+        dispatch = dispatch + disp
+        combine = combine + disp * gate[..., None]
+        prev_count = prev_count + torch.sum(onehot, dim=1, keepdim=True)
+        gates_rem = gates_rem * (1.0 - onehot)
+    return MoeRouting(dispatch, combine, aux, cap)
+
+
+def moe_block(p: Dict[str, Any], x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with per-group expert capacity (Mesh-TF style dense
+    dispatch), the JAX package's `moe_block`: x (B, S, d) -> (out (B, S, d),
+    aux f32).
+
+    All B * S tokens of the call are routed together (`moe_routing`), so a
+    token dropped for capacity depends on what else shares the call: the
+    idle slots' pad tokens of a serving step too. The dispatch product
+    gathers each expert's tokens (exact: one non-zero term per output), the
+    experts' SwiGLU runs as one batched product per weight over the
+    (E, G, C, d) tokens, with the stacked weights resolved by
+    `resolve_weight` one at a time, and the combine product sums each
+    token's kept experts' outputs weighted by their gates. Every f32 product,
+    forward and backward, runs in full f32 whatever the caller's TF32
+    setting (`_FullF32Einsum`)."""
+    b, s, d = x.shape
+    g, sg = moe_groups(b * s)
+    xt = x.reshape(g, sg, d)
+    with record_function("moe.routing"):
+        r = moe_routing(p["router"], xt, cfg.n_experts, cfg.moe_topk)
+    with record_function("moe.dispatch_combine"):
+        xe = _einsum("gsec,gsd->egcd", r.dispatch,
+                     xt.to(torch.float32)).to(x.dtype)                  # (E, G, C, d)
+    # per-expert SwiGLU: weights (E, d, f) / (E, f, d), possibly clustered,
+    # resolved one weight at a time
+    h = F.silu(_expert_product("egcd,edf->egcf", xe, p["w_gate"]))
+    h = h * _expert_product("egcd,edf->egcf", xe, p["w_up"])
+    ye = _expert_product("egcf,efd->egcd", h, p["w_down"])
+    with record_function("moe.dispatch_combine"):
+        out = _einsum("gsec,egcd->gsd", r.combine.to(x.dtype), ye)
+    return out.reshape(b, s, d), r.aux
+
+
+def _expert_product(eq: str, a: torch.Tensor, w) -> torch.Tensor:
+    """One batched product of `a` with a stacked-expert weight, resolved in
+    a's dtype just before and dropped just after. The profiler ranges name
+    the two parts of an MoE layer's time."""
+    with record_function("moe.resolve_weight"):
+        dense = resolve_weight(w, a.dtype)
+    with record_function("moe.expert_matmul"):
+        return _einsum(eq, a, dense)

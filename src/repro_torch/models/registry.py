@@ -14,10 +14,11 @@
 Serving surface (launch/engine.py): a family publishes the sequence caches it
 serves through, keyed by kind ("paged": a block-table pool over
 (num_blocks, block_size) rows), plus a capability set telling the engine which
-features apply. The dense family and the vlm family are ported; a vlm arch
-(paligemma-3b) serves its text decoder through the dense paged step, as the
-JAX package's does, and takes its image prefix in the full-sequence forward
-(`batch["img_embeds"]`).
+features apply. The dense, moe and vlm families are ported; an MoE arch
+(phi3.5-moe, llama4-scout) serves through the same paged step with
+`layers.moe_block` as its MLP, and a vlm arch (paligemma-3b) serves its
+text decoder through the dense paged step, as the JAX package's do, and
+takes its image prefix in the full-sequence forward (`batch["img_embeds"]`).
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ FAMILY_CAPS: Dict[str, frozenset] = {
     "audio": frozenset({CAP_SLOT_STATE, CAP_SNAPSHOT, CAP_ENCODER}),
 }
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def family_capabilities(family: str) -> frozenset:

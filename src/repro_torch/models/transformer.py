@@ -1,12 +1,16 @@
-"""Dense decoder-only transformer family — the full-sequence forward (train,
-prefill, evaluation), the paged serving path of the continuous-batching
-engine and the contiguous-cache decode of the static path.
+"""Dense / MoE decoder-only transformer family — the full-sequence forward
+(train, prefill, evaluation), the paged serving path of the
+continuous-batching engine and the contiguous-cache decode of the static
+path.
 
 Covers llama2-7b (the paper's own subject), qwen2-1.5b (GQA, QKV bias,
 padded heads), gemma2-27b (alternating local/global windows, attention and
 final softcaps), starcoder2-15b (layernorm, the gelu MLP with biases, QKV
-bias), stablelm-12b (layernorm, head_dim 160) and paligemma-3b's text decoder
-(16-into-1 GQA over padded heads, head_dim 256). Parameters are stacked
+bias), stablelm-12b (layernorm, head_dim 160), paligemma-3b's text decoder
+(16-into-1 GQA over padded heads, head_dim 256), and the MoE archs
+phi3.5-moe-42b-a6.6b (16 experts, top-2) and llama4-scout-17b-a16e (16
+experts, top-1, padded heads), whose MLP is `layers.moe_block` over stacked
+(L, E, d, f) expert weights and an (L, d, E) router. Parameters are stacked
 (L, ...) tensors under the JAX package's names (`embed`,
 `blocks/{ln_attn,attn,ln_mlp,mlp}`, `ln_final`, `lm_head`), so
 carrying weights across is a rename-free copy; where the JAX package scans
@@ -23,7 +27,7 @@ import torch
 from repro_torch.core.api import is_clustered, map_arrays
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attn_block, mlp_block, norm,
+from repro_torch.models.layers import (attn_block, mlp_block, moe_block, norm,
                                        paged_attn_block)
 
 D = PT.ParamDecl
@@ -63,8 +67,13 @@ def _mlp_table(cfg: ModelConfig) -> Dict[str, D]:
     L = (cfg.n_layers,)
     d, f = cfg.d_model, cfg.d_ff
     if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts MLPs (moe_block) are not ported yet")
+        e = cfg.n_experts
+        return {
+            "router": D(L + (d, e), "layers,embed_nofsdp,.", "fanin"),
+            "w_gate": D(L + (e, d, f), "layers,experts,embed,ff", "fanin"),
+            "w_up": D(L + (e, d, f), "layers,experts,embed,ff", "fanin"),
+            "w_down": D(L + (e, f, d), "layers,experts,ff,embed", "fanin"),
+        }
     if cfg.mlp == "swiglu":
         return {
             "w_gate": D(L + (d, f), "layers,embed,ff", "fanin"),
@@ -152,12 +161,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return c
 
 
+def _mlp(cfg: ModelConfig, p: Dict[str, Any],
+         h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP: (out, aux). The MoE block's aux is its f32
+    load-balancing loss; the dense MLP has none (None, so that a serving
+    step launches nothing for it)."""
+    if cfg.n_experts:
+        return moe_block(p, h, cfg)
+    return mlp_block(p, h, cfg), None
+
+
 def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, window: int,
-           cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+           cache: Optional[Dict[str, Any]] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = norm(x, p["ln_attn"], cfg.norm)
     x = x + attn_block(p["attn"], h, cfg, layer_window=window, cache=cache)
     h = norm(x, p["ln_mlp"], cfg.norm)
-    return x + mlp_block(p["mlp"], h, cfg)
+    out, aux = _mlp(cfg, p["mlp"], h)
+    return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +199,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-                 window: int) -> torch.Tensor:
+                 window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`_block` under `torch.utils.checkpoint`: "nothing" keeps only the
     layer's input and recomputes the rest in the backward; "dots" also keeps
-    the projections' outputs."""
+    the projections' outputs. The MoE block sits inside, like the dense
+    MLP."""
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
     kw = {}
@@ -201,7 +223,8 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,   # (B, P, d) VLM patch embeds
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B, P + S, padded_vocab), aux),
-    aux an f32 zero (the dense family has no auxiliary loss).
+    aux the f32 sum over layers of the MoE blocks' load-balancing losses (a
+    zero for the dense family).
 
     Differentiable: training takes gradients through it, so there is no
     `torch.no_grad()` here and evaluation callers wrap it themselves. With
@@ -210,20 +233,19 @@ def forward(
     its scanned body in `jax.checkpoint`. Clustered weights go through
     `kernels.ops.clustered_linear` / `clustered_linear_multi`: on the card
     the LUT GEMMs at B * S rows."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts MLPs (moe_block) are not ported yet")
     x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (B, S, d)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     windows = layer_windows(cfg)
     blocks = params["blocks"]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_layers):
         p, w = layer_slice(blocks, l), int(windows[l])
-        x = _remat_block(cfg, p, x, w) if remat else _block(cfg, p, x, w)
+        x, a = _remat_block(cfg, p, x, w) if remat else _block(cfg, p, x, w)
+        if a is not None:
+            aux = aux + a
     x = norm(x, params["ln_final"], cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_head_logits(params, x, cfg), aux
 
 
@@ -242,16 +264,13 @@ def decode_step(
     pos + S. `pos` is read on the device only (normally it is `cache["pos"]`
     itself), so one captured step replays at any position. Where the JAX
     package scans over the layer axis, this loops over layers in Python."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts MLPs (moe_block) are not ported yet")
     x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (B, S, d)
     windows = layer_windows(cfg)
     blocks = params["blocks"]
     for l in range(cfg.n_layers):
         lcache = {name: t[l] for name, t in cache.items() if name != "pos"}
         lcache["pos"] = pos
-        x = _block(cfg, layer_slice(blocks, l), x, int(windows[l]), cache=lcache)
+        x, _ = _block(cfg, layer_slice(blocks, l), x, int(windows[l]), cache=lcache)
     x = norm(x[:, -1], params["ln_final"], cfg.norm)
     cache["pos"].fill_(pos + tokens.shape[-1])
     return lm_head_logits(params, x, cfg), cache
@@ -306,10 +325,9 @@ def _paged_trunk(
     hidden states (S, T, d); the block pools in `cache` are updated in place.
     Whether the cache is quantized is decided by the pool dtype. Nothing in
     the loop reads a value back to the host: the per-layer window is a Python
-    int and every ragged quantity is a mask."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts MLPs (moe_block) are not ported yet")
+    int and every ragged quantity is a mask. An MoE layer routes all S * T
+    tokens of the step together, the idle slots' and the padding's too, as
+    the JAX package's does; its aux loss is dropped."""
     x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (S, T, d)
     windows = layer_windows(cfg)
     int8_kv = cache["k"].dtype == torch.int8
@@ -326,7 +344,7 @@ def _paged_trunk(
             p["attn"], h, cfg, layer_window=int(windows[l]),
             block_tables=block_tables, lengths=lengths, n_new=n_new, **kv_kw)
         h = norm(x, p["ln_mlp"], cfg.norm)
-        x = x + mlp_block(p["mlp"], h, cfg)
+        x = x + _mlp(cfg, p["mlp"], h)[0]
 
     return norm(x, params["ln_final"], cfg.norm)
 

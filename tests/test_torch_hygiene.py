@@ -36,7 +36,9 @@ def test_the_walk_sees_the_whole_package():
     for want in ("src/repro_torch/launch/engine.py", "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/models/layers.py", "src/repro_torch/convert.py",
                  "src/repro_torch/launch/train.py", "src/repro_torch/checkpoint/manager.py",
-                 "src/repro_torch/data/pipeline.py", "chip_smoke.py"):
+                 "src/repro_torch/data/pipeline.py", "chip_smoke.py",
+                 "src/repro_torch/configs/phi3_5_moe.py",
+                 "src/repro_torch/configs/llama4_scout.py"):
         assert want in names
     assert len(FILES) >= 20
 
