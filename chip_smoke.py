@@ -47,8 +47,15 @@ with its stacked experts clustered, kernels against their plain versions,
 the MoE block alone against its f32 run, B1-B5 at both MoE archs' shapes;
 `serve_moe`: phi3.5-moe at its 32 layers and llama4-scout cut to 4 at full
 width, every replay equal to its eager body, where a step's time goes,
-then phi3.5-moe's first 2 layers over an int8 pool and speculatively).
-Every phase prints
+then phi3.5-moe's first 2 layers over an int8 pool and speculatively);
+serves the recurrent and hybrid families (`recurrent_parity`: rwkv6-1.6b,
+gla-1.3b and zamba2-1.2b at full width and 2 layers, serving steps and the
+forward through the kernels against their plain versions, B1 / B3 / B5 at
+their shapes; `serve_recurrent`: the three at full width and full depth
+through the slot-state engine, every replay equal to its eager body with a
+snapshot preemption inside, preempted = unpreempted tokens, the new ops'
+row bits at 1 and 8 slots, a decode step's device time by kernel and
+profiler range, engine = solo). Every phase prints
 one JSON line; any failed phase ends the process with a non-zero exit
 code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
@@ -848,11 +855,18 @@ def _family_shapes(arch):
     """(solo launches {projection: (K, N)}, multi launches {group: (K,
     widths)}) of an arch's layer: QKV is one multi launch, and gate+up where
     the MLP has a gate; wo, w_down and the gelu MLP's w_up are solo. An MoE
-    layer's LUT launches are its attention's (QKV and wo)."""
+    layer's LUT launches are its attention's (QKV and wo). rwkv6's and gla's
+    projections are all solo (each distinct (K, N) once); zamba2's mamba
+    layer has w_in and w_out, its shared block the transformer's launches."""
     from repro_torch.models.config import get_config
     cfg = get_config(arch)
     d, q, kv, f = cfg.d_model, cfg.q_dim_eff, cfg.kv_dim, cfg.d_ff
+    if cfg.family in ("rwkv", "linear_attn"):
+        return {"d x d (r k v g o; q k v o)": (d, d), "up": (d, f), "down": (f, d)}, {}
     solo, groups = {"wo": (q, d), "w_down": (f, d)}, {"qkv": (d, (q, kv, kv))}
+    if cfg.family == "hybrid":
+        from repro_torch.models.zamba2 import _mamba_in_dim
+        solo.update(w_in=(d, _mamba_in_dim(cfg)), w_out=(cfg.d_inner, d))
     if cfg.n_experts:
         del solo["w_down"]
     elif cfg.mlp == "swiglu":
@@ -899,10 +913,13 @@ def check_family_kernels(gen, archs=None, rows=None):
                                                      quant, bf16))
                 keep(case)
         cfg = get_config(arch)
+        if cfg.family in ("rwkv", "linear_attn"):
+            continue                           # no attention
         h, kv, d = cfg.n_heads_eff, cfg.n_kv_heads, cfg.hd
         window, softcap = cfg.local_window, cfg.attn_softcap
         lengths, nbw = (WINDOW_LENGTHS, 320) if window else (None, 32)
-        for t in (1, 32):
+        # zamba2's step feeds its shared block one token at a time: T = 1 only
+        for t in (1,) if cfg.family == "hybrid" else (1, 32):
             n_new = None if lengths is None else torch.tensor(
                 [t, t, 0, max(t // 2, 1), t, t, 1, t], dtype=torch.int32)
             case, args, kw, bound = _attn_vs_plain(gen, t, h, kv, bf16, "bf16", window,
@@ -920,6 +937,8 @@ def check_family_kernels(gen, archs=None, rows=None):
                     raise SystemExit(f"paged_pool_attention: the window cut nothing: {case}")
             _time_attn(case, args, kw, bound)
             keep(case)
+        if cfg.family == "hybrid":
+            continue
         rows_lengths = (WINDOW_LENGTHS if window else
                         torch.tensor([200, 37, 0, 95, 16, 480, 130, 63], dtype=torch.int32))
         rows_n_new = torch.tensor([1, 32, 0, 1, 32, 1, 1, 17], dtype=torch.int32)
@@ -1713,7 +1732,9 @@ def phase_compress(seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 ACT_SCALE = {"wq": 0.04, "wk": 0.04, "wv": 0.04, "wo": 0.01,
-             "w_gate": 0.04, "w_up": 0.04, "w_down": 0.03}
+             "w_gate": 0.04, "w_up": 0.04, "w_down": 0.03,
+             # the recurrent families' projections (rwkv6's r / g, zamba2's mamba)
+             "wr": 0.04, "wg": 0.04, "w_in": 0.04, "w_out": 0.03}
 
 
 def calibrate(params):
@@ -1794,6 +1815,29 @@ def _parity_diagnosis(logits, diff) -> dict:
                 top5=sides)
 
 
+def _parity_row(logits, tol_max, tol_mean, clear_margin=0.12, **meta):
+    """model_parity's verdict on kernels-vs-plain logits: max and mean
+    |dlogit| within their limits, finite, and the same argmax wherever the
+    plain side's top-2 margin is clear of `clear_margin`."""
+    diff = (logits["kernels"] - logits["plain"]).abs()
+    top2 = logits["plain"].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > clear_margin
+    same = logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)
+    row = dict(meta, max_abs_logit_err=float(diff.max()), tol_max=tol_max,
+               mean_abs_logit_err=float(diff.mean()), tol_mean=tol_mean,
+               argmax_agreement=float(same.float().mean()), rows=same.numel(),
+               rows_with_clear_margin=int(clear.sum()), clear_margin=clear_margin,
+               logit_abs_max=float(logits["plain"].abs().max()),
+               logit_std=float(logits["plain"].std()))
+    row["ok"] = (bool(torch.isfinite(logits["kernels"]).all())
+                 and row["max_abs_logit_err"] <= tol_max
+                 and row["mean_abs_logit_err"] <= tol_mean
+                 and bool(same[clear].all()) and int(clear.sum()) > 0)
+    if not row["ok"]:
+        row["diagnosis"] = _parity_diagnosis(logits, diff)
+    return row
+
+
 def phase_model_parity(seed: int) -> None:
     """llama2-7b at full width: the same params and the same steps (one
     prefill chunk, two decode steps) through the kernels and through their
@@ -1868,25 +1912,8 @@ def phase_model_parity(seed: int) -> None:
             logits[side] = torch.stack(outs)
             del caches
         del p
-        diff = (logits["kernels"] - logits["plain"]).abs()
-        top2 = logits["plain"].topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > clear_margin
-        same = logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)
-        row = dict(dtype=dtype, quantized_transform=quantized, layers=n_layers,
-                   max_abs_logit_err=float(diff.max()), tol_max=tol_max,
-                   mean_abs_logit_err=float(diff.mean()), tol_mean=tol_mean,
-                   argmax_agreement=float(same.float().mean()),
-                   rows=same.numel(), rows_with_clear_margin=int(clear.sum()),
-                   clear_margin=clear_margin,
-                   logit_abs_max=float(logits["plain"].abs().max()),
-                   logit_std=float(logits["plain"].std()))
-        row["ok"] = (bool(torch.isfinite(logits["kernels"]).all())
-                     and row["max_abs_logit_err"] <= tol_max
-                     and row["mean_abs_logit_err"] <= tol_mean
-                     and bool(same[clear].all()) and int(clear.sum()) > 0)
-        report.append(row)
-        if not row["ok"]:
-            row["diagnosis"] = _parity_diagnosis(logits, diff)
+        report.append(_parity_row(logits, tol_max, tol_mean, clear_margin, dtype=dtype,
+                                  quantized_transform=quantized, layers=n_layers))
     emit("model_parity", arch="llama2-7b", steps=len(steps), variants=report)
     if not all(r["ok"] for r in report):
         raise SystemExit(f"model_parity: the kernels' and the plain versions' logits "
@@ -1909,18 +1936,28 @@ def _drive(engine, prompts, new_tokens):
     return requests
 
 
-def _served_params(arch, seed, n_layers, fused=True):
-    """(model, params): LCD 4-bit weights from `seed` on the card, with the
-    quantized Eq. 11 transform armed."""
+def _served_params(arch, seed, n_layers, fused=True, dtype=None, quantized=True):
+    """(model, params): LCD 4-bit weights from `seed` on the card
+    (`materialize_clustered`, in the config's dtype unless `dtype` is
+    given), with the quantized Eq. 11 transform armed unless `quantized` is
+    False. gla's forget-gate LoRA (`gate_A`, `gate_B`) is drawn dense, as
+    materialize_clustered draws a dense leaf (normal(0, 0.02), f32):
+    clustered it cannot run, in the JAX package either (ROADMAP C)."""
     import dataclasses
 
     from repro_torch.core.clustered_params import materialize_clustered
     from repro_torch.models.config import get_config
     from repro_torch.models.registry import get_model
-    model = get_model(dataclasses.replace(get_config(arch), n_layers=n_layers,
-                                          fused_projections=fused))
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, fused_projections=fused)
+    model = get_model(cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype))
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return model, calibrate(materialize_clustered(model, gen, nbits=4, device="cuda"))
+    params = materialize_clustered(model, gen, nbits=4, device="cuda")
+    if model.cfg.family == "linear_attn":
+        attn = params["blocks"]["attn"]
+        for name in ("gate_A", "gate_B"):
+            shape = tuple(attn[name].smooth.shape) + (attn[name].codes.shape[-1],)
+            attn[name] = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    return model, (calibrate(params) if quantized else params)
 
 
 # the §4 layer's kernels and the attention kernels B8, B9: never launched by a
@@ -1972,20 +2009,23 @@ def _no_host_sync():
 
 
 def _clone_pools(engine):
-    """Clones of the engine's target pool and, in speculative mode, the
-    draft's (None otherwise)."""
-    pools = [engine.caches, engine.draft_caches]
-    return [None if c is None else {k: v.clone() for k, v in c["paged"].items()}
-            for c in pools]
+    """Clones of every cache of the engine (the paged pool, the slot state)
+    and, in speculative mode, of the draft's (None otherwise), keyed by kind
+    as `engine.caches` is."""
+    return [None if c is None else {kind: {k: v.clone() for k, v in cache.items()}
+                                    for kind, cache in c.items()}
+            for c in (engine.caches, engine.draft_caches)]
 
 
 def _pools_differ(engine, clones):
-    """Names of the pool tensors (draft's prefixed) that differ from `clones`."""
+    """Names ("kind/name", the draft's prefixed) of the cache tensors that
+    differ from `clones`."""
     bad = []
     for tag, c, clone in (("", engine.caches, clones[0]), ("draft ", engine.draft_caches,
                                                          clones[1])):
         if c is not None:
-            bad += [tag + k for k, v in c["paged"].items() if not torch.equal(v, clone[k])]
+            bad += [f"{tag}{kind}/{k}" for kind, cache in c.items() for k, v in cache.items()
+                    if not torch.equal(v, clone[kind][k])]
     return bad
 
 
@@ -2016,7 +2056,7 @@ def _verify_rows_check(engine, buf, drafts, wide_pool, step_pool, seen):
         seen["verify_row_misses"].append(dict(step=engine.steps, pools_differ=bad))
 
 
-def _graph_check(name, engine, seed):
+def _graph_check(name, engine, seed, prompt_lens=(40, 23, 70, 33)):
     """The engine's step graphs against their eager bodies
     (`ServingEngine._step_body`, and in speculative mode `_draft_body` and
     `_verify_body`, what each graph captured), step by step with new data in
@@ -2024,9 +2064,12 @@ def _graph_check(name, engine, seed):
     phase captured, with idle slots, new lengths and block tables every step,
     decoding slots that grow by a block, and one request preempted
     (recompute) and re-admitted. Before every step (or speculative round) the
-    pools, the draft's too, are cloned; the eager bodies run the same upload
-    over the clones, with any host synchronisation an error; the tokens and
-    every pool tensor must be torch.equal.
+    caches (the paged pools, the slot state), the draft's too, are cloned;
+    the eager bodies run the same upload over the clones, with any host
+    synchronisation an error; the tokens and every cache tensor must be
+    torch.equal. The preemption is a snapshot where the family keeps one
+    (rwkv6, gla: its restore runs between two replays); a slot-state family
+    grows no blocks.
     In speculative mode every round also holds the verify's rows to width-1
     steps (`_verify_rows_check`), except for an MoE model: its layers route
     all rows of a step together under a capacity, so a verify row is not a
@@ -2052,8 +2095,7 @@ def _graph_check(name, engine, seed):
         got = engine_step(tokens, n_new)
         buf = torch.from_numpy(buf).cuda()
         with _no_host_sync():
-            want = engine._step_body({"paged": before[0]}, buf, t,
-                                     None if before[1] is None else {"paged": before[1]})
+            want = engine._step_body(before[0], buf, t, before[1])
         want = want.cpu().numpy()
         bad = _pools_differ(engine, before)
         if not np.array_equal(got, want) or bad:
@@ -2066,14 +2108,14 @@ def _graph_check(name, engine, seed):
         seen[kind]["round"] = seen[kind].get("round", 0) + 1
         seen["idle_slot_steps"] += int((n_one == 0).any())
         before = _clone_pools(engine)
-        rows_pools = _clone_pools(engine)[0], _clone_pools(engine)[0]
+        rows_pools = _clone_pools(engine)[0]["paged"], _clone_pools(engine)[0]["paged"]
         buf = np.empty(engine._upload_len(1), np.int32)
         engine._pack(buf, pend, n_one)
         buf = torch.from_numpy(buf).cuda()
         got = engine_round(pend, n_one)
         with _no_host_sync():
-            drafts = engine._draft_body({"paged": before[1]}, buf)
-            want = engine._verify_body({"paged": before[0]}, buf, drafts)
+            drafts = engine._draft_body(before[1], buf)
+            want = engine._verify_body(before[0], buf, drafts)
         want = want.cpu().numpy()
         bad = _pools_differ(engine, before)
         if not np.array_equal(got, want) or bad:
@@ -2090,7 +2132,7 @@ def _graph_check(name, engine, seed):
     try:
         rng = np.random.default_rng(seed + 7)
         cfg = engine.model.cfg
-        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (40, 23, 70, 33)]
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
         pending, requests, evicted = list(prompts), [], None
         while pending or engine.busy:
             if pending and engine.steps % 2 == 0:
@@ -2104,7 +2146,8 @@ def _graph_check(name, engine, seed):
                 victim = next((r for r in requests if r.rid in decoding
                                and len(r.out_tokens) >= 3), None)
                 if victim is not None:
-                    engine._evict(victim)                 # recompute preemption
+                    # recompute preemption; a snapshot where the family keeps one
+                    engine.preempt(victim)
                     evicted = victim
             engine.step()
             seen["grown"] += sum(r.state == "running" and len(r.blocks) > decoding[r.rid]
@@ -2115,7 +2158,8 @@ def _graph_check(name, engine, seed):
         engine.__dict__.pop("_model_step", None)
         engine.__dict__.pop("_model_round", None)
     graphs_of = ("prefill", "round") if spec else (1, engine.ecfg.prefill_chunk)
-    ok = (not seen["misses"] and seen["grown"] > 0 and seen["readmitted"] == 1
+    ok = (not seen["misses"] and (seen["grown"] > 0 or not engine.has_paged)
+          and seen["readmitted"] == 1
           and seen["idle_slot_steps"] > 0
           and all(seen["replays"].get(w, 0) > 0 for w in graphs_of)
           and all(r.state == "finished" and len(r.out_tokens) == 20 for r in requests)
@@ -2157,13 +2201,16 @@ def _step_ms(engine, seed):
 
 
 def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids,
-           fused=True, params=None, want_tokens=None, step_times=False):
+           fused=True, params=None, want_tokens=None, step_times=False, after_drive=None):
     """The engine at full width: staggered requests, launch counts per model
-    step, engine-vs-solo token identity for `solo_ids` and, with
-    `want_tokens`, token identity with another configuration's run; with
-    `step_times`, the step times of `_step_ms` on the same engine."""
+    step, engine-vs-solo token identity for `solo_ids` (each alone on the
+    drive's engine once it is idle, one after another) and, with `want_tokens`,
+    token identity with another configuration's run; with `step_times`, the
+    step times of `_step_ms` on the same engine; with `after_drive`, its
+    checks on the same engine after the graph check
+    (after_drive(engine, prompts, tokens) -> a list of failures)."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-    from repro_torch.launch.engine import EngineConfig, ServingEngine, build_engine
+    from repro_torch.launch.engine import EngineConfig, build_engine
 
     ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
                         max_blocks_per_slot=32, kv_dtype=kv_dtype)
@@ -2174,11 +2221,9 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
                              params=params, fused_projections=fused, n_layers=n_layers,
                              device="cuda")
     build_s = time.perf_counter() - t0
-    kv_smooth = None
     if kv_dtype == "int8":          # calibrated by build_engine, on the card
         pool = engine.caches["paged"]
-        kv_smooth = (pool["k_smooth"].cpu().numpy(), pool["v_smooth"].cpu().numpy())
-        if all(np.all(v == 1.0) for v in kv_smooth):
+        if all(bool((pool[k] == 1.0).all()) for k in ("k_smooth", "v_smooth")):
             raise SystemExit(f"{name}: the int8 pool kept identity smoothing vectors")
     cfg = engine.model.cfg
     rng = np.random.default_rng(seed)
@@ -2197,27 +2242,32 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     widths = dict(engine.traces)
     model_steps = sum(widths.values())
     n_tok = sum(len(r.out_tokens) for r in requests)
-    expected = _expected_launches(fused, n_layers, widths, _mlp_kind(cfg))
+    if cfg.family in RECURRENT_FAMILIES:
+        expected = _recurrent_expected_launches(cfg, widths)
+        path = RECURRENT_PATH[cfg.family]
+    else:
+        expected = _expected_launches(fused, n_layers, widths, _mlp_kind(cfg))
+        path = [n for n in expected if fused and n not in NOT_SERVING]
     ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
           and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
-          and counts == expected
-          and all(c > 0 for n, c in expected.items() if fused and n not in NOT_SERVING))
+          and counts == expected and all(expected[n] > 0 for n in path))
 
     capture_s = {str(w): round(c, 3) for w, c in engine._graphs.capture_seconds().items()}
-    # every replay against the eager body, on the engine whose graphs this drive captured
-    _graph_check(name, engine, seed)
+    # every replay against the eager body, on the engine whose graphs this drive
+    # captured (a recurrent family's step is T passes of the stack: shorter prompts)
+    _graph_check(name, engine, seed, **(dict(prompt_lens=(20, 9, 36, 14))
+                                        if cfg.family in RECURRENT_FAMILIES else {}))
     steps_ms = _step_ms(engine, seed) if step_times else None
-    # engine-vs-solo token identity: the same request alone, same engine geometry
     tokens = [list(r.out_tokens) for r in requests]
-    model = engine.model
-    del engine
+    after = after_drive(engine, prompts, tokens) if after_drive is not None else []
+    # engine-vs-solo token identity: each request alone on the drive's engine,
+    # idle by now, one after another
     solo_same = {}
     for rid in solo_ids:
-        solo = ServingEngine(model, params, ecfg, kv_smooth=kv_smooth, device="cuda")
-        r = solo.submit(prompts[rid], max_new_tokens=new_tokens)
-        solo.run()
+        r = engine.submit(prompts[rid], max_new_tokens=new_tokens)
+        engine.run()
         solo_same[rid] = r.out_tokens == tokens[rid]
-        del solo
+    del engine
     row = dict(arch=arch, layers=n_layers, dtype=cfg.dtype, weight_bits=4,
                kv_dtype=kv_dtype or "float", fused_projections=fused, requests=n_requests,
                new_tokens_each=new_tokens, prompt_lens=[len(p) for p in prompts],
@@ -2240,6 +2290,8 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
         raise SystemExit(f"{name}: engine tokens differ from solo decoding: {solo_same}")
     if want_tokens is not None and tokens != want_tokens:
         raise SystemExit(f"{name}: tokens differ from the fused configuration's")
+    if after:
+        raise SystemExit(f"{name}: {after}")
     return counts, tokens
 
 
@@ -2656,7 +2708,10 @@ def _row_count_ops(model, params, k):
     product over every window position with its final softcap, and the int8
     pool's absmax quantizer. Returns (those ops, all must hold; the plain f32
     `torch.mean` the norms took their statistics with before, which does not
-    hold, and is why `layers._MIN_STAT_ROWS` exists)."""
+    hold, and is why `layers._MIN_STAT_ROWS` exists). With `k` None (a
+    recurrent family, which neither verifies nor feeds more than S rows at
+    once) those are skipped; a recurrent family adds `_recurrent_row_ops`
+    ("slot_1_of_8")."""
     from repro_torch.models.layers import layernorm, quantize_kv, rmsnorm
     from repro_torch.models.transformer import lm_head_logits
     cfg = model.cfg
@@ -2664,8 +2719,10 @@ def _row_count_ops(model, params, k):
     scale = torch.randn((cfg.d_model,), generator=gen, device="cuda").mul_(0.1)
     bias = torch.randn((cfg.d_model,), generator=gen, device="cuda").mul_(0.1)
     ops, raw = {}, {}
+    if cfg.family in RECURRENT_FAMILIES:
+        ops["slot_1_of_8"] = _recurrent_row_ops(model, params)
     with torch.no_grad():
-        for t in (k + 1, 32):
+        for t in (k + 1, 32) if k is not None else ():
             x = torch.randn((8, t, cfg.d_model), generator=gen, device="cuda").mul_(3)
             x = x.to(cfg.torch_dtype)
             cols = [x[:, j:j + 1].contiguous() for j in range(t)]
@@ -3717,25 +3774,8 @@ def phase_moe_parity(seed: int) -> dict:
                     counts[n] = counts.get(n, 0) + c
             logits[side] = torch.stack(outs)
             del caches
-        diff = (logits["kernels"] - logits["plain"]).abs()
-        top2 = logits["plain"].topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > clear_margin
-        same = logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)
-        row = dict(dtype=dtype, quantized_transform=quantized, layers=n_layers,
-                   max_abs_logit_err=float(diff.max()), tol_max=tol_max,
-                   mean_abs_logit_err=float(diff.mean()), tol_mean=tol_mean,
-                   argmax_agreement=float(same.float().mean()),
-                   rows=same.numel(), rows_with_clear_margin=int(clear.sum()),
-                   clear_margin=clear_margin,
-                   logit_abs_max=float(logits["plain"].abs().max()),
-                   logit_std=float(logits["plain"].std()))
-        row["ok"] = (bool(torch.isfinite(logits["kernels"]).all())
-                     and row["max_abs_logit_err"] <= tol_max
-                     and row["mean_abs_logit_err"] <= tol_mean
-                     and bool(same[clear].all()) and int(clear.sum()) > 0)
-        if not row["ok"]:
-            row["diagnosis"] = _parity_diagnosis(logits, diff)
-        report.append(row)
+        report.append(_parity_row(logits, tol_max, tol_mean, clear_margin, dtype=dtype,
+                                  quantized_transform=quantized, layers=n_layers))
         if dtype == "bfloat16":
             block = _moe_block_alone(model, p, seed)
         del p
@@ -3752,11 +3792,13 @@ def phase_moe_parity(seed: int) -> dict:
     return counts
 
 
-def _moe_breakdown(engine, width, n_steps):
+def _step_breakdown(engine, width, n_steps, ranges=None, phase="serve_moe"):
     """Device ms per step of `engine` at `width` with all 8 slots busy, under
     torch.profiler: through the step's graph (kernels by name: the LUT
-    kernels, B5, everything) and through the eager body, where the MoE
-    block's profiler ranges (`MOE_RANGES`) split its time."""
+    kernels, B5, everything) and through the eager body, where the model's
+    profiler ranges (`ranges`: the MoE block's `MOE_RANGES` by default)
+    split its time."""
+    ranges = MOE_RANGES if ranges is None else ranges
     from torch.profiler import ProfilerActivity, profile, schedule
 
     def run(eager):
@@ -3771,10 +3813,10 @@ def _moe_breakdown(engine, width, n_steps):
             # range, and each step, as a device-side annotation, which is no
             # kernel and is left out of the sums by kind
             for ev in prof.events():
-                if ev.name in MOE_RANGES and ev.device_type == torch.autograd.DeviceType.CPU:
+                if ev.name in ranges and ev.device_type == torch.autograd.DeviceType.CPU:
                     add(ev.name, ev.device_time_total)
             for ev in prof.key_averages():
-                if (ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in MOE_RANGES
+                if (ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in ranges
                         or ev.key.startswith("ProfilerStep")):
                     continue
                 dev = getattr(ev, "self_device_time_total", None)
@@ -3795,7 +3837,7 @@ def _moe_breakdown(engine, width, n_steps):
                     prof.step()
         if engine.traces.get(width, 0) - ran != n_steps + 1 or any(
                 r is None for r in engine.slots):
-            raise SystemExit(f"serve_moe: the profiled steps were not all of width {width} "
+            raise SystemExit(f"{phase}: the profiled steps were not all of width {width} "
                              f"with 8 slots busy")
         return {k: round(v, 3) for k, v in rows.items()}
     graph, eager = run(False), run(True)
@@ -3806,7 +3848,7 @@ def _moe_breakdown(engine, width, n_steps):
 
 def _moe_step_profile(arch, params, n_layers, seed) -> dict:
     """A prefill-width step and a decode step of an engine on `params` with
-    all 8 slots busy (8 prompts of 192 tokens): `_moe_breakdown` of each,
+    all 8 slots busy (8 prompts of 192 tokens): `_step_breakdown` of each,
     the captures' seconds and the peak device memory since the engine was
     built (the graph pool holds one transient per step shape)."""
     from repro_torch.launch.engine import EngineConfig, build_engine
@@ -3824,11 +3866,11 @@ def _moe_step_profile(arch, params, n_layers, seed) -> dict:
         engine.submit(rng.integers(0, engine.model.cfg.vocab, 192).astype(np.int32),
                       max_new_tokens=11)
     engine.step()                                   # the prefill width's warm-up, capture
-    out = {"prefill_width_32": _moe_breakdown(engine, 32, 1)}
+    out = {"prefill_width_32": _step_breakdown(engine, 32, 1)}
     while any(r is not None and r.prefilling for r in engine.slots):
         engine.step()
     engine.step()                                   # the decode width's warm-up, capture
-    out["decode_width_1"] = _moe_breakdown(engine, 1, 2)
+    out["decode_width_1"] = _step_breakdown(engine, 1, 2)
     out["graph_capture_s"] = {str(w): round(c, 3)
                               for w, c in engine._graphs.capture_seconds().items()}
     engine.run()
@@ -3959,11 +4001,323 @@ def phase_serve_moe(seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the recurrent and hybrid families
+# ---------------------------------------------------------------------------
+
+RECURRENT_FAMILIES = ("rwkv", "linear_attn", "hybrid")
+# at full width and full depth
+RECURRENT_DEPTHS = (("rwkv6-1.6b", 24), ("gla-1.3b", 24), ("zamba2-1.2b", 38))
+# what a step of each family launches: rwkv6's and gla's projections are
+# solo GEMVs (8 slots a token); zamba2's shared block adds B3 and B5
+RECURRENT_PATH = {"rwkv": ("lut_matmul_fused_gemv",),
+                  "linear_attn": ("lut_matmul_fused_gemv",),
+                  "hybrid": ("lut_matmul_fused_gemv", "lut_matmul_fused_multi_gemv",
+                             "paged_pool_attention")}
+# the eager body's profiler ranges of a recurrent step: the recurrence's
+# token steps and the in-place masked state update
+RECURRENT_RANGES = ("recurrent.scan", "recurrent.mask_state")
+
+
+def _recurrent_expected_launches(cfg, widths):
+    """Launches of the engine's steps: a step of width T runs T one-token
+    passes of the stack over the 8 slots, so every LUT launch is a GEMV (B1,
+    and B3 for zamba2's QKV and gate+up) and B5 runs at T = 1; no step
+    launches B2 or B4. Per pass: rwkv6 8 solo launches a layer (r, k, v, g,
+    o, the channel mix's three), gla 6 (q, k, v, o solo as the JAX package
+    calls them, the MLP's two), zamba2 2 a mamba layer (w_in, w_out) and per
+    attention site 2 multi (QKV, gate+up), 2 solo (wo, w_down) and one B5."""
+    from repro_torch.models.zamba2 import n_sites
+    passes = sum(w * c for w, c in widths.items() if isinstance(w, int))
+    sites = n_sites(cfg) if cfg.family == "hybrid" else 0
+    solo = {"rwkv": 8, "linear_attn": 6, "hybrid": 2}[cfg.family] * cfg.n_layers + 2 * sites
+    return {"lut_matmul_fused_multi_gemv": 2 * sites * passes, "lut_matmul_fused_multi": 0,
+            "lut_matmul_fused_gemv": solo * passes, "lut_matmul_fused": 0,
+            "paged_pool_attention": sites * passes, **NOT_SERVING}
+
+
+def _recurrent_row_ops(model, params):
+    """Whether the ops a recurrent step adds give a slot's row the same bits
+    alone (plain decode at batch 1) as among the engine's 8 slots: the final
+    norm and the bf16 vocab head, the decay / gate LoRA products
+    (`layers.row_stable_matmul`, layer 0's weights), the recurrence's token
+    step (`_wkv_scan`, `_gla_scan`, `_ssd_scan`: output and new state, its
+    sums elementwise) and zamba2's causal conv."""
+    from repro_torch.models import gla, rwkv6, zamba2
+    from repro_torch.models.layers import rmsnorm, row_stable_matmul
+    from repro_torch.models.transformer import layer_slice
+    cfg, f32 = model.cfg, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, dtype=f32, scale=1.0, uniform=False):
+        x = (torch.rand if uniform else torch.randn)(shape, generator=gen, device="cuda")
+        return (x * scale).to(dtype)
+
+    def rows_same(fn, *xs):
+        wide = fn(*xs)
+        wide = wide if isinstance(wide, tuple) else (wide,)
+        for i in range(xs[0].shape[0]):
+            one = fn(*[x[i:i + 1] for x in xs])
+            one = one if isinstance(one, tuple) else (one,)
+            if not all(torch.equal(w[i:i + 1], o) for w, o in zip(wide, one)):
+                return False
+        return True
+
+    p0 = layer_slice(params["blocks"], 0)
+    scale = params["ln_final"]["scale"]
+    ops = {}
+    with torch.no_grad():
+        x = rnd(8, 1, cfg.d_model, dtype=cfg.torch_dtype, scale=3.0)
+        ops["rmsnorm"] = rows_same(lambda a: rmsnorm(a, scale), x)
+        ops["lm_head"] = rows_same(lambda a: a @ params["lm_head"].to(a.dtype),
+                                   rmsnorm(x, scale))
+        if cfg.family == "hybrid":
+            H, P, N, di = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+            ops["ssd_scan"] = rows_same(
+                lambda xh, b, c, dt, s: zamba2._ssd_scan(xh, b, c, dt, p0["a_log"],
+                                                         p0["d_skip"], s),
+                rnd(8, 1, H, P), rnd(8, 1, N), rnd(8, 1, N),
+                rnd(8, 1, H, scale=0.5, uniform=True), rnd(8, H, P, N))
+            ops["causal_conv"] = rows_same(
+                lambda a, st: zamba2._causal_conv(a, p0["conv"], st),
+                rnd(8, 1, di, dtype=cfg.torch_dtype), rnd(8, cfg.ssm_conv - 1, di,
+                                                          dtype=cfg.torch_dtype))
+            return ops
+        lora = p0["tm"] if cfg.family == "rwkv" else p0["attn"]
+        a, b = ("decay_A", "decay_B") if cfg.family == "rwkv" else ("gate_A", "gate_B")
+        xw = rnd(8, 1, cfg.d_model)
+        ops["lora_in"] = rows_same(lambda v: row_stable_matmul(v, lora[a]), xw)
+        ops["lora_out"] = rows_same(lambda v: row_stable_matmul(v, lora[b]),
+                                    torch.tanh(row_stable_matmul(xw, lora[a])))
+        H, P = cfg.rwkv_heads, cfg.rwkv_head_dim
+        args = (rnd(8, 1, H, P), rnd(8, 1, H, P), rnd(8, 1, H, P),
+                0.5 + rnd(8, 1, H, P, scale=0.5, uniform=True), rnd(8, H, P, P))
+        if cfg.family == "rwkv":
+            ops["wkv_scan"] = rows_same(
+                lambda r, k, v, w, s: rwkv6._wkv_scan(r, k, v, w, lora["u"], s), *args)
+        else:
+            ops["gla_scan"] = rows_same(gla._gla_scan, *args)
+    return ops
+
+
+def phase_recurrent_parity(seed: int) -> dict:
+    """Each recurrent arch at full width, LCD 4-bit, 2 layers (zamba2: its
+    one attention site after them, the period being 6): the same params and
+    serving
+    steps (a prefill-width step with ragged n_new and an idle slot, then two
+    decode steps) through the kernels and through their plain versions
+    (`_plain_versions`), both on the card: in f32 with the float transform
+    and in bf16 with the quantized one, at model_parity's limits; then the
+    full-sequence forward (the chunked forms; the LUT GEMMs B2, and B4 for
+    zamba2's shared block) at 4 x 64 = 256 rows in f32, kernels against
+    plain at the same limits. Then B1 / B3 / B5 at the three archs' shapes
+    against their plain versions, timed (`kernels_recurrent`). Returns the
+    kernel sides' launch counts."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.config import get_config
+
+    s, t, nbw, nb, bs = 8, 32, 8, 64, 16
+    variants = (("float32", False, 1e-3, 1e-4), ("bfloat16", True, 0.75, 0.03))
+    report, counts = [], {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        for n, c in launch_counts().items():
+            counts[n] = counts.get(n, 0) + c
+        return out
+
+    for arch, _ in RECURRENT_DEPTHS:
+        # zamba2 at 2 layers, not 2 x attn_period = 12: its random weights
+        # grow the residual stream by ~10^5 over 12 layers (a probe on the
+        # card: 2.9e6 at the second site), which lifts the plain side's f32
+        # logits differences to 0.034 and the bf16 quantized ones to 1.9
+        layers, cfg0 = 2, get_config(arch)
+        rng = np.random.default_rng(seed)
+        tables = rng.permutation(nb)[:s * nbw].reshape(s, nbw).astype(np.int32)
+        n_first = rng.integers(5, t + 1, s).astype(np.int32)
+        n_first[3] = 0                                         # an idle slot
+        active = n_first > 0
+        steps = [(rng.integers(0, cfg0.vocab, (s, t)).astype(np.int32), n_first)]
+        for _ in range(2):
+            steps.append((rng.integers(0, cfg0.vocab, (s, 1)).astype(np.int32),
+                          active.astype(np.int32)))
+        fwd_tokens = torch.from_numpy(rng.integers(0, cfg0.vocab, (4, 64))).cuda()
+        for dtype, quantized, tol_max, tol_mean in variants:
+            model, p = _served_params(arch, seed, layers, dtype=dtype, quantized=quantized)
+            def run():
+                caches = model.init_seq_caches(num_blocks=nb, block_size=bs, num_slots=s,
+                                               max_seq=nbw * bs, device="cuda")
+                lengths, outs = np.zeros(s, np.int32), []
+                for tokens, n_new in steps:
+                    args = [torch.from_numpy(a).cuda() for a in (tokens, lengths, n_new, tables)]
+                    with _no_host_sync():
+                        lg, _ = model.serving_step(p, caches, *args)
+                    outs.append(lg[active][:, :cfg0.vocab].float().cpu())
+                    lengths = lengths + n_new
+                return torch.stack(outs)
+
+            logits = {"kernels": count(run)}
+            with _plain_versions():
+                logits["plain"] = run()
+            report.append(_parity_row(logits, tol_max, tol_mean, arch=arch, layers=layers,
+                                      dtype=dtype, quantized_transform=quantized,
+                                      what="serving_step"))
+            if dtype == "float32":
+                fwd = {}
+                with torch.no_grad():
+                    with _plain_versions():
+                        fwd["plain"] = model.apply(p, {"tokens": fwd_tokens})[0][..., :cfg0.vocab]
+                    fwd["kernels"] = count(lambda: model.apply(p, {"tokens": fwd_tokens}))[0][
+                        ..., :cfg0.vocab]
+                report.append(_parity_row({k: v.float().cpu() for k, v in fwd.items()},
+                                          tol_max, tol_mean, arch=arch, layers=layers,
+                                          dtype=dtype, quantized_transform=quantized,
+                                          what="forward", rows_per_launch=4 * 64))
+                del fwd
+            del p
+            torch.cuda.empty_cache()
+    emit("recurrent_parity", variants=report, launches=counts)
+    if not all(r["ok"] for r in report):
+        raise SystemExit(f"recurrent_parity: the kernels' and the plain versions' logits "
+                         f"disagree: {[r for r in report if not r['ok']]}")
+    missing = [n for n in PLAIN_LUT + ("paged_pool_attention",) if not counts.get(n)]
+    if missing:
+        raise SystemExit(f"recurrent_parity: {missing} never launched: {counts}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    cases, worst = check_family_kernels(gen, archs=[a for a, _ in RECURRENT_DEPTHS],
+                                        rows=(8,))
+    emit("kernels_recurrent", cases=cases, worst=worst)
+    return counts
+
+
+def _preempt_check(engine, prompts, tokens, new_tokens) -> dict:
+    """Four of the drive's prompts again on its engine, two of them preempted
+    as they run (the first while it prefills, the next once it has decoded
+    two tokens), then drained: every request's tokens must be the drive's,
+    since a request's tokens do not depend on what shares its steps
+    (engine = solo). rwkv6 and gla keep a snapshot (the slot's rows copied
+    out and back: `snapshot` / `restore` counted, no token fed twice),
+    zamba2 recomputes. Returns the line's fields."""
+    before = dict(engine.traces)
+    fed = [0]
+    inner = engine._model_step
+
+    def counting(tok, n_new):
+        fed[0] += int(n_new.sum())
+        return inner(tok, n_new)
+    engine._model_step = counting
+    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts[:4]]
+    mid = dec = None
+    try:
+        while engine.busy:
+            running = [r for r in reqs if r.state == "running"]
+            if mid is None:
+                mid = next((r for r in running if r.prefilling and r.fed > 0), None)
+                if mid is not None:
+                    engine.preempt(mid)
+            elif dec is None:
+                dec = next((r for r in running if len(r.out_tokens) >= 2), None)
+                if dec is not None:
+                    engine.preempt(dec)
+            engine.step()
+    finally:
+        del engine._model_step
+    snap = engine.model.seq_caches["slot"].snapshot and not engine.has_paged
+    delta = {k: engine.traces.get(k, 0) - before.get(k, 0)
+             for k in ("snapshot", "restore", "slot_reset")}
+    need = sum(len(p) for p in prompts[:4]) + 4 * (new_tokens - 1)
+    ok = (mid is not None and dec is not None
+          and [list(r.out_tokens) for r in reqs] == tokens[:4]
+          and all(r.preemptions == any(r is x for x in (mid, dec)) for r in reqs)
+          and delta["snapshot"] == delta["restore"] == (2 if snap else 0)
+          and (fed[0] == need if snap else fed[0] > need))
+    return dict(ok=ok, kind="snapshot" if snap else "recompute", traces_delta=delta,
+                tokens_fed=fed[0], tokens_fed_unpreempted=need,
+                same_tokens_as_drive=[list(r.out_tokens) for r in reqs] == tokens[:4])
+
+
+def _recurrent_after_drive(name, seed):
+    """`_serve`'s after_drive for a recurrent arch: the preemption check,
+    `_row_count_ops` (the recurrent ops at 1 and 8 rows), a width-32 step's
+    time through its graph with all 8 slots busy, and where a decode step's
+    device time goes (`_step_breakdown` with the recurrent ranges: graph and
+    eager body), each width's capture seconds; one line."""
+    def after(engine, prompts, tokens):
+        cfg = engine.model.cfg
+        fails = []
+        pre = _preempt_check(engine, prompts, tokens, len(tokens[0]))
+        ops, _ = _row_count_ops(engine.model, engine.params, None)
+        if not pre["ok"]:
+            fails.append(f"preemption: {pre}")
+        if not _row_count_ops_hold(ops):
+            fails.append(f"row-count ops: {ops}")
+        rng = np.random.default_rng(seed + 13)
+        for _ in range(engine.ecfg.num_slots):
+            # 4 prefill-width steps (one, then 2 timed: host clock and CUDA
+            # events, profiler off; one replay timed 3 times over), then 10
+            # decode steps (one, then the breakdown's graph 3, eager 3, wall 2)
+            engine.submit(rng.integers(0, cfg.vocab, 128).astype(np.int32), max_new_tokens=11)
+        ran = engine.traces.get(32, 0)
+        engine.step()
+        wall, span = _wall_ms_per_step(engine, 2)
+        wide = dict(wall_ms_per_step=round(wall, 3), event_span_ms_per_step=round(span, 3),
+                    device_ms_per_replay=round(_replay_ms(engine._graphs._graphs[32], n=3), 3))
+        if engine.traces.get(32, 0) - ran != 3 or any(r is None for r in engine.slots):
+            fails.append("the width-32 steps timed were not all of 8 busy slots")
+        while any(r is not None and r.prefilling for r in engine.slots):
+            engine.step()
+        engine.step()
+        prof = {"prefill_width_32": wide,
+                "decode_width_1": _step_breakdown(engine, 1, 2, RECURRENT_RANGES, name)}
+        engine.run()
+        emit(name + "_checks", arch=cfg.arch_id, layers=cfg.n_layers, preemption=pre,
+             row_count_ops=ops, step_ms_8_slots_busy=prof,
+             graph_capture_s={str(w): round(c, 3)
+                              for w, c in engine._graphs.capture_seconds().items()},
+             slot_state_bytes=sum(t.numel() * t.element_size()
+                                  for t in engine.caches["slot"].values()),
+             paged_pool_bytes=sum(t.numel() * t.element_size()
+                                  for t in engine.caches.get("paged", {}).values()))
+        return fails
+    return after
+
+
+def phase_serve_recurrent(seed: int) -> dict:
+    """rwkv6-1.6b, gla-1.3b and zamba2-1.2b served at full width and full
+    depth like `serve`: LCD 4-bit weights from the seed with the quantized
+    transform (gla's gate LoRA dense), the `serve` engine's geometry and 12
+    requests of 40-200 prompt tokens, 24 new tokens each: launch counts per
+    model step (every pass a GEMV: `_recurrent_expected_launches`), bounded
+    shapes, every replay equal to its eager body in tokens and every cache
+    tensor (`_graph_check`, a snapshot preemption inside for rwkv6 / gla),
+    then on the same engine preemption (`_preempt_check`), the new ops'
+    row bits (`_recurrent_row_ops`) and where a step's device time goes, then
+    engine = solo tokens for 3 requests. Returns the drives' launches,
+    summed over the archs."""
+    total = {}
+    for arch, layers in RECURRENT_DEPTHS:
+        t0 = time.perf_counter()
+        _, params = _served_params(arch, seed, layers)
+        counts, _ = _serve("serve_recurrent", arch, seed, layers, 12, 24, None,
+                           solo_ids=(0, 5, 11), params=params,
+                           after_drive=_recurrent_after_drive("serve_recurrent", seed))
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        del params
+        torch.cuda.empty_cache()
+        emit("serve_recurrent_arch", arch=arch, layers=layers,
+             seconds=round(time.perf_counter() - t0, 1),
+             peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    return total
+
+
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
-              "serve_moe", "train")
+              "serve_moe", "recurrent_parity", "serve_recurrent", "train")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
 ON_SERVE_WEIGHTS = {"serve", "serve_unfused", "serve_static", "profile", "serve_prefix",
@@ -4059,6 +4413,18 @@ def main() -> int:
         print(f"chip_smoke: serve_moe did not launch every kernel of its path: {moe_counts}",
               file=sys.stderr)
         return 1
+    # the recurrent and hybrid families: the kernels against their plain
+    # versions inside 2-layer models (their forward too: B2 / B4) and at the
+    # archs' shapes, then served at full width and depth, counted on their own
+    recurrent_parity_counts = (timed("recurrent_parity", phase_recurrent_parity, args.seed)
+                               if "recurrent_parity" in phases else {})
+    recurrent_counts = (timed("serve_recurrent", phase_serve_recurrent, args.seed)
+                        if "serve_recurrent" in phases else {})
+    if "serve_recurrent" in phases and not all(
+            recurrent_counts.get(n, 0) > 0 for n in RECURRENT_PATH["hybrid"]):
+        print(f"chip_smoke: serve_recurrent did not launch every kernel of its path: "
+              f"{recurrent_counts}", file=sys.stderr)
+        return 1
     # the trainer and the paper's pipeline: the student's forward (B2 / B4 at
     # 4096 rows) and its engine (B1-B5), counted on their own; B2 / B4 at
     # those rows against their plain versions, timed
@@ -4114,6 +4480,10 @@ def main() -> int:
             # the MoE family: the 2-layer model's kernel side, and its serving drives
             "launches_moe_parity": moe_parity_counts.get(name, 0),
             "launches_serve_moe": moe_counts.get(name, 0),
+            # the recurrent and hybrid families: the 2-layer models' kernel side
+            # (serving steps and the forward), and their full-depth drives
+            "launches_recurrent_parity": recurrent_parity_counts.get(name, 0),
+            "launches_serve_recurrent": recurrent_counts.get(name, 0),
             # the trainer's pipeline: the student's evaluation and its engine
             "launches_train": train_counts.get(name, 0),
             "train_shapes": [{k: c.get(k) for k in (

@@ -3,7 +3,7 @@
 `from_reference` takes the reference's trees in a framework-neutral form —
 nested dicts of **numpy arrays**, a ClusteredTensor as a dict of its six array
 fields (`None`s kept) plus `nbits` — and returns this package's parameters or
-paged cache on a device. Flattening a live JAX pytree to that form is the
+serving caches on a device. Flattening a live JAX pytree to that form is the
 caller's business (the tests keep a helper for it); nothing here imports JAX.
 bfloat16 leaves cross as float32 numpy arrays and are cast back with `dtype`.
 """
@@ -49,26 +49,39 @@ def _clustered(node: dict, device) -> ClusteredTensor:
 
 def from_reference(tree: Any, device="cuda",
                    dtype: Optional[torch.dtype] = None) -> Any:
-    """The port's parameters (or paged cache) from the reference's tree of
-    numpy arrays, on `device`.
+    """The port's parameters (or serving caches: paged pools, slot state) from
+    the reference's tree of numpy arrays, on `device`.
 
     Dense floating leaves are cast to `dtype` when given (pass the model
-    dtype to turn float32-carried bfloat16 weights back); float32 norm
-    scales, cache scale pools and smoothing vectors — and every field of a
-    ClusteredTensor — keep the dtype they arrive in when `dtype` is None.
+    dtype to turn float32-carried bfloat16 weights back); the leaves that
+    are float32 in every model dtype (`_F32_LEAVES`: norm scales, cache
+    scale pools and smoothing vectors, the recurrent families' dynamics
+    parameters and f32 state, the mamba conv weight) — and every field of a
+    ClusteredTensor — keep the dtype they arrive in.
     Integer leaves (int8 KV codes) always keep theirs."""
     dev = resolve_device(device)
 
-    def walk(node, name=""):
+    def walk(node, path=()):
         if _is_clustered_dict(node):
             return _clustered(node, dev)
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
         if node is None:
             return None
         a = np.asarray(node)
-        keep_f32 = name in ("scale", "bias", "k_scale", "v_scale",
-                            "k_smooth", "v_smooth")
+        # the mamba conv weight is f32, the mamba conv state the model dtype
+        name = path[-1] if path else ""
+        keep_f32 = name in _F32_LEAVES or path[-2:] == ("blocks", "conv")
         return _tensor(a, dev, None if keep_f32 else dtype)
 
     return walk(tree)
+
+
+# leaves that are float32 whatever the model dtype: norm scales and biases,
+# the int8 pools' scales and smoothing vectors, the recurrent families'
+# dynamics parameters (decay / gate LoRA, u bonus, SSM A, dt bias, D skip)
+# and their f32 state (rwkv6 "wkv", gla "s", zamba2 "ssm")
+_F32_LEAVES = frozenset({
+    "scale", "bias", "k_scale", "v_scale", "k_smooth", "v_smooth",
+    "w0", "decay_A", "decay_B", "u", "g0", "gate_A", "gate_B", "a_log", "dt_bias",
+    "d_skip", "wkv", "s", "ssm"})

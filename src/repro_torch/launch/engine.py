@@ -80,13 +80,27 @@ Continuous batching (`ServingEngine`)
         tenant with the smallest weighted share of served tokens, then
         arrival, among tenants under `tenant_token_budget`.
 
+    Capability-typed cache protocols, as in the reference: a family serves
+    through a paged block pool (the transformers), fixed-size per-slot state
+    (rwkv6, gla: `SlotStateCache`; the slot IS the allocator, so admission
+    needs only a free slot and no block arithmetic), or both (zamba2 threads
+    its shared-attention pools and its mamba state through one step).
+    `self.caches` holds every cache the family declared, keyed by kind.
+    Admission zeroes a fresh request's slot rows; where the family declares
+    `snapshot` (rwkv6, gla), `preempt()` copies the slot's rows out and
+    re-admission copies them back, so the request resumes without
+    recomputing a token; everything else recomputes. On the card the reset,
+    the snapshot and the restore are eager in-place ops on the current stream
+    between two replays (the slot a host int: no sync, and no tensor a graph
+    reads is replaced), each one "slot_reset" / "snapshot" / "restore" entry
+    in `traces`.
+
 With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
 from `seed`, or passed in) go through `compress_model` (core/api.py) on their
 device first, at `weight_bits` or under a `bits_budget`, as in the reference.
 
 Not ported yet, and refused with NotImplementedError naming the knob: serving
-meshes, snapshot preemption, and every model family but the dense and vlm
-transformers (`models/registry.py PORTED_FAMILIES`).
+meshes and the audio family (whisper: `models/registry.py PORTED_FAMILIES`).
 """
 from __future__ import annotations
 
@@ -107,8 +121,8 @@ from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.kernels.ops import add_launches, capture_launches
 from repro_torch.models.config import get_config, reduced
 from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
-                                         CAP_PREFIX_CACHE, CAP_SPECULATIVE,
-                                         PORTED_FAMILIES, Model,
+                                         CAP_PREFIX_CACHE, CAP_SLOT_STATE,
+                                         CAP_SPECULATIVE, PORTED_FAMILIES, Model,
                                          arch_capabilities, get_model)
 from repro_torch.utils import cdiv, human_bytes, logger, resolve_device
 
@@ -497,6 +511,11 @@ class Request:
     # speculative mode: accepted draft tokens per verify round (0..k each;
     # round i emits accept_lens[i] + 1 tokens, a budget cap included)
     accept_lens: List[int] = dataclasses.field(default_factory=list)
+    # snapshot preemption: the slot's state rows ({name: tensor}) and its
+    # length when it was preempted; re-admission restores both instead of
+    # re-prefilling
+    snapshot: Optional[Dict[str, Any]] = None
+    snap_len: int = 0
 
     # tokens to (re)prefill this running stint, SNAPSHOTTED at admission:
     # the prompt plus anything generated before a preemption. Tokens decoded
@@ -689,10 +708,12 @@ class ServingEngine:
                 "the engine runs on one device")
         _refuse_unported(ecfg, model)
         caps = model.capabilities
-        if CAP_PAGED not in caps:
+        if CAP_PAGED not in caps and CAP_SLOT_STATE not in caps:
             raise ValueError(
-                f"family '{model.cfg.family}' publishes no paged cache "
-                f"protocol; has {sorted(caps)}")
+                f"family '{model.cfg.family}' publishes no serving cache "
+                f"protocol (needs 'paged' or 'slot_state'); has {sorted(caps)}")
+        self.has_paged = CAP_PAGED in caps
+        self.has_slot = CAP_SLOT_STATE in caps
         self.spec_k = ecfg.speculative_k
         if self.spec_k:
             if CAP_SPECULATIVE not in caps:
@@ -758,7 +779,8 @@ class ServingEngine:
             return model.init_seq_caches(
                 num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
                 num_slots=ecfg.num_slots, max_seq=ecfg.max_seq,
-                kv_dtype=self.kv_dtype, device=self.device)
+                kv_dtype=self.kv_dtype if self.has_paged else None,
+                device=self.device)
         self.caches = pools()
         # the draft's own K/V pool (draft weights produce other K/V), with the
         # same geometry, block ids and kv dtype as the target's
@@ -779,11 +801,15 @@ class ServingEngine:
                             f"kv_smooth: {name} must be {tuple(pool[name].shape)} "
                             f"(layers, kv heads, head dim); got {tuple(sm.shape)}")
                     pool[name] = sm.to(self.device).contiguous()
-        pool_bytes = _tree_bytes(self.caches) + _tree_bytes(self.draft_caches)
+        pool_bytes = (_tree_bytes(self.caches.get("paged"))
+                      + _tree_bytes((self.draft_caches or {}).get("paged")))
+        slot_bytes = _tree_bytes(self.caches.get("slot"))
         logger.info(f"engine: {ecfg.num_slots} slots, "
-                    f"{2 if self.spec_k else 1} x {ecfg.num_blocks} x "
-                    f"{ecfg.block_size}-token {self.kv_dtype} KV blocks "
-                    f"({human_bytes(pool_bytes)}) on {self.device}")
+                    + (f"{2 if self.spec_k else 1} x {ecfg.num_blocks} x "
+                       f"{ecfg.block_size}-token {self.kv_dtype} KV blocks "
+                       f"({human_bytes(pool_bytes)})" if self.has_paged else "no KV blocks")
+                    + (f", slot state {human_bytes(slot_bytes)}" if self.has_slot else "")
+                    + f" on {self.device}")
         # the step shapes this engine has run, with how often — widths T
         # normally, (role, width) in speculative mode ("prefill", "draft",
         # "verify"); the counted form of the reference's bounded-trace contract
@@ -844,13 +870,35 @@ class ServingEngine:
         return False
 
     def preempt(self, r: Request) -> None:
-        """Preempt a RUNNING request back to the queue front: recompute
-        preemption, identical to block-pressure eviction (its blocks are
-        surrendered, and re-admission re-prefills prompt + generated, from
-        the prefix cache where it is on)."""
+        """Preempt a RUNNING request back to the queue front.
+
+        A family whose slot state declares `snapshot` (rwkv6, gla) and has
+        no paged pool keeps the request's state rows (`_slot_snapshot`), and
+        re-admission restores them: the request resumes exactly where it
+        stopped without recomputing a token. Everything else (paged pools
+        whose blocks are surrendered, zamba2's state) is recompute
+        preemption, identical to block-pressure eviction: re-admission
+        re-prefills prompt + generated, from the prefix cache where it is
+        on."""
         if r.state != RUNNING:
             raise ValueError(f"cannot preempt a {r.state!r} request")
-        self._evict(r)
+        proto = self.model.seq_caches.get("slot")
+        if proto is None or not proto.snapshot or self.has_paged:
+            self._evict(r)
+            return
+        s = r.slot
+        logger.info(f"engine: snapshot-preempting request {r.rid} "
+                    f"({len(r.out_tokens)}/{r.max_new_tokens} tokens done)")
+        r.snapshot = self._slot_snapshot(s)
+        r.snap_len = int(self.lengths[s])
+        self._tenant_release(r)
+        # feed / fed are KEPT: a request preempted mid-prefill resumes its
+        # feed from the restored state, a decoding one keeps its pending token
+        r.slot = None
+        r.state, r.preemptions = QUEUED, r.preemptions + 1
+        self.slots[s] = None
+        self.lengths[s] = 0
+        self.queue.appendleft(r)
 
     @property
     def busy(self) -> bool:
@@ -883,6 +931,11 @@ class ServingEngine:
         if self.ecfg.prefix_cache:
             # the copy-on-write block copy: block ids are data, one more shape
             allowed = allowed | {"cow"}
+        if self.has_slot:
+            # the per-slot state ops: the slot is data, one shape each
+            allowed = allowed | {"slot_reset"}
+            if self.model.seq_caches["slot"].snapshot:
+                allowed = allowed | {"snapshot", "restore"}
         if not set(self.traces) <= allowed:
             raise AssertionError(
                 f"unexpected step shapes {set(self.traces)} (allowed {allowed})")
@@ -938,15 +991,18 @@ class ServingEngine:
         ecfg = self.ecfg
         t = ecfg.prefill_chunk if any(r.prefilling for _, r in active) else 1
 
-        # pass 1 — reserve blocks. Reservation may EVICT other active slots
-        # (recompute preemption), so it must complete before any tokens are
-        # packed: a slot evicted here simply drops out of pass 2.
+        # pass 1 — reserve blocks (paged families only: slot state is
+        # fixed-size, so a slot-only family never starves or evicts here).
+        # Reservation may EVICT other active slots (recompute preemption), so
+        # it must complete before any tokens are packed: a slot evicted here
+        # simply drops out of pass 2.
         def want(r):
             return min(len(r.feed) - r.fed, t) if r.prefilling else 1
-        for s, r in active:
-            if self.slots[s] is not r:
-                continue           # evicted by an earlier reservation
-            self._ensure_blocks(r, int(self.lengths[s]) + want(r))
+        if self.has_paged:
+            for s, r in active:
+                if self.slots[s] is not r:
+                    continue       # evicted by an earlier reservation
+                self._ensure_blocks(r, int(self.lengths[s]) + want(r))
 
         # pass 1.5 — copy-on-write: a slot about to write into a block the
         # prefix cache granted read-only (refcount > 1) gets a private copy
@@ -968,7 +1024,8 @@ class ServingEngine:
         active = [(s, r) for s, r in enumerate(self.slots) if r is not None]
         for s, r in active:
             w = want(r)
-            if len(r.blocks) * ecfg.block_size < int(self.lengths[s]) + w:
+            if self.has_paged and (
+                    len(r.blocks) * ecfg.block_size < int(self.lengths[s]) + w):
                 continue               # starved of blocks: waits this step
             if self._write_shared(r, s, w):
                 continue               # COW starved: waits this step
@@ -1208,7 +1265,12 @@ class ServingEngine:
         on, the feed's longest block-aligned prefix already in the hash index
         is shared read-only instead of re-prefilled; at least the feed's last
         token is always re-fed, because its logits seed the first generated
-        token."""
+        token.
+
+        A slot-state family skips the block accounting: a free slot is all
+        admission needs, and the slot's state rows are zeroed
+        (`_slot_reset`). A snapshot-preempted request restores its saved
+        rows and resumes mid-stream instead of re-prefilling."""
         ecfg = self.ecfg
         for s in range(ecfg.num_slots):
             if self.slots[s] is not None or not self.queue:
@@ -1216,6 +1278,16 @@ class ServingEngine:
             r = self._pick_next()
             if r is None:
                 return                 # nothing admissible this step
+            if r.snapshot is not None:
+                self.queue.remove(r)
+                self._slot_restore(s, r.snapshot)
+                r.state, r.slot = RUNNING, s
+                self.slots[s] = r
+                self.lengths[s] = r.snap_len
+                self.block_tables[s] = 0
+                r.snapshot, r.snap_len = None, 0
+                self._tenant_acquire(r)
+                continue
             feed = r.resume_feed()
             shared, hashes = self._match_prefix(feed) if ecfg.prefix_cache else ([], [])
             cached_len = len(shared) * ecfg.block_size
@@ -1225,13 +1297,16 @@ class ServingEngine:
             # taking our reference BEFORE allocating the fresh remainder
             for b in shared:
                 self.alloc.share(b)
-            need_tokens = len(feed)
-            if ecfg.chunked_prefill:
-                need_tokens = min(len(feed), cached_len + ecfg.prefill_chunk)
-            blocks = self.alloc.alloc(max(cdiv(need_tokens, ecfg.block_size) - len(shared), 0))
-            if blocks is None:
-                self.alloc.free(shared)    # undo the shares; r stays queued
-                return             # all-or-nothing: don't starve the pick
+            blocks: List[int] = []
+            if self.has_paged:
+                need_tokens = len(feed)
+                if ecfg.chunked_prefill:
+                    need_tokens = min(len(feed), cached_len + ecfg.prefill_chunk)
+                blocks = self.alloc.alloc(
+                    max(cdiv(need_tokens, ecfg.block_size) - len(shared), 0))
+                if blocks is None:
+                    self.alloc.free(shared)    # undo the shares; r stays queued
+                    return         # all-or-nothing: don't starve the pick
             self.queue.remove(r)
             self.cache_stats["cached_tokens"] += cached_len
             self.cache_stats["shared_block_grants"] += len(shared)
@@ -1245,7 +1320,38 @@ class ServingEngine:
             self.lengths[s] = cached_len
             self.block_tables[s] = 0
             self.block_tables[s, :len(r.blocks)] = r.blocks
+            if self.has_slot:
+                self._slot_reset(s)
             self._tenant_acquire(r)
+
+    # -- per-slot state ops (SlotStateCache) ----------------------------------
+    # Eager, in place, on the current stream between two replays, as the
+    # copy-on-write copy is: the slot is a host int, so nothing waits for the
+    # card, and every state tensor a step graph reads keeps its identity.
+    # Each op is one entry in `traces`, the counterpart of the reference's
+    # one jitted function per op.
+
+    @torch.no_grad()
+    def _slot_reset(self, s: int) -> None:
+        """Zero slot `s`'s state rows: a fresh stint must not read the
+        previous occupant's recurrence."""
+        for t in self.caches["slot"].values():
+            t[:, s].zero_()
+        self.traces["slot_reset"] = self.traces.get("slot_reset", 0) + 1
+
+    @torch.no_grad()
+    def _slot_snapshot(self, s: int) -> Dict[str, torch.Tensor]:
+        """Copies of slot `s`'s state rows (a preemption snapshot)."""
+        snap = {name: t[:, s].clone() for name, t in self.caches["slot"].items()}
+        self.traces["snapshot"] = self.traces.get("snapshot", 0) + 1
+        return snap
+
+    @torch.no_grad()
+    def _slot_restore(self, s: int, snap: Dict[str, torch.Tensor]) -> None:
+        """Put a preemption snapshot back into slot `s`."""
+        for name, t in self.caches["slot"].items():
+            t[:, s].copy_(snap[name])
+        self.traces["restore"] = self.traces.get("restore", 0) + 1
 
     # -- prefix cache, copy-on-write and tenant accounting --------------------
 

@@ -10,6 +10,13 @@ Continuous batching (staggered requests, paged KV cache):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --lcd \
         --continuous --requests 6 --tokens 16
 
+The recurrent and hybrid families (rwkv6-1.6b, gla-1.3b: per-slot state;
+zamba2-1.2b: per-slot state and a paged pool for its shared attention) serve
+through the same engine:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --lcd \
+        --continuous --requests 6 --tokens 16
+
 Self-speculative decoding (the model's own 2-bit clustering drafts K tokens
 per verify round; the tokens equal plain greedy decoding's):
 
@@ -73,7 +80,8 @@ def _describe(engine) -> None:
     compressed target (and of the speculative draft), their packed bytes and
     the bytes left dense (embedding, head, norms; an MoE model's router, and
     its stacked experts, which `compress_model`'s default predicate does not
-    cluster), and the KV pool dtype."""
+    cluster), the KV pool dtype, and the bytes of the paged pools (the
+    draft's included) beside those of the per-slot recurrent state."""
     from repro_torch.core.clustered_params import packed_weight_bytes
     if engine.compress_report is None:
         logger.info("describe: params are not LCD-compressed (run with --lcd)")
@@ -87,6 +95,10 @@ def _describe(engine) -> None:
                     f"{packed_weight_bytes(engine.draft_params)} (int4 layout "
                     f"would be {packed_weight_bytes(engine.draft_params, nbits=4)})")
     logger.info(f"kv_dtype: {engine.kv_dtype}")
+    pool = sum(_dense_weight_bytes(c.get("paged")) for c in (engine.caches,
+                                                             engine.draft_caches or {}))
+    logger.info(f"sequence caches: paged pool bytes {pool}, slot state bytes "
+                f"{_dense_weight_bytes(engine.caches.get('slot'))}")
 
 
 def _build_kernels(device) -> None:

@@ -111,8 +111,60 @@ class ModelConfig:
         return self.n_kv_heads * self.hd
 
     @property
+    def d_inner(self) -> int:       # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    # ---- parameter counting (the JAX package's closed form) -----------------
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters by the JAX package's closed form (its roofline's N):
+        the projections, the recurrent families' LoRA adapters and mixers,
+        the hybrid's one shared attention + MLP block, embeddings and head.
+        `Model.param_count` counts the parameter table instead."""
+        d, f = self.d_model, self.d_ff
+        qd, kvd = self.q_dim, self.kv_dim
+        attn = d * qd + 2 * d * kvd + qd * d
+        if self.family == "rwkv":
+            # r, k, v, g, o projections + decay LoRA + channel mix
+            per = 4 * d * d + d * d + 2 * d * 64 + d * f + f * d
+            body = self.n_layers * per
+        elif self.family == "linear_attn":
+            # q, k, v, o projections + gate LoRA + gelu MLP
+            per = 4 * d * d + 2 * d * 64 + 2 * d * f
+            body = self.n_layers * per
+        elif self.family == "hybrid":
+            di, ns = self.d_inner, self.ssm_state
+            per = d * (2 * di + 2 * ns + self.ssm_heads) + di * d
+            body = self.n_layers * per + attn + 2 * d * f   # one shared block
+        else:
+            mlp_mult = 3 if self.mlp == "swiglu" else 2
+            if self.n_experts:
+                mlp = self.n_experts * mlp_mult * d * f + d * self.n_experts
+                mlp_active = self.moe_topk * mlp_mult * d * f
+            else:
+                mlp = mlp_active = mlp_mult * d * f
+            body = self.n_layers * (attn + (mlp_active if active_only else mlp))
+            if self.is_encdec:
+                # encoder self-attention + MLP; the decoder's cross-attention
+                body += self.n_enc_layers * (attn + mlp_mult * d * f)
+                body += self.n_layers * attn
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return int(body + emb)
 
 
 # ---------------------------------------------------------------------------

@@ -443,38 +443,59 @@ def _full_f32_matmuls():
 
 
 class _FullF32Einsum(torch.autograd.Function):
-    """`torch.einsum(eq, a, b)` whose forward and backward products both run
-    in full f32 (`_full_f32_matmuls`): autograd runs a backward after the
+    """`torch.einsum(eq, *operands)` whose forward and backward products all
+    run in full f32 (`_full_f32_matmuls`): autograd runs a backward after the
     forward's `with` block has exited, under whatever the caller set then.
-    The router's logits decide the routing, and the dispatch product is a
-    gather only in exact f32. Each operand's gradient is the einsum of the
-    output's gradient with the other operand, so every index of an operand
-    must appear in the other operand or in the output (true of the block's
-    five products)."""
+    The router's logits decide the routing, the dispatch product is a gather
+    only in exact f32, and the recurrent families' chunked forms sum
+    exponentials of cumulative decays. Each operand's gradient is the einsum
+    of the output's gradient with the other operands, so every index of an
+    operand must appear in another operand or in the output (true of every
+    product the port runs through it)."""
 
     @staticmethod
-    def forward(ctx, eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, eq: str, *operands: torch.Tensor) -> torch.Tensor:
         ctx.eq = eq
-        ctx.save_for_backward(a, b)
+        ctx.save_for_backward(*operands)
         with _full_f32_matmuls():
-            return torch.einsum(eq, a, b)
+            return torch.einsum(eq, *operands)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        a, b = ctx.saved_tensors
+        operands = ctx.saved_tensors
         ins, out = ctx.eq.split("->")
-        sa, sb = ins.split(",")
-        ga = gb = None
+        subs = ins.split(",")
+        grads = []
         with _full_f32_matmuls():
-            if ctx.needs_input_grad[1]:
-                ga = torch.einsum(f"{out},{sb}->{sa}", g, b)
-            if ctx.needs_input_grad[2]:
-                gb = torch.einsum(f"{sa},{out}->{sb}", a, g)
-        return None, ga, gb
+            for i, sub in enumerate(subs):
+                if not ctx.needs_input_grad[i + 1]:
+                    grads.append(None)
+                    continue
+                rest = [j for j in range(len(subs)) if j != i]
+                eq_i = ",".join([out] + [subs[j] for j in rest]) + "->" + sub
+                grads.append(torch.einsum(eq_i, g, *[operands[j] for j in rest]))
+        return (None, *grads)
 
 
-def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _FullF32Einsum.apply(eq, a, b)
+def _einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    return _FullF32Einsum.apply(eq, *operands)
+
+
+def row_stable_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in full f32 (forward and backward, `_FullF32Einsum`) for the
+    small f32 products of a recurrent step (the decay / gate LoRA). cuBLAS
+    picks its kernel by the row count: on an H100 a (1, 2048) x (2048, 64)
+    row has other bits than the same row inside (8, 2048), and a
+    (M, 64) x (64, 2048) row differs between 1 and 8 rows. So, as the norms
+    take their statistics (`_MIN_STAT_ROWS`), fewer than 16 rows are padded
+    with zero rows to 16: a row's bits are the same at 1 to 16 rows, which
+    covers a slot at batch 1 (plain decode) and inside the engine's step."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, k)
+    r = rows.shape[0]
+    if r < _MIN_STAT_ROWS:
+        rows = F.pad(rows, (0, 0, 0, _MIN_STAT_ROWS - r))
+    return _einsum("mk,kn->mn", rows, w)[:r].reshape(*lead, w.shape[-1])
 
 
 class MoeRouting(NamedTuple):

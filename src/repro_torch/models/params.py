@@ -21,7 +21,7 @@ from repro_torch.utils import resolve_device
 class ParamDecl:
     shape: Tuple[int, ...]
     names: str                   # comma-joined logical dims, e.g. "layers,embed,ff"
-    init: str = "normal"         # normal[:std] | zeros | ones | embed | fanin
+    init: str = "normal"         # normal[:std] | zeros | ones | embed | fanin[:g] | uniform:lo~hi
     dtype: Optional[str] = None  # override model dtype (e.g. float32 for norms)
 
 
@@ -73,6 +73,10 @@ def _init_one(gen: torch.Generator, d: ParamDecl, default_dtype, device) -> torc
     if kind == "fanin":
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         return normal((float(arg) if arg else 1.0) / math.sqrt(fan_in))
+    if kind == "uniform":                  # e.g. the recurrent families' decays
+        lo, hi = (float(v) for v in arg.split("~"))
+        x = torch.rand(d.shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return (lo + (hi - lo) * x).to(dtype).to(device)
     raise ValueError(f"unknown init {d.init!r}")
 
 

@@ -4,6 +4,8 @@
     params = model.init(generator, device)      # real tensors
     logits, aux = model.apply(params, {"tokens": t})    # full sequence
     loss = lm_loss(logits, targets, loss_mask, model.cfg.vocab)
+    caches = model.init_seq_caches(num_blocks=..., block_size=...,
+                                   num_slots=..., max_seq=..., device=...)
     logits, caches = model.serving_step(params, caches, tokens, lengths,
                                         n_new, block_tables)
     logits, caches = model.serving_verify(params, caches, tokens, lengths,
@@ -11,24 +13,32 @@
     cache = model.init_cache(batch, max_seq, device)          # static path
     logits, cache = model.decode(params, cache, {"tokens": t, "pos": cache["pos"]})
 
-Serving surface (launch/engine.py): a family publishes the sequence caches it
-serves through, keyed by kind ("paged": a block-table pool over
-(num_blocks, block_size) rows), plus a capability set telling the engine which
-features apply. The dense, moe and vlm families are ported; an MoE arch
-(phi3.5-moe, llama4-scout) serves through the same paged step with
-`layers.moe_block` as its MLP, and a vlm arch (paligemma-3b) serves its
-text decoder through the dense paged step, as the JAX package's do, and
-takes its image prefix in the full-sequence forward (`batch["img_embeds"]`).
+Serving surface (launch/engine.py): each family publishes the sequence caches
+it serves through, keyed by kind,
+
+    "paged"  PagedSeqCache  — a block-table pool over (num_blocks, block_size)
+                              rows; grows per token, supports sharing / COW;
+    "slot"   SlotStateCache — fixed-size per-slot state; the slot IS the
+                              allocator (no paging, no block tables);
+
+plus a capability set telling the engine which features apply, and one
+`serving_step(params, caches, tokens, lengths, n_new, block_tables)` that
+threads every cache the family declared through one step. The dense, moe and
+vlm transformers serve through the paged step (an MoE arch with
+`layers.moe_block` as its MLP; paligemma-3b's text decoder, its image prefix
+taken by the full-sequence forward as `batch["img_embeds"]`); rwkv6 and gla
+through slot state; zamba2 through both. The audio family (whisper) is not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
 
+from repro_torch.models import gla, rwkv6, transformer, zamba2
 from repro_torch.models import params as PT
-from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, get_config
 
 # --- capabilities ------------------------------------------------------------
@@ -57,7 +67,7 @@ FAMILY_CAPS: Dict[str, frozenset] = {
     "audio": frozenset({CAP_SLOT_STATE, CAP_SNAPSHOT, CAP_ENCODER}),
 }
 
-PORTED_FAMILIES = ("dense", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "rwkv", "linear_attn", "hybrid")
 
 
 def family_capabilities(family: str) -> frozenset:
@@ -73,13 +83,40 @@ def arch_capabilities(arch_id: str) -> frozenset:
     return family_capabilities(get_config(arch_id).family)
 
 
+# --- sequence-cache protocols ------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PagedSeqCache:
+    """Block-table KV pool: rows of (num_blocks, block_size) pages.
+
+    init(cfg, num_blocks, block_size, kv_dtype, device) -> pool dict. The
+    engine owns allocation (BlockAllocator), sharing and copy-on-write."""
+    init: Callable
+    names: Mapping[str, str]
+    kind: str = dataclasses.field(default="paged", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotStateCache:
+    """Fixed-size per-slot sequence state (axis 1 of every leaf = slot).
+
+    init(cfg, num_slots, max_seq, device) -> state dict. There is no
+    allocator: admitting a request resets its slot; preemption (where
+    `snapshot`) copies the slot's rows out and back instead of recomputing."""
+    init: Callable
+    names: Mapping[str, str]
+    snapshot: bool = True
+    kind: str = dataclasses.field(default="slot", init=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     table: PT.Table
     capabilities: frozenset = frozenset()
+    # serving surface: cache protocols by kind, and one step threading them
+    seq_caches: Dict[str, Any] = dataclasses.field(default_factory=dict)
     _apply: Optional[Callable] = None
-    _init_paged_cache: Optional[Callable] = None
     _serving_step: Optional[Callable] = None
     _serving_verify: Optional[Callable] = None
     _decode: Optional[Callable] = None
@@ -115,8 +152,14 @@ class Model:
                         kv_dtype: Optional[str] = None,
                         device="cuda") -> Dict[str, Any]:
         """Instantiate every cache this family serves through, keyed by kind."""
-        return {"paged": self._init_paged_cache(
-            self.cfg, num_blocks, block_size, kv_dtype, device)}
+        caches: Dict[str, Any] = {}
+        if "paged" in self.seq_caches:
+            caches["paged"] = self.seq_caches["paged"].init(
+                self.cfg, num_blocks, block_size, kv_dtype, device)
+        if "slot" in self.seq_caches:
+            caches["slot"] = self.seq_caches["slot"].init(
+                self.cfg, num_slots, max_seq, device)
+        return caches
 
     def serving_step(self, params, caches: Dict[str, Any], tokens, lengths,
                      n_new, block_tables):
@@ -128,9 +171,13 @@ class Model:
                        n_new, block_tables):
         """Logits at every window position (the speculative verify; paged
         families only): ((S, T, padded_vocab), updated caches)."""
+        assert self._serving_verify is not None, (
+            f"{self.cfg.family}: no serving verify")
         return self._serving_verify(params, caches, tokens, lengths, n_new,
                                     block_tables, self.cfg)
 
+
+# --- family adapters ---------------------------------------------------------
 
 def _dense_apply(params, batch, cfg):
     prefix = batch.get("img_embeds")
@@ -155,8 +202,52 @@ def _dense_serving_verify(params, caches, tokens, lengths, n_new, block_tables,
     return logits, {"paged": pool}
 
 
-def _dense_decode(params, cache, batch, cfg):
-    return transformer.decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
+def _apply_of(module):
+    def apply(params, batch, cfg):
+        return module.forward(params, batch["tokens"], cfg)
+    return apply
+
+
+def _decode_of(module):
+    def decode(params, cache, batch, cfg):
+        return module.decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
+    return decode
+
+
+_TRANSFORMER_SEQ_CACHES = {
+    "paged": PagedSeqCache(init=transformer.init_paged_cache,
+                           names=transformer.PAGED_CACHE_NAMES),
+}
+
+# per family: (param table, apply, decode, init_cache)
+_FAMILIES = {
+    "dense": (transformer.param_table, _dense_apply, _decode_of(transformer),
+              transformer.init_cache),
+    "rwkv": (rwkv6.param_table, _apply_of(rwkv6), _decode_of(rwkv6), rwkv6.init_cache),
+    "linear_attn": (gla.param_table, _apply_of(gla), _decode_of(gla), gla.init_cache),
+    "hybrid": (zamba2.param_table, _apply_of(zamba2), _decode_of(zamba2),
+               zamba2.init_cache),
+}
+_FAMILIES["moe"] = _FAMILIES["vlm"] = _FAMILIES["dense"]
+
+# per family: (seq_caches, serving_step, serving_verify)
+_SERVING = {
+    "dense": (_TRANSFORMER_SEQ_CACHES, _dense_serving_step, _dense_serving_verify),
+    "rwkv": ({"slot": SlotStateCache(init=rwkv6.init_slot_state,
+                                     names=rwkv6.SLOT_STATE_NAMES)},
+             rwkv6.serving_step, None),
+    "linear_attn": ({"slot": SlotStateCache(init=gla.init_slot_state,
+                                            names=gla.SLOT_STATE_NAMES)},
+                    gla.serving_step, None),
+    # the hybrid threads BOTH caches through one step; its ssm / conv state
+    # is not snapshot-swapped (preemption recomputes, like a transformer's)
+    "hybrid": ({"paged": PagedSeqCache(init=zamba2.init_paged_cache,
+                                       names=zamba2.PAGED_CACHE_NAMES),
+                "slot": SlotStateCache(init=zamba2.init_slot_state,
+                                       names=zamba2.SLOT_STATE_NAMES, snapshot=False)},
+               zamba2.serving_step, None),
+}
+_SERVING["moe"] = _SERVING["vlm"] = _SERVING["dense"]
 
 
 def get_model(cfg: Union[ModelConfig, str]) -> Model:
@@ -168,11 +259,11 @@ def get_model(cfg: Union[ModelConfig, str]) -> Model:
         raise NotImplementedError(
             f"model family {cfg.family!r} (arch {cfg.arch_id!r}) is not ported "
             f"yet; ported families: {', '.join(PORTED_FAMILIES)}")
-    return Model(cfg, transformer.param_table(cfg), capabilities=caps,
-                 _apply=_dense_apply, _init_paged_cache=transformer.init_paged_cache,
-                 _serving_step=_dense_serving_step,
-                 _serving_verify=_dense_serving_verify, _decode=_dense_decode,
-                 _init_cache=transformer.init_cache)
+    table_fn, apply_fn, decode_fn, init_cache = _FAMILIES[cfg.family]
+    seq_caches, step_fn, verify_fn = _SERVING[cfg.family]
+    return Model(cfg, table_fn(cfg), capabilities=caps, seq_caches=dict(seq_caches),
+                 _apply=apply_fn, _serving_step=step_fn, _serving_verify=verify_fn,
+                 _decode=decode_fn, _init_cache=init_cache)
 
 
 # --- loss ---------------------------------------------------------------------

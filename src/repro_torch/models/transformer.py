@@ -47,44 +47,48 @@ def _norm_decl(cfg: ModelConfig, stacked: bool = True) -> Dict[str, D]:
     return t
 
 
-def _attn_table(cfg: ModelConfig) -> Dict[str, D]:
-    L = (cfg.n_layers,)
+def _attn_table(cfg: ModelConfig, stacked: bool = True) -> Dict[str, D]:
+    """The attention's weights, stacked (L, ...) or, for zamba2's one shared
+    block, unstacked."""
+    L = (cfg.n_layers,) if stacked else ()
+    ln = "layers," if stacked else ""
     d, qd, kvd = cfg.d_model, cfg.q_dim_eff, cfg.kv_dim
     t = {
-        "wq": D(L + (d, qd), "layers,embed,q_dim", "fanin"),
-        "wk": D(L + (d, kvd), "layers,embed,kv_flat", "fanin"),
-        "wv": D(L + (d, kvd), "layers,embed,kv_flat", "fanin"),
-        "wo": D(L + (qd, d), "layers,q_dim,embed", "fanin"),
+        "wq": D(L + (d, qd), f"{ln}embed,q_dim", "fanin"),
+        "wk": D(L + (d, kvd), f"{ln}embed,kv_flat", "fanin"),
+        "wv": D(L + (d, kvd), f"{ln}embed,kv_flat", "fanin"),
+        "wo": D(L + (qd, d), f"{ln}q_dim,embed", "fanin"),
     }
     if cfg.qkv_bias:
-        t["bq"] = D(L + (qd,), "layers,q_dim", "zeros")
-        t["bk"] = D(L + (kvd,), "layers,kv_flat", "zeros")
-        t["bv"] = D(L + (kvd,), "layers,kv_flat", "zeros")
+        t["bq"] = D(L + (qd,), f"{ln}q_dim", "zeros")
+        t["bk"] = D(L + (kvd,), f"{ln}kv_flat", "zeros")
+        t["bv"] = D(L + (kvd,), f"{ln}kv_flat", "zeros")
     return t
 
 
-def _mlp_table(cfg: ModelConfig) -> Dict[str, D]:
-    L = (cfg.n_layers,)
+def _mlp_table(cfg: ModelConfig, stacked: bool = True) -> Dict[str, D]:
+    L = (cfg.n_layers,) if stacked else ()
+    ln = "layers," if stacked else ""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.n_experts:
         e = cfg.n_experts
         return {
-            "router": D(L + (d, e), "layers,embed_nofsdp,.", "fanin"),
-            "w_gate": D(L + (e, d, f), "layers,experts,embed,ff", "fanin"),
-            "w_up": D(L + (e, d, f), "layers,experts,embed,ff", "fanin"),
-            "w_down": D(L + (e, f, d), "layers,experts,ff,embed", "fanin"),
+            "router": D(L + (d, e), f"{ln}embed_nofsdp,.", "fanin"),
+            "w_gate": D(L + (e, d, f), f"{ln}experts,embed,ff", "fanin"),
+            "w_up": D(L + (e, d, f), f"{ln}experts,embed,ff", "fanin"),
+            "w_down": D(L + (e, f, d), f"{ln}experts,ff,embed", "fanin"),
         }
     if cfg.mlp == "swiglu":
         return {
-            "w_gate": D(L + (d, f), "layers,embed,ff", "fanin"),
-            "w_up": D(L + (d, f), "layers,embed,ff", "fanin"),
-            "w_down": D(L + (f, d), "layers,ff,embed", "fanin"),
+            "w_gate": D(L + (d, f), f"{ln}embed,ff", "fanin"),
+            "w_up": D(L + (d, f), f"{ln}embed,ff", "fanin"),
+            "w_down": D(L + (f, d), f"{ln}ff,embed", "fanin"),
         }
     return {
-        "w_up": D(L + (d, f), "layers,embed,ff", "fanin"),
-        "b_up": D(L + (f,), "layers,ff", "zeros"),
-        "w_down": D(L + (f, d), "layers,ff,embed", "fanin"),
-        "b_down": D(L + (d,), "layers,embed_nofsdp", "zeros"),
+        "w_up": D(L + (d, f), f"{ln}embed,ff", "fanin"),
+        "b_up": D(L + (f,), f"{ln}ff", "zeros"),
+        "w_down": D(L + (f, d), f"{ln}ff,embed", "fanin"),
+        "b_down": D(L + (d,), f"{ln}embed_nofsdp", "zeros"),
     }
 
 
@@ -198,12 +202,12 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-                 window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """`_block` under `torch.utils.checkpoint`: "nothing" keeps only the
-    layer's input and recomputes the rest in the backward; "dots" also keeps
-    the projections' outputs. The MoE block sits inside, like the dense
-    MLP."""
+def remat_call(cfg: ModelConfig, fn, *args):
+    """fn(*args) under `torch.utils.checkpoint`, one layer's body: with
+    `cfg.remat_policy` "nothing" only the inputs are kept and the rest is
+    recomputed in the backward; "dots" also keeps the projections' outputs.
+    The counterpart of the JAX package's `jax.checkpoint` around its scanned
+    body, shared by every family's forward."""
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
     kw = {}
@@ -212,7 +216,14 @@ def _remat_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     elif cfg.remat_policy != "nothing":
         raise ValueError(f"remat_policy must be 'nothing' or 'dots'; got "
                          f"{cfg.remat_policy!r}")
-    return checkpoint(_block, cfg, p, x, window, use_reentrant=False, **kw)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _remat_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                 window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`_block` under `remat_call`. The MoE block sits inside, like the
+    dense MLP."""
+    return remat_call(cfg, _block, cfg, p, x, window)
 
 
 def forward(
@@ -310,6 +321,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
         "k_smooth": torch.ones(smshape, **f32),
         "v_smooth": torch.ones(smshape, **f32),
     }
+
+
+PAGED_CACHE_NAMES = {"k": "layers,blocks,.,kv,.", "v": "layers,blocks,.,kv,.",
+                     "k_scale": "layers,blocks,.,kv", "v_scale": "layers,blocks,.,kv",
+                     "k_smooth": "layers,kv,.", "v_smooth": "layers,kv,."}
 
 
 def _paged_trunk(

@@ -156,9 +156,9 @@ def test_other_unported_surface():
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         port_engine.ServingEngine(model, params, mesh=object(), device="cpu")
-    # moe is ported since the MoE slice; the recurrent families are not
-    with pytest.raises(NotImplementedError, match="'rwkv'"):
-        get_model(dataclasses.replace(model.cfg, family="rwkv"))
+    # every family but the audio one (whisper) is ported
+    with pytest.raises(NotImplementedError, match="'audio'"):
+        get_model(dataclasses.replace(model.cfg, family="audio"))
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(dataclasses.replace(model.cfg, family="nope"))
     # compress_model is ported: dense params with lcd=True are compressed,

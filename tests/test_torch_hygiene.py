@@ -38,7 +38,15 @@ def test_the_walk_sees_the_whole_package():
                  "src/repro_torch/launch/train.py", "src/repro_torch/checkpoint/manager.py",
                  "src/repro_torch/data/pipeline.py", "chip_smoke.py",
                  "src/repro_torch/configs/phi3_5_moe.py",
-                 "src/repro_torch/configs/llama4_scout.py"):
+                 "src/repro_torch/configs/llama4_scout.py",
+                 "src/repro_torch/models/slot_state.py",
+                 "src/repro_torch/models/linear_attn.py",
+                 "src/repro_torch/models/rwkv6.py", "src/repro_torch/models/gla.py",
+                 "src/repro_torch/models/zamba2.py",
+                 "src/repro_torch/configs/rwkv6_1_6b.py",
+                 "src/repro_torch/configs/gla_1_3b.py",
+                 "src/repro_torch/configs/zamba2_1_2b.py",
+                 "src/repro_torch/configs/whisper_large_v3.py"):
         assert want in names
     assert len(FILES) >= 20
 
@@ -97,6 +105,7 @@ def test_build_directory_is_ignored_and_keyed_by_the_sources():
 
 def test_import_builds_nothing():
     import repro_torch.core.api  # noqa: F401
+    import repro_torch.models.registry  # noqa: F401  (every family's module)
     import repro_torch.core.smoothing  # noqa: F401
     import repro_torch.kernels.lut_matmul  # noqa: F401
     import repro_torch.kernels.paged_attention  # noqa: F401
