@@ -45,8 +45,8 @@ decode step's time goes, graph and eager body in turns; serves the
 mixture-of-experts family (`moe_parity`: a 2-layer full-width phi3.5-moe
 with its stacked experts clustered, kernels against their plain versions,
 the MoE block alone against its f32 run, B1-B5 at both MoE archs' shapes;
-`serve_moe`: phi3.5-moe at its 32 layers and llama4-scout cut to 4 at full
-width, every replay equal to its eager body, where a step's time goes,
+`serve_moe`: phi3.5-moe cut to 16 of its 32 layers and llama4-scout to 4 at
+full width, every replay equal to its eager body, where a step's time goes,
 then phi3.5-moe's first 2 layers over an int8 pool and speculatively);
 serves the recurrent and hybrid families (`recurrent_parity`: rwkv6-1.6b,
 gla-1.3b and zamba2-1.2b at full width and 2 layers, serving steps and the
@@ -55,7 +55,13 @@ their shapes; `serve_recurrent`: the three at full width and full depth
 through the slot-state engine, every replay equal to its eager body with a
 snapshot preemption inside, preempted = unpreempted tokens, the new ops'
 row bits at 1 and 8 slots, a decode step's device time by kernel and
-profiler range, engine = solo). Every phase prints
+profiler range, engine = solo); serves the audio family (`audio_parity`:
+whisper-large-v3 at full width, 2 encoder + 2 decoder layers, its encoder,
+cross-K/V build, serving steps and forward through the kernels against their
+plain versions, B1 / B2 at its shapes, B2 at 1500 rows; `serve_audio`:
+whisper at 32 + 32 layers through the slot-state engine, each request's
+encoder run once at admission, the same checks as `serve_recurrent`, and
+distinct frames giving distinct tokens). Every phase prints
 one JSON line; any failed phase ends the process with a non-zero exit
 code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
@@ -71,6 +77,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1920,6 +1927,28 @@ def phase_model_parity(seed: int) -> None:
                          f"disagree: {report}")
 
 
+def _frames_of(engine, prompt, salt=0):
+    """An encoder-decoder model's (whisper's) frames for a prompt: (1,
+    enc_seq, d_model) normal values drawn on the card from a seed hashed
+    from the prompt's tokens (and `salt`), so a prompt resubmitted (a solo
+    run, a check on the same engine) brings the same frames; None for every
+    other model."""
+    from repro_torch.models.registry import CAP_ENCODER
+    if not engine.model.supports(CAP_ENCODER):
+        return None
+    cfg = engine.model.cfg
+    tokens = np.ascontiguousarray(prompt, np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(tokens.tobytes()) + salt)
+    return torch.randn((1, cfg.enc_seq, cfg.d_model), generator=gen, device="cuda")
+
+
+def _submit(engine, prompt, new_tokens):
+    """`engine.submit`, with the prompt's frames where the model has an
+    encoder (`_frames_of`)."""
+    return engine.submit(prompt, max_new_tokens=new_tokens,
+                         frames=_frames_of(engine, prompt))
+
+
 def _drive(engine, prompts, new_tokens):
     """Staggered submissions: a fresh request every other scheduler step,
     counted from the drive's first step."""
@@ -1928,7 +1957,7 @@ def _drive(engine, prompts, new_tokens):
     start = engine.steps
     while pending or engine.busy:
         if pending and (engine.steps - start) % 2 == 0:
-            requests.append(engine.submit(pending.pop(0), max_new_tokens=new_tokens))
+            requests.append(_submit(engine, pending.pop(0), new_tokens))
         if engine.busy:
             engine.step()
         else:
@@ -1940,7 +1969,9 @@ def _served_params(arch, seed, n_layers, fused=True, dtype=None, quantized=True)
     """(model, params): LCD 4-bit weights from `seed` on the card
     (`materialize_clustered`, in the config's dtype unless `dtype` is
     given), with the quantized Eq. 11 transform armed unless `quantized` is
-    False. gla's forget-gate LoRA (`gate_A`, `gate_B`) is drawn dense, as
+    False. An encoder-decoder arch (whisper) gets `n_layers` encoder layers
+    too, and its layernorm scales drawn near one
+    (`_layernorm_scales_near_one`). gla's forget-gate LoRA (`gate_A`, `gate_B`) is drawn dense, as
     materialize_clustered draws a dense leaf (normal(0, 0.02), f32):
     clustered it cannot run, in the JAX package either (ROADMAP C)."""
     import dataclasses
@@ -1949,15 +1980,34 @@ def _served_params(arch, seed, n_layers, fused=True, dtype=None, quantized=True)
     from repro_torch.models.config import get_config
     from repro_torch.models.registry import get_model
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, fused_projections=fused)
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)     # as deep as the decoder
     model = get_model(cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = materialize_clustered(model, gen, nbits=4, device="cuda")
+    if model.cfg.family == "audio":
+        params = _layernorm_scales_near_one(params, gen)
     if model.cfg.family == "linear_attn":
         attn = params["blocks"]["attn"]
         for name in ("gate_A", "gate_B"):
             shape = tuple(attn[name].smooth.shape) + (attn[name].codes.shape[-1],)
             attn[name] = torch.randn(shape, generator=gen, device="cuda") * 0.02
     return model, (calibrate(params) if quantized else params)
+
+
+def _layernorm_scales_near_one(params, gen):
+    """`params` with every layernorm scale (a dict holding "scale" and
+    "bias") drawn as 1 + 0.1 normal instead of materialize_clustered's
+    normal(0, 0.02): whisper's layernorm multiplies by its scale (no 1 +
+    scale, unlike the RMS norms), and a stream scaled by 0.02 at every norm
+    would leave the logits near zero, where no greedy token is clear."""
+    if isinstance(params, dict) and {"scale", "bias"} <= set(params):
+        sc = params["scale"]
+        return {**params, "scale": 1.0 + 0.1 * torch.randn(
+            sc.shape, generator=gen, device=sc.device, dtype=torch.float32).to(sc.dtype)}
+    if isinstance(params, dict):
+        return {k: _layernorm_scales_near_one(v, gen) for k, v in params.items()}
+    return params
 
 
 # the §4 layer's kernels and the attention kernels B8, B9: never launched by a
@@ -2136,7 +2186,7 @@ def _graph_check(name, engine, seed, prompt_lens=(40, 23, 70, 33)):
         pending, requests, evicted = list(prompts), [], None
         while pending or engine.busy:
             if pending and engine.steps % 2 == 0:
-                requests.append(engine.submit(pending.pop(0), max_new_tokens=20))
+                requests.append(_submit(engine, pending.pop(0), 20))
             if not engine.busy:
                 engine.steps += 1
                 continue
@@ -2245,6 +2295,9 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     if cfg.family in RECURRENT_FAMILIES:
         expected = _recurrent_expected_launches(cfg, widths)
         path = RECURRENT_PATH[cfg.family]
+    elif cfg.family == "audio":
+        expected = _audio_expected_launches(cfg, widths)
+        path = AUDIO_PATH
     else:
         expected = _expected_launches(fused, n_layers, widths, _mlp_kind(cfg))
         path = [n for n in expected if fused and n not in NOT_SERVING]
@@ -2264,7 +2317,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     # idle by now, one after another
     solo_same = {}
     for rid in solo_ids:
-        r = engine.submit(prompts[rid], max_new_tokens=new_tokens)
+        r = _submit(engine, prompts[rid], new_tokens)
         engine.run()
         solo_same[rid] = r.out_tokens == tokens[rid]
     del engine
@@ -2278,6 +2331,8 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
                preemptions=sum(r.preemptions for r in requests),
                engine_build_s=round(build_s, 3), graph_capture_s=capture_s,
                peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    if cfg.family == "audio":
+        row["launches_by_shape"] = _audio_launches_by_shape(cfg, widths)
     if steps_ms is not None:
         row["step_ms_8_slots_busy"] = steps_ms
     if want_tokens is not None:
@@ -2711,7 +2766,7 @@ def _row_count_ops(model, params, k):
     hold, and is why `layers._MIN_STAT_ROWS` exists). With `k` None (a
     recurrent family, which neither verifies nor feeds more than S rows at
     once) those are skipped; a recurrent family adds `_recurrent_row_ops`
-    ("slot_1_of_8")."""
+    and the audio family `_audio_row_ops` ("slot_1_of_8")."""
     from repro_torch.models.layers import layernorm, quantize_kv, rmsnorm
     from repro_torch.models.transformer import lm_head_logits
     cfg = model.cfg
@@ -2721,6 +2776,8 @@ def _row_count_ops(model, params, k):
     ops, raw = {}, {}
     if cfg.family in RECURRENT_FAMILIES:
         ops["slot_1_of_8"] = _recurrent_row_ops(model, params)
+    if cfg.family == "audio":
+        ops["slot_1_of_8"] = _audio_row_ops(model, params)
     with torch.no_grad():
         for t in (k + 1, 32) if k is not None else ():
             x = torch.randn((8, t, cfg.d_model), generator=gen, device="cuda").mul_(3)
@@ -3942,18 +3999,20 @@ def _serve_spec_moe(arch, seed, params, n_layers=2, k=SPEC_K, new_tokens=16):
     return counts
 
 
-# the MoE family at full width: phi3.5-moe at its 32 layers, llama4-scout cut to
-# 4 (its 48 would need ~54 GB of packed experts; at 8 layers the script ran
-# 771 s, run 24b, and a decode step resolves 2 B expert weights a layer)
-MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 32), ("llama4-scout-17b-a16e", 4))
+# the MoE family at full width: phi3.5-moe cut to 16 of its 32 layers (with the
+# audio phases the whole script passed 820 s: the cut the script's time limit
+# asks for first), llama4-scout cut to 4 (its 48 would need ~54 GB of packed
+# experts; at 8 layers the script ran 771 s, run 24b, and a decode step
+# resolves 2 B expert weights a layer)
+MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 16), ("llama4-scout-17b-a16e", 4))
 
 
 def phase_serve_moe(seed: int) -> dict:
     """The MoE family served like `serve`: LCD 4-bit weights from the seed
     with the stacked experts clustered too (`materialize_clustered`) and the
     quantized transform armed, fused projections, the `serve` engine's
-    geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b at
-    its 32 layers and llama4-scout-17b-a16e cut to 4, at full width. Launch
+    geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b cut
+    to 16 layers and llama4-scout-17b-a16e to 4 (`MOE_DEPTHS`), at full width. Launch
     counts per model step (an MoE layer's LUT launches are its attention's),
     bounded shapes, every replay equal to its eager body in tokens and pools
     (`_graph_check`), tokens/s, and the step times with 8 slots busy and
@@ -3983,7 +4042,7 @@ def phase_serve_moe(seed: int) -> dict:
         prof = _moe_step_profile(arch, params, layers, seed)
         emit("serve_moe_profile", arch=arch, layers=layers, **prof)
         if arch == MOE_ARCHS[0]:
-            # copies of the first 2 layers, so that the 32 layers' storage goes
+            # copies of the first 2 layers, so that the full drive's storage goes
             two = _first_layers(params, 2)
             two["blocks"] = _cloned(two["blocks"])
             del params
@@ -4036,6 +4095,19 @@ def _recurrent_expected_launches(cfg, widths):
             "paged_pool_attention": sites * passes, **NOT_SERVING}
 
 
+def _rows_same(fn, *xs):
+    """Whether fn over all rows of its inputs (axis 0: the slots) gives each
+    row the bits of fn over that row alone (every output of a tuple)."""
+    wide = fn(*xs)
+    wide = wide if isinstance(wide, tuple) else (wide,)
+    for i in range(xs[0].shape[0]):
+        one = fn(*[x[i:i + 1] for x in xs])
+        one = one if isinstance(one, tuple) else (one,)
+        if not all(torch.equal(w[i:i + 1], o) for w, o in zip(wide, one)):
+            return False
+    return True
+
+
 def _recurrent_row_ops(model, params):
     """Whether the ops a recurrent step adds give a slot's row the same bits
     alone (plain decode at batch 1) as among the engine's 8 slots: the final
@@ -4053,16 +4125,7 @@ def _recurrent_row_ops(model, params):
         x = (torch.rand if uniform else torch.randn)(shape, generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
-    def rows_same(fn, *xs):
-        wide = fn(*xs)
-        wide = wide if isinstance(wide, tuple) else (wide,)
-        for i in range(xs[0].shape[0]):
-            one = fn(*[x[i:i + 1] for x in xs])
-            one = one if isinstance(one, tuple) else (one,)
-            if not all(torch.equal(w[i:i + 1], o) for w, o in zip(wide, one)):
-                return False
-        return True
-
+    rows_same = _rows_same
     p0 = layer_slice(params["blocks"], 0)
     scale = params["ln_final"]["scale"]
     ops = {}
@@ -4110,8 +4173,9 @@ def phase_recurrent_parity(seed: int) -> dict:
     and in bf16 with the quantized one, at model_parity's limits; then the
     full-sequence forward (the chunked forms; the LUT GEMMs B2, and B4 for
     zamba2's shared block) at 4 x 64 = 256 rows in f32, kernels against
-    plain at the same limits. Then B1 / B3 / B5 at the three archs' shapes
-    against their plain versions, timed (`kernels_recurrent`). Returns the
+    plain at the same limits. Then B1 / B3 / B5 at the three archs' shapes,
+    and B2 / B4 at them at the forward's 256 rows, against their plain
+    versions, timed (`kernels_recurrent`). Returns the
     kernel sides' launch counts."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models.config import get_config
@@ -4186,8 +4250,9 @@ def phase_recurrent_parity(seed: int) -> dict:
     if missing:
         raise SystemExit(f"recurrent_parity: {missing} never launched: {counts}")
     gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    # M = 8: a serving pass (B1, B3); M = 256: the forward's 4 x 64 rows (B2, B4)
     cases, worst = check_family_kernels(gen, archs=[a for a, _ in RECURRENT_DEPTHS],
-                                        rows=(8,))
+                                        rows=(8, 256))
     emit("kernels_recurrent", cases=cases, worst=worst)
     return counts
 
@@ -4197,9 +4262,10 @@ def _preempt_check(engine, prompts, tokens, new_tokens) -> dict:
     as they run (the first while it prefills, the next once it has decoded
     two tokens), then drained: every request's tokens must be the drive's,
     since a request's tokens do not depend on what shares its steps
-    (engine = solo). rwkv6 and gla keep a snapshot (the slot's rows copied
-    out and back: `snapshot` / `restore` counted, no token fed twice),
-    zamba2 recomputes. Returns the line's fields."""
+    (engine = solo). rwkv6, gla and whisper keep a snapshot (the slot's rows
+    copied out and back: `snapshot` / `restore` counted, no token fed twice,
+    whisper's encoder run once a request), zamba2 recomputes. Returns the
+    line's fields."""
     before = dict(engine.traces)
     fed = [0]
     inner = engine._model_step
@@ -4208,7 +4274,7 @@ def _preempt_check(engine, prompts, tokens, new_tokens) -> dict:
         fed[0] += int(n_new.sum())
         return inner(tok, n_new)
     engine._model_step = counting
-    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts[:4]]
+    reqs = [_submit(engine, p, new_tokens) for p in prompts[:4]]
     mid = dec = None
     try:
         while engine.busy:
@@ -4226,12 +4292,16 @@ def _preempt_check(engine, prompts, tokens, new_tokens) -> dict:
         del engine._model_step
     snap = engine.model.seq_caches["slot"].snapshot and not engine.has_paged
     delta = {k: engine.traces.get(k, 0) - before.get(k, 0)
-             for k in ("snapshot", "restore", "slot_reset")}
+             for k in ("snapshot", "restore", "slot_reset", "encode")}
     need = sum(len(p) for p in prompts[:4]) + 4 * (new_tokens - 1)
+    # an encoder-decoder model encodes each request once: a restore brings
+    # its cross K/V back with the rest of the slot's rows
+    encodes = 4 if engine.model.cfg.is_encdec else 0
     ok = (mid is not None and dec is not None
           and [list(r.out_tokens) for r in reqs] == tokens[:4]
           and all(r.preemptions == any(r is x for x in (mid, dec)) for r in reqs)
           and delta["snapshot"] == delta["restore"] == (2 if snap else 0)
+          and delta["encode"] == encodes
           and (fed[0] == need if snap else fed[0] > need))
     return dict(ok=ok, kind="snapshot" if snap else "recompute", traces_delta=delta,
                 tokens_fed=fed[0], tokens_fed_unpreempted=need,
@@ -4313,11 +4383,367 @@ def phase_serve_recurrent(seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the audio family
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-large-v3"
+AUDIO_DEPTH = 32                  # encoder and decoder layers each: full depth
+# what whisper's path launches: every projection a solo LUT launch, B1 below
+# 128 rows (a decode step: M = 8), B2 from 128 on (a width-32 step: M = 256;
+# an encode: M = 1500); its attention is plain PyTorch, as in the JAX package
+AUDIO_PATH = ("lut_matmul_fused_gemv", "lut_matmul_fused")
+# the profiler ranges of whisper's admission and of its step's attention
+AUDIO_RANGES = ("audio.encode", "audio.self_attn", "audio.cross_attn")
+# whisper's projections at full width (20 heads padded to 32: 2048 wide), and
+# how many of each (launches) a decoder layer's step, an encoder layer and a
+# decoder layer's cross-K/V build run
+AUDIO_SHAPES = {"1280 -> 2048 (q, k, v)": ((1280, 2048), 4, 3, 2),
+                "2048 -> 1280 (o)": ((2048, 1280), 2, 1, 0),
+                "1280 -> 5120 (mlp up)": ((1280, 5120), 1, 1, 0),
+                "5120 -> 1280 (mlp down)": ((5120, 1280), 1, 1, 0)}
+# bf16 with the quantized transform, kernels against plain versions: the
+# limits of `model_parity`'s bf16 variant (a quantizer flip moves a row by
+# s_q * centroid), stated before whisper's first run on the card
+AUDIO_BF16_TOL = (0.75, 0.03)
+
+
+def _audio_expected_launches(cfg, widths):
+    """Launches of the engine's steps and encodes: a decoder layer's step
+    runs 8 solo LUT launches (self q, k, v, o; cross q, o; the MLP's up and
+    down), B1 at width 1 (M = 8) and B2 at width 32 (M = 256); an encode
+    runs 6 B2 an encoder layer and 2 (cross k, v) a decoder layer, at 1500
+    rows. No multi launch, no B5."""
+    w1, w32, enc = widths.get(1, 0), widths.get(32, 0), widths.get("encode", 0)
+    per_encode = 6 * cfg.n_enc_layers + 2 * cfg.n_layers
+    return {"lut_matmul_fused_multi_gemv": 0, "lut_matmul_fused_multi": 0,
+            "lut_matmul_fused_gemv": 8 * cfg.n_layers * w1,
+            "lut_matmul_fused": 8 * cfg.n_layers * w32 + per_encode * enc,
+            "paged_pool_attention": 0, **NOT_SERVING}
+
+
+def _audio_launches_by_shape(cfg, widths):
+    """`_audio_expected_launches` split by projection shape and row count."""
+    w1, w32, enc = widths.get(1, 0), widths.get(32, 0), widths.get("encode", 0)
+    return {name: {"B1 M=8": step * cfg.n_layers * w1, "B2 M=256": step * cfg.n_layers * w32,
+                   "B2 M=1500": (enc_layer * cfg.n_enc_layers + cross * cfg.n_layers) * enc}
+            for name, (_, step, enc_layer, cross) in AUDIO_SHAPES.items()}
+
+
+def _audio_row_ops(model, params):
+    """Whether the ops whisper's step adds give a slot's rows the same bits
+    alone as among the engine's 8 slots: the ragged attention
+    (`layers.ragged_attention`, `_attn_chunk` in 32-row query blocks) over
+    the self K/V (per-slot positions and key counts, an idle slot among
+    them) and over the cross K/V, at widths 1 and 32, the layernorm and the
+    tied head; and whether a decoding slot's row gets the same bits at width
+    1 as at the head of a 32-token window (a decoding slot in a mixed
+    step), self and cross."""
+    from repro_torch.models.layers import layernorm, ragged_attention
+    cfg, dt = model.cfg, model.cfg.torch_dtype
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h, d, max_seq, es = cfg.n_heads_eff, cfg.hd, 512, cfg.enc_seq
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    lengths = torch.tensor([200, 37, 0, 95, 16, 470, 130, 63], dtype=torch.int32,
+                           device="cuda")
+    k_pos, e_pos = (torch.arange(n, device="cuda") for n in (max_seq, es))
+    kw = dict(scale=1.0 / math.sqrt(d))
+    dec = params["dec"]
+    ops = {}
+    with torch.no_grad():
+        kc, vc, ck, cv = rnd(8, max_seq, h, d), rnd(8, max_seq, h, d), rnd(8, es, h, d), rnd(
+            8, es, h, d)
+        def self_attn(q, k, v, p, kl):
+            return ragged_attention(q, k, v, p, k_pos, causal=True, k_len=kl, **kw)
+
+        def cross_attn(q, k, v, p):
+            return ragged_attention(q, k, v, p, e_pos, causal=False, **kw)
+
+        wide = {}
+        for t in (1, 32):
+            n_new = torch.tensor([t, t, 0, 1, t, t, 1, t], dtype=torch.int32, device="cuda")
+            pos = lengths[:, None] + torch.arange(t, device="cuda", dtype=torch.int32)[None]
+            q = rnd(8, t, h, d)
+            ops[f"self_attn_t{t}"] = _rows_same(self_attn, q, kc, vc, pos, lengths + n_new)
+            ops[f"cross_attn_t{t}"] = _rows_same(cross_attn, q, ck, cv, pos)
+            wide[t] = (q, pos)
+        # one decoding token per slot: alone at width 1, then at the head of a
+        # 32-token window whose other rows carry other queries
+        q1 = wide[32][0][:, :1].contiguous()
+        q32 = torch.cat([q1, wide[32][0][:, 1:]], dim=1)
+        pos32, one = wide[32][1], lengths + 1
+        ops["self_attn_t1_at_head_of_t32"] = torch.equal(
+            self_attn(q1, kc, vc, pos32[:, :1], one), self_attn(q32, kc, vc, pos32, one)[:, :1])
+        ops["cross_attn_t1_at_head_of_t32"] = torch.equal(
+            cross_attn(q1, ck, cv, pos32[:, :1]), cross_attn(q32, ck, cv, pos32)[:, :1])
+        x = (3.0 * torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda")).to(dt)
+        ln = dec["ln_final"]
+        ops["layernorm"] = _rows_same(lambda a: layernorm(a, ln["scale"], ln["bias"]), x)
+        ops["tied_head"] = _rows_same(lambda a: a @ dec["embed"].to(a.dtype).T,
+                                      layernorm(x, ln["scale"], ln["bias"]))
+    return ops
+
+
+def _values_row(values, tol_max, tol_mean, **meta):
+    """A tensor that is not logits (encoder output, cross K / V), kernels
+    against plain: finite, max and mean |diff| within the limits."""
+    diff = (values["kernels"] - values["plain"]).abs()
+    row = dict(meta, max_abs_err=float(diff.max()), tol_max=tol_max,
+               mean_abs_err=float(diff.mean()), tol_mean=tol_mean,
+               abs_max=float(values["plain"].abs().max()))
+    row["ok"] = (bool(torch.isfinite(values["kernels"]).all())
+                 and row["max_abs_err"] <= tol_max and row["mean_abs_err"] <= tol_mean)
+    return row
+
+
+def phase_audio_parity(seed: int) -> dict:
+    """whisper-large-v3 at full width, 2 encoder + 2 decoder layers, LCD
+    4-bit from the seed: the same params, frames and steps through the
+    kernels and through their plain versions (`_plain_versions`), both on
+    the card, in f32 with the float transform (model_parity's limits) and in
+    bf16 with the quantized one (`AUDIO_BF16_TOL`): `encode` of 2 requests
+    (B2 at 3000 rows) and `build_cross_cache` over it, each live slot's
+    `encode_prefill` (B2 at 1500 rows) written into its cross K/V as
+    admission does, then a width-32 `serving_step` (ragged n_new, an idle
+    slot: B2 at 256 rows) and two width-1 steps (B1 at 8), and the
+    full-sequence forward of 2 x 64 tokens over 2 requests' frames. Then B1
+    at M = 8 and B2 at M = 256 and 1500 at whisper's four projection shapes
+    against their plain versions, timed (`kernels_audio`). Returns the
+    kernel sides' launch counts."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import whisper
+    from repro_torch.models.config import get_config
+
+    s, t, max_seq = 8, 32, 256
+    variants = (("float32", False, 1e-3, 1e-4), ("bfloat16", True) + AUDIO_BF16_TOL)
+    cfg0 = get_config(AUDIO_ARCH)
+    rng = np.random.default_rng(seed)
+    n_first = rng.integers(5, t + 1, s).astype(np.int32)
+    n_first[3] = 0                                         # an idle slot
+    active = n_first > 0
+    steps = [(rng.integers(0, cfg0.vocab, (s, t)).astype(np.int32), n_first)]
+    for _ in range(2):
+        steps.append((rng.integers(0, cfg0.vocab, (s, 1)).astype(np.int32),
+                      active.astype(np.int32)))
+    fwd_tokens = torch.from_numpy(rng.integers(0, cfg0.vocab, (2, 64))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    frames = torch.randn((s, cfg0.enc_seq, cfg0.d_model), generator=gen, device="cuda")
+    report, counts = [], {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        for n, c in launch_counts().items():
+            counts[n] = counts.get(n, 0) + c
+        return out
+
+    for dtype, quantized, tol_max, tol_mean in variants:
+        model, p = _served_params(AUDIO_ARCH, seed, 2, dtype=dtype, quantized=quantized)
+        cfg = model.cfg
+
+        def run():
+            out = {}
+            with torch.no_grad():
+                enc = whisper.encode(p, frames[:2], cfg)
+                out["encode"] = enc.float()
+                ck, cv = whisper.build_cross_cache(p, enc, cfg)
+                out["cross_k"], out["cross_v"] = ck.float(), cv.float()
+                del enc, ck, cv
+                caches = model.init_seq_caches(num_blocks=1, block_size=16, num_slots=s,
+                                               max_seq=max_seq, device="cuda")
+                for slot in np.flatnonzero(active):
+                    ck, cv = model.encode_prefill(p, frames[slot:slot + 1])
+                    caches["slot"]["ck"][:, slot].copy_(ck)
+                    caches["slot"]["cv"][:, slot].copy_(cv)
+                lengths, outs = np.zeros(s, np.int32), []
+                tables = torch.zeros((s, 1), dtype=torch.int32, device="cuda")
+                for tokens, n_new in steps:
+                    args = [torch.from_numpy(a).cuda() for a in (tokens, lengths, n_new)]
+                    with _no_host_sync():
+                        lg, _ = model.serving_step(p, caches, *args, tables)
+                    outs.append(lg[active][:, :cfg.vocab].float())
+                    lengths = lengths + n_new
+                out["width_32"], out["width_1"] = outs[0][None], torch.stack(outs[1:])
+                del caches
+                out["forward"] = model.apply(p, {"tokens": fwd_tokens, "frames": frames[:2]})[
+                    0][..., :cfg.vocab].float()
+            return out
+
+        got = {"kernels": count(run)}
+        with _plain_versions():
+            got["plain"] = run()
+        meta = dict(arch=AUDIO_ARCH, layers=2, enc_layers=2, dtype=dtype,
+                    quantized_transform=quantized)
+        for what in ("encode", "cross_k", "cross_v"):
+            report.append(_values_row({k: v[what] for k, v in got.items()}, tol_max, tol_mean,
+                                      what=what, **meta))
+        for what, rows in (("width_32", int(active.sum())), ("width_1", int(active.sum())),
+                           ("forward", 2 * 64)):
+            report.append(_parity_row({k: v[what].cpu() for k, v in got.items()}, tol_max,
+                                      tol_mean, what=what, rows_per_step=rows, **meta))
+        del p, got
+        torch.cuda.empty_cache()
+    emit("audio_parity", variants=report, launches=counts)
+    if not all(r["ok"] for r in report):
+        raise SystemExit(f"audio_parity: the kernels' and the plain versions' outputs "
+                         f"disagree: {[r for r in report if not r['ok']]}")
+    missing = [n for n in AUDIO_PATH if not counts.get(n)]
+    if missing:
+        raise SystemExit(f"audio_parity: {missing} never launched: {counts}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 37)
+    cases, worst = [], {}
+    for m in (8, 256, 1500):
+        for proj, ((k, n), *_) in AUDIO_SHAPES.items():
+            case, kern = _lut_check(gen, m, k, n, 4, torch.bfloat16, True)
+            case.update(arch=AUDIO_ARCH, group=proj,
+                        **_time_lut(gen, kern, m, k, n, 4, torch.bfloat16, True))
+            worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), case["max_abs_err"])
+            cases.append(case)
+    emit("kernels_audio", cases=cases, worst=worst)
+    return counts
+
+
+def _encode_check(engine, prompt):
+    """The engine's `_slot_encode` of one request's frames into an idle slot
+    (the engine idle: the next admission resets and re-encodes the slot):
+    host seconds per encode (synchronised) and device ms by CUDA events, 3
+    encodes each, and one encode under torch.profiler split into the LUT
+    kernels and the rest, the `audio.encode` range around both."""
+    from torch.profiler import ProfilerActivity, profile
+    frames = _frames_of(engine, prompt).to(engine.model.cfg.torch_dtype)
+    engine._slot_encode(0, frames)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine._slot_encode(0, frames)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        engine._slot_encode(0, frames)
+    end.record()
+    torch.cuda.synchronize()
+    rows = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine._slot_encode(0, frames)
+        torch.cuda.synchronize()
+    for ev in prof.events():
+        if ev.name == "audio.encode" and ev.device_type == torch.autograd.DeviceType.CPU:
+            rows["audio.encode"] = rows.get("audio.encode", 0.0) + ev.device_time_total / 1e3
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in AUDIO_RANGES:
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        dev = ev.self_cuda_time_total if dev is None else dev
+        if dev > 0:
+            key = "lut_kernels" if "lut_" in ev.key else "other"
+            rows[key] = rows.get(key, 0.0) + dev / 1e3
+            rows["device_busy"] = rows.get("device_busy", 0.0) + dev / 1e3
+    return dict(seconds_per_encode=round(wall, 4),
+                device_ms_per_encode=round(start.elapsed_time(end) / 3, 3),
+                profiled_ms={k: round(v, 3) for k, v in rows.items()})
+
+
+def _audio_after_drive(name, seed):
+    """`_serve`'s after_drive for whisper: the preemption check (snapshots,
+    one encode a request), `_row_count_ops` (`_audio_row_ops` at 1 and 8
+    slots), two requests with the drive's first prompt and different frames
+    (other tokens) and with its own (the drive's tokens), seconds per
+    encode (`_encode_check`), a width-32 step's time through its graph and
+    where a decode step's device time goes with all 8 slots busy
+    (`_step_breakdown` with `AUDIO_RANGES`), each width's capture seconds;
+    one line."""
+    from repro_torch.launch.engine import _tree_bytes
+    from repro_torch.launch.serve import _dense_weight_bytes
+
+    def after(engine, prompts, tokens):
+        cfg = engine.model.cfg
+        n = len(tokens[0])
+        fails = []
+        pre = _preempt_check(engine, prompts, tokens, n)
+        ops, _ = _row_count_ops(engine.model, engine.params, None)
+        if not pre["ok"]:
+            fails.append(f"preemption: {pre}")
+        if not _row_count_ops_hold(ops):
+            fails.append(f"row-count ops: {ops}")
+        own = _submit(engine, prompts[0], n)
+        other = engine.submit(prompts[0], max_new_tokens=n,
+                              frames=_frames_of(engine, prompts[0], salt=1))
+        engine.run()
+        frames_check = dict(same_frames_same_tokens=own.out_tokens == tokens[0],
+                            other_frames_other_tokens=other.out_tokens != tokens[0],
+                            other_tokens=other.out_tokens)
+        if not (frames_check["same_frames_same_tokens"]
+                and frames_check["other_frames_other_tokens"]):
+            fails.append(f"frames: {frames_check}")
+        enc = _encode_check(engine, prompts[0])
+        rng = np.random.default_rng(seed + 13)
+        for _ in range(engine.ecfg.num_slots):
+            # 4 prefill-width steps (one, then 2 timed: host clock and CUDA
+            # events, profiler off; one replay timed 3 times over), then 10
+            # decode steps (one, then the breakdown's graph 3, eager 3, wall 2)
+            _submit(engine, rng.integers(0, cfg.vocab, 128).astype(np.int32), 11)
+        ran = engine.traces.get(32, 0)
+        engine.step()
+        wall, span = _wall_ms_per_step(engine, 2)
+        wide = dict(wall_ms_per_step=round(wall, 3), event_span_ms_per_step=round(span, 3),
+                    device_ms_per_replay=round(_replay_ms(engine._graphs._graphs[32], n=3), 3))
+        if engine.traces.get(32, 0) - ran != 3 or any(r is None for r in engine.slots):
+            fails.append("the width-32 steps timed were not all of 8 busy slots")
+        while any(r is not None and r.prefilling for r in engine.slots):
+            engine.step()
+        engine.step()
+        prof = {"prefill_width_32": wide,
+                "decode_width_1": _step_breakdown(engine, 1, 2, AUDIO_RANGES, name)}
+        engine.run()
+        emit(name + "_checks", arch=cfg.arch_id, layers=cfg.n_layers,
+             enc_layers=cfg.n_enc_layers, preemption=pre, row_count_ops=ops,
+             frames=frames_check, encode=enc, step_ms_8_slots_busy=prof,
+             graph_capture_s={str(w): round(c, 3)
+                              for w, c in engine._graphs.capture_seconds().items()},
+             slot_state_bytes={k: t.numel() * t.element_size()
+                               for k, t in engine.caches["slot"].items()},
+             param_bytes=_tree_bytes(engine.params),
+             dense_param_bytes=_dense_weight_bytes(engine.params))
+        return fails
+    return after
+
+
+def phase_serve_audio(seed: int) -> dict:
+    """whisper-large-v3 served at full width and full depth (32 encoder + 32
+    decoder layers) like `serve`: LCD 4-bit weights from the seed with the
+    quantized transform, the `serve` engine's geometry, 12 requests of
+    40-200 prompt tokens and 24 new tokens, each with its own frames
+    (`_frames_of`), encoded once at admission: launch counts per step and
+    encode (`_audio_expected_launches`), bounded shapes, every replay equal
+    to its eager body in tokens and all four state tensors with a snapshot
+    preemption inside (`_graph_check`), then on the same engine
+    `_audio_after_drive`'s checks and times, then engine = solo tokens for 3
+    requests. Returns the drive's launches."""
+    t0 = time.perf_counter()
+    _, params = _served_params(AUDIO_ARCH, seed, AUDIO_DEPTH)
+    counts, _ = _serve("serve_audio", AUDIO_ARCH, seed, AUDIO_DEPTH, 12, 24, None,
+                       solo_ids=(0, 5, 11), params=params,
+                       after_drive=_audio_after_drive("serve_audio", seed))
+    del params
+    torch.cuda.empty_cache()
+    emit("serve_audio_arch", arch=AUDIO_ARCH, layers=AUDIO_DEPTH, enc_layers=AUDIO_DEPTH,
+         seconds=round(time.perf_counter() - t0, 1),
+         peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    return counts
+
+
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
-              "serve_moe", "recurrent_parity", "serve_recurrent", "train")
+              "serve_moe", "recurrent_parity", "serve_recurrent", "audio_parity",
+              "serve_audio", "train")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
 ON_SERVE_WEIGHTS = {"serve", "serve_unfused", "serve_static", "profile", "serve_prefix",
@@ -4425,6 +4851,17 @@ def main() -> int:
         print(f"chip_smoke: serve_recurrent did not launch every kernel of its path: "
               f"{recurrent_counts}", file=sys.stderr)
         return 1
+    # the audio family: the kernels against their plain versions inside a
+    # 2 + 2-layer whisper (encoder, cross-K/V build, steps, forward) and at its
+    # shapes, then served at full width and depth, counted on their own
+    audio_parity_counts = (timed("audio_parity", phase_audio_parity, args.seed)
+                           if "audio_parity" in phases else {})
+    audio_counts = (timed("serve_audio", phase_serve_audio, args.seed)
+                    if "serve_audio" in phases else {})
+    if "serve_audio" in phases and not all(audio_counts.get(n, 0) > 0 for n in AUDIO_PATH):
+        print(f"chip_smoke: serve_audio did not launch every kernel of its path: "
+              f"{audio_counts}", file=sys.stderr)
+        return 1
     # the trainer and the paper's pipeline: the student's forward (B2 / B4 at
     # 4096 rows) and its engine (B1-B5), counted on their own; B2 / B4 at
     # those rows against their plain versions, timed
@@ -4484,6 +4921,10 @@ def main() -> int:
             # (serving steps and the forward), and their full-depth drives
             "launches_recurrent_parity": recurrent_parity_counts.get(name, 0),
             "launches_serve_recurrent": recurrent_counts.get(name, 0),
+            # the audio family: the 2 + 2-layer model's kernel side, and its
+            # full-depth drive (encodes included)
+            "launches_audio_parity": audio_parity_counts.get(name, 0),
+            "launches_serve_audio": audio_counts.get(name, 0),
             # the trainer's pipeline: the student's evaluation and its engine
             "launches_train": train_counts.get(name, 0),
             "train_shapes": [{k: c.get(k) for k in (

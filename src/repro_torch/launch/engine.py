@@ -82,25 +82,29 @@ Continuous batching (`ServingEngine`)
 
     Capability-typed cache protocols, as in the reference: a family serves
     through a paged block pool (the transformers), fixed-size per-slot state
-    (rwkv6, gla: `SlotStateCache`; the slot IS the allocator, so admission
-    needs only a free slot and no block arithmetic), or both (zamba2 threads
-    its shared-attention pools and its mamba state through one step).
-    `self.caches` holds every cache the family declared, keyed by kind.
-    Admission zeroes a fresh request's slot rows; where the family declares
-    `snapshot` (rwkv6, gla), `preempt()` copies the slot's rows out and
-    re-admission copies them back, so the request resumes without
-    recomputing a token; everything else recomputes. On the card the reset,
-    the snapshot and the restore are eager in-place ops on the current stream
-    between two replays (the slot a host int: no sync, and no tensor a graph
-    reads is replaced), each one "slot_reset" / "snapshot" / "restore" entry
-    in `traces`.
+    (rwkv6, gla, whisper: `SlotStateCache`; the slot IS the allocator, so
+    admission needs only a free slot and no block arithmetic), or both
+    (zamba2 threads its shared-attention pools and its mamba state through
+    one step). `self.caches` holds every cache the family declared, keyed by
+    kind. Admission zeroes a fresh request's slot rows; an encoder-decoder
+    family (whisper, `CAP_ENCODER`) then runs the request's encoder once and
+    writes its cross-attention K/V into the slot's rows (`_slot_encode`), so
+    every request must come with its `frames`. Where the family declares
+    `snapshot` (rwkv6, gla, whisper), `preempt()` copies the slot's rows out
+    and re-admission copies them back, so the request resumes without
+    recomputing a token or re-running its encoder; everything else
+    recomputes. On the card the reset, the encode, the snapshot and the
+    restore are eager in-place ops on the current stream between two replays
+    (the slot a host int: no sync, and no tensor a graph reads is replaced),
+    each one "slot_reset" / "encode" / "snapshot" / "restore" entry in
+    `traces`.
 
 With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
 from `seed`, or passed in) go through `compress_model` (core/api.py) on their
 device first, at `weight_bits` or under a `bits_budget`, as in the reference.
 
 Not ported yet, and refused with NotImplementedError naming the knob: serving
-meshes and the audio family (whisper: `models/registry.py PORTED_FAMILIES`).
+meshes.
 """
 from __future__ import annotations
 
@@ -120,10 +124,10 @@ from repro_torch.core.clustered_params import make_draft_params
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.kernels.ops import add_launches, capture_launches
 from repro_torch.models.config import get_config, reduced
-from repro_torch.models.registry import (CAP_INT8_KV, CAP_PAGED,
+from repro_torch.models.registry import (CAP_ENCODER, CAP_INT8_KV, CAP_PAGED,
                                          CAP_PREFIX_CACHE, CAP_SLOT_STATE,
-                                         CAP_SPECULATIVE, PORTED_FAMILIES, Model,
-                                         arch_capabilities, get_model)
+                                         CAP_SPECULATIVE, Model, arch_capabilities,
+                                         get_model)
 from repro_torch.utils import cdiv, human_bytes, logger, resolve_device
 
 
@@ -253,6 +257,8 @@ def _model_and_params(arch, *, use_reduced, n_layers, fused_projections, lcd,
         cfg = reduced(cfg, dtype="float32")
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        if cfg.is_encdec:                 # an encoder-decoder: both stacks
+            cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
     if cfg.fused_projections != fused_projections:
         # --no-fused-projections: per-projection LUT launches; the same bits
         cfg = dataclasses.replace(cfg, fused_projections=fused_projections)
@@ -511,6 +517,10 @@ class Request:
     # speculative mode: accepted draft tokens per verify round (0..k each;
     # round i emits accept_lens[i] + 1 tokens, a budget cap included)
     accept_lens: List[int] = dataclasses.field(default_factory=list)
+    # encoder-decoder (CAP_ENCODER): the request's precomputed frame
+    # embeddings (1, enc_seq, d_model) in the model dtype on the engine's
+    # device, encoded ONCE at admission into the slot's cross-attention state
+    frames: Optional[Any] = None
     # snapshot preemption: the slot's state rows ({name: tensor}) and its
     # length when it was preempted; re-admission restores both instead of
     # re-prefilling
@@ -655,20 +665,15 @@ class EngineConfig:
         return self.max_blocks_per_slot * self.block_size
 
 
-def _refuse_unported(ecfg: EngineConfig, model: Model) -> None:
+def _refuse_unported(ecfg: EngineConfig) -> None:
     """NotImplementedError, naming the knob, for everything the reference
-    engine serves and this one does not yet."""
-    later = "not ported yet"
-    if model.cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"ServingEngine: model family {model.cfg.family!r} is not ported "
-            f"yet (only {', '.join(PORTED_FAMILIES)}); {later}")
+    engine serves and this one does not yet: a serving mesh."""
     for knob in ("data_parallel", "model_parallel"):
         v = getattr(ecfg, knob)
         if v not in (None, 1):
             raise NotImplementedError(
-                f"EngineConfig.{knob}={v}: serving on a mesh is {later}; the "
-                f"engine runs on one device")
+                f"EngineConfig.{knob}={v}: serving on a mesh is not ported yet; "
+                f"the engine runs on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -706,7 +711,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "ServingEngine(mesh=...): serving on a mesh is not ported yet; "
                 "the engine runs on one device")
-        _refuse_unported(ecfg, model)
+        _refuse_unported(ecfg)
         caps = model.capabilities
         if CAP_PAGED not in caps and CAP_SLOT_STATE not in caps:
             raise ValueError(
@@ -833,12 +838,35 @@ class ServingEngine:
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int, *, tenant: str = "default",
-               priority: int = 0, on_token=None) -> Request:
+               priority: int = 0, on_token=None, frames=None) -> Request:
         """Queue a request. `tenant` / `priority` feed the "priority"
         scheduler; `on_token(request, token)` streams every emitted token as
         it is decoded (a speculative round streams each accepted token in
-        order)."""
+        order). An encoder-decoder family (CAP_ENCODER) REQUIRES `frames`,
+        the request's precomputed frame embeddings (enc_seq, d_model) or (1,
+        enc_seq, d_model), a numpy array or a tensor, cast to the model dtype
+        and kept on the engine's device until admission encodes them; any
+        other family refuses them."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        cfg = self.model.cfg
+        if self.model.supports(CAP_ENCODER):
+            if frames is None:
+                raise ValueError(
+                    f"family '{cfg.family}' is encoder-decoder: submit() needs "
+                    f"`frames` (1, enc_seq, d_model)")
+            frames = torch.as_tensor(frames)
+            if frames.ndim == 2:
+                frames = frames[None]
+            want = (1, cfg.enc_seq, cfg.d_model)
+            if tuple(frames.shape) != want:
+                raise ValueError(
+                    f"frames must be {want} (one request's encoder input); got "
+                    f"{tuple(frames.shape)}")
+            frames = frames.to(torch.float32).to(device=self.device, dtype=cfg.torch_dtype)
+        elif frames is not None:
+            raise ValueError(
+                f"family '{cfg.family}' has no encoder; submit() got unexpected "
+                f"`frames`")
         # a speculative round writes up to k tokens past the accepted length
         # before rolling back, so a request needs k tokens of headroom
         need = len(prompt) + max_new_tokens + self.spec_k
@@ -848,7 +876,7 @@ class ServingEngine:
                 f"{self.spec_k}); engine max_seq is {self.ecfg.max_seq} "
                 f"(max_blocks_per_slot * block_size)")
         r = Request(self._next_rid, prompt, max_new_tokens, submit_t=self.clock(),
-                    tenant=tenant, priority=priority, on_token=on_token)
+                    tenant=tenant, priority=priority, on_token=on_token, frames=frames)
         self._next_rid += 1
         self.queue.append(r)
         return r
@@ -872,10 +900,11 @@ class ServingEngine:
     def preempt(self, r: Request) -> None:
         """Preempt a RUNNING request back to the queue front.
 
-        A family whose slot state declares `snapshot` (rwkv6, gla) and has
-        no paged pool keeps the request's state rows (`_slot_snapshot`), and
-        re-admission restores them: the request resumes exactly where it
-        stopped without recomputing a token. Everything else (paged pools
+        A family whose slot state declares `snapshot` (rwkv6, gla, whisper)
+        and has no paged pool keeps the request's state rows
+        (`_slot_snapshot`; whisper's cross K/V among them), and re-admission
+        restores them: the request resumes exactly where it stopped without
+        recomputing a token or re-running its encoder. Everything else (paged pools
         whose blocks are surrendered, zamba2's state) is recompute
         preemption, identical to block-pressure eviction: re-admission
         re-prefills prompt + generated, from the prefix cache where it is
@@ -919,9 +948,11 @@ class ServingEngine:
         at most two token-window widths, prefill_chunk and 1. Speculative
         mode: at most three — the two-model prefill step (width
         prefill_chunk), the k draft feeds and the width-(k+1) verify. With
-        the prefix cache on, the copy-on-write block copy ("cow") besides.
-        (The JAX package counts traced computations; this engine counts the
-        shapes it has run.)"""
+        the prefix cache on, the copy-on-write block copy ("cow") besides;
+        with slot state, the per-slot ops ("slot_reset", with `snapshot`
+        "snapshot" and "restore", with an encoder "encode"). (The JAX package
+        counts traced computations; this engine counts the shapes it has
+        run.)"""
         k = self.spec_k
         if k:
             allowed = {("prefill", self.ecfg.prefill_chunk), ("draft", k),
@@ -936,6 +967,9 @@ class ServingEngine:
             allowed = allowed | {"slot_reset"}
             if self.model.seq_caches["slot"].snapshot:
                 allowed = allowed | {"snapshot", "restore"}
+        if self.model.supports(CAP_ENCODER):
+            # the encoder pass at admission: one (1, enc_seq, d_model) shape
+            allowed = allowed | {"encode"}
         if not set(self.traces) <= allowed:
             raise AssertionError(
                 f"unexpected step shapes {set(self.traces)} (allowed {allowed})")
@@ -1269,8 +1303,9 @@ class ServingEngine:
 
         A slot-state family skips the block accounting: a free slot is all
         admission needs, and the slot's state rows are zeroed
-        (`_slot_reset`). A snapshot-preempted request restores its saved
-        rows and resumes mid-stream instead of re-prefilling."""
+        (`_slot_reset`; an encoder-decoder request's encoder then runs into
+        them, `_slot_encode`). A snapshot-preempted request restores its
+        saved rows and resumes mid-stream instead of re-prefilling."""
         ecfg = self.ecfg
         for s in range(ecfg.num_slots):
             if self.slots[s] is not None or not self.queue:
@@ -1322,6 +1357,8 @@ class ServingEngine:
             self.block_tables[s, :len(r.blocks)] = r.blocks
             if self.has_slot:
                 self._slot_reset(s)
+                if r.frames is not None:
+                    self._slot_encode(s, r.frames)
             self._tenant_acquire(r)
 
     # -- per-slot state ops (SlotStateCache) ----------------------------------
@@ -1338,6 +1375,18 @@ class ServingEngine:
         for t in self.caches["slot"].values():
             t[:, s].zero_()
         self.traces["slot_reset"] = self.traces.get("slot_reset", 0) + 1
+
+    @torch.no_grad()
+    def _slot_encode(self, s: int, frames: torch.Tensor) -> None:
+        """Run the encoder ONCE for the request admitted into slot `s` and
+        write its cross-attention K/V into the slot's rows of "ck" / "cv" in
+        place (CAP_ENCODER): the encoder is a second prefill shape, fixed at
+        (1, enc_seq, d_model)."""
+        ck, cv = self.model.encode_prefill(self.params, frames)
+        state = self.caches["slot"]
+        state["ck"][:, s].copy_(ck)
+        state["cv"][:, s].copy_(cv)
+        self.traces["encode"] = self.traces.get("encode", 0) + 1
 
     @torch.no_grad()
     def _slot_snapshot(self, s: int) -> Dict[str, torch.Tensor]:
@@ -1796,15 +1845,15 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
     (`make_draft_params`, at `ecfg.draft_centroids`; its report lands on the
     engine as `draft_report`). With `ecfg.kv_dtype == "int8"` and no
     `kv_smooth`, the cache smoothing vectors are calibrated here
-    (`calibrate_kv_smooth`). `n_layers` cuts the model's depth (widths
-    stay)."""
+    (`calibrate_kv_smooth`). `n_layers` cuts the model's depth, an
+    encoder-decoder's both stacks (widths stay)."""
     dev = resolve_device(device)
     ecfg = EngineConfig() if ecfg is None else ecfg
     if ecfg.arch is None:
         # bind the config to the arch so capability-dependent knobs fail
         # eagerly with the capability named
         ecfg = dataclasses.replace(ecfg, arch=arch)
-    _refuse_unported(ecfg, get_model(arch))
+    _refuse_unported(ecfg)
     model, params, report = _model_and_params(
         arch, use_reduced=use_reduced, n_layers=n_layers,
         fused_projections=fused_projections, lcd=lcd,

@@ -17,6 +17,13 @@ through the same engine:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --lcd \
         --continuous --requests 6 --tokens 16
 
+and so does the audio family (whisper-large-v3, per-slot state): every
+request carries synthetic frame embeddings (1, enc_seq, d_model) drawn from
+`--seed`, which admission encodes once into the slot's cross-attention K/V:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+        --lcd --continuous --requests 6 --tokens 16
+
 Self-speculative decoding (the model's own 2-bit clustering drafts K tokens
 per verify round; the tokens equal plain greedy decoding's):
 
@@ -148,11 +155,20 @@ def _run_continuous(args, device) -> list:
                         if args.priority else {}))
     finished = []
     _build_kernels(device)
+
+    def _frames():
+        """An encoder-decoder arch's (whisper's) synthetic frame embeddings,
+        one (1, enc_seq, d_model) draw of the run's generator per request,
+        encoded once at admission; None for every other arch."""
+        if cfg.family != "audio":
+            return None
+        return rng.normal(size=(1, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
     t0 = time.perf_counter()
     while pending or engine.busy:
         if pending and engine.steps % 2 == 0:
             prompt, kw = pending.pop(0)
-            engine.submit(prompt, max_new_tokens=args.tokens, **kw)
+            engine.submit(prompt, max_new_tokens=args.tokens, frames=_frames(), **kw)
         if engine.busy:
             finished.extend(engine.step())
         else:

@@ -166,13 +166,18 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def _attn_chunk(q, k, v, q_pos, k_pos, *, causal, window: int, softcap: float,
-                scale: float) -> torch.Tensor:
+                scale: float, k_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Cq, H, D); k/v: (B, Sk, KV, D) with KV | H. Returns (B, Cq, H, D).
 
     As in the JAX package, scores are taken in f32 and then held in bf16 on a
     bf16 model (the row sum stays f32); the probabilities meet V in that dtype
     with an f32 result. `window` is a Python int (0 = global);
-    `q_pos` (Cq,) and `k_pos` (Sk,) are positions on q's device."""
+    `q_pos` (Cq,) and `k_pos` (Sk,) are positions on q's device.
+
+    Ragged batches (whisper's serving step over per-slot state): `q_pos` may
+    be (B, Cq), each row's absolute positions, and `k_len` a (B,) count of
+    valid keys per row; keys at or beyond `k_len` are masked out, and the mask
+    is then (B, Cq, Sk)."""
     b, cq, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -180,12 +185,20 @@ def _attn_chunk(q, k, v, q_pos, k_pos, *, causal, window: int, softcap: float,
     qf = q.to(torch.float32).reshape(b, cq, kv, g, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32)) * scale
     scores = _softcap(scores, softcap).to(cdt)
-    qp, kp = q_pos[:, None], k_pos[None, :]
-    mask = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool, device=q.device)
+    if q_pos.ndim == 1:                 # shared positions: the mask is (Cq, Sk)
+        qp, kp = q_pos[:, None], k_pos[None, :]
+    else:                               # per-row positions: (B, Cq, Sk)
+        qp, kp = q_pos[:, :, None], k_pos[None, None, :]
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
+                      device=q.device)
     if causal:
         mask &= qp >= kp
     if window > 0:
         mask &= (qp - kp) < window
+    if k_len is not None:
+        mask = (mask if mask.ndim == 3 else mask[None]) & (kp < k_len[:, None, None])
+    if mask.ndim == 3:
+        mask = mask[:, None, None]      # over the (kv head, group) axes
     scores = torch.where(mask, scores, torch.full((), -torch.inf, dtype=cdt,
                                                   device=q.device))
     m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e30)  # fully masked rows
@@ -195,6 +208,37 @@ def _attn_chunk(q, k, v, q_pos, k_pos, *, causal, window: int, softcap: float,
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(torch.float32),
                        v.to(cdt).to(torch.float32))
     return out.reshape(b, cq, h, d).to(q.dtype)
+
+
+# the query rows of one ragged attention block (`ragged_attention`)
+_RAGGED_Q_ROWS = 32
+
+
+def ragged_attention(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
+                     k_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`_attn_chunk` over per-row positions `q_pos` (B, Cq) (and `k_len`,
+    (B,) valid keys per row), the queries taken in blocks of exactly 32
+    rows, the last one padded with zero queries that are sliced away.
+
+    cuBLAS picks its batched product's kernel by the shape: on an H100 a
+    query row's f32 scores had other bits in a (B·H, 1, D) × (B·H, D, Sk)
+    product than as a row of (B·H, 32, D), and at one row other bits again
+    at another batch count. A slot feeds one token in a decode step but sits
+    in a 32-row window in a mixed step (a decoding slot among prefilling
+    ones), and its rows must get the same bits in both, alone or among 8
+    slots: with every block 32 rows, every product and every reduction of
+    the softmax has one shape, whatever the window's width or the slot
+    count."""
+    cq = q.shape[1]
+    pad = -cq % _RAGGED_Q_ROWS
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad))
+    outs = [_attn_chunk(q[:, i:i + _RAGGED_Q_ROWS], k, v, q_pos[:, i:i + _RAGGED_Q_ROWS],
+                        k_pos, causal=causal, window=0, softcap=0.0, scale=scale,
+                        k_len=k_len)
+            for i in range(0, cq + pad, _RAGGED_Q_ROWS)]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1))[:, :cq]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -27,8 +27,10 @@ threads every cache the family declared through one step. The dense, moe and
 vlm transformers serve through the paged step (an MoE arch with
 `layers.moe_block` as its MLP; paligemma-3b's text decoder, its image prefix
 taken by the full-sequence forward as `batch["img_embeds"]`); rwkv6 and gla
-through slot state; zamba2 through both. The audio family (whisper) is not
-ported yet.
+through slot state; zamba2 through both; whisper (the audio family) through
+slot state, its encoder run once a request at admission
+(`model.encode_prefill(params, frames)`, `CAP_ENCODER`) and its full-sequence
+forward taking the frames as `batch["frames"]`.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
 
-from repro_torch.models import gla, rwkv6, transformer, zamba2
+from repro_torch.models import gla, rwkv6, transformer, whisper, zamba2
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig, get_config
 
@@ -55,8 +57,7 @@ _TRANSFORMER_CAPS = frozenset(
     {CAP_PAGED, CAP_SPECULATIVE, CAP_PREFIX_CACHE, CAP_INT8_KV})
 _RECURRENT_CAPS = frozenset({CAP_SLOT_STATE, CAP_SNAPSHOT})
 
-# the capability sets of every family the JAX package serves; EngineConfig
-# validates against them even where the family itself is not ported yet
+# the capability sets of every family the JAX package serves
 FAMILY_CAPS: Dict[str, frozenset] = {
     "dense": _TRANSFORMER_CAPS,
     "moe": _TRANSFORMER_CAPS,
@@ -67,7 +68,7 @@ FAMILY_CAPS: Dict[str, frozenset] = {
     "audio": frozenset({CAP_SLOT_STATE, CAP_SNAPSHOT, CAP_ENCODER}),
 }
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "rwkv", "linear_attn", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "rwkv", "linear_attn", "hybrid", "audio")
 
 
 def family_capabilities(family: str) -> frozenset:
@@ -121,6 +122,7 @@ class Model:
     _serving_verify: Optional[Callable] = None
     _decode: Optional[Callable] = None
     _init_cache: Optional[Callable] = None
+    _encode_prefill: Optional[Callable] = None
 
     def init(self, generator: torch.Generator, device="cuda"):
         return PT.init_params(generator, self.table, self.cfg.torch_dtype,
@@ -128,8 +130,9 @@ class Model:
 
     def apply(self, params, batch: Dict[str, Any]):
         """Full-sequence forward: batch = {"tokens": (B, S)[, "img_embeds":
-        (B, P, d)]}. Returns (logits (B, S, padded_vocab) aligned with the
-        text tokens, aux). Differentiable; not under `torch.no_grad()`."""
+        (B, P, d)][, "frames": (B, enc_seq, d), the audio family's]}. Returns
+        (logits (B, S, padded_vocab) aligned with the text tokens, aux).
+        Differentiable; not under `torch.no_grad()`."""
         return self._apply(params, batch, self.cfg)
 
     def decode(self, params, cache, batch: Dict[str, Any]):
@@ -176,6 +179,13 @@ class Model:
         return self._serving_verify(params, caches, tokens, lengths, n_new,
                                     block_tables, self.cfg)
 
+    def encode_prefill(self, params, frames):
+        """The encoder pass of one request (CAP_ENCODER): frames (1, enc_seq,
+        d) -> its per-slot cross state, (ck, cv) each (L, enc_seq, H, D)."""
+        assert self._encode_prefill is not None, (
+            f"{self.cfg.family}: no encoder prefill")
+        return self._encode_prefill(params, frames, self.cfg)
+
 
 # --- family adapters ---------------------------------------------------------
 
@@ -208,6 +218,10 @@ def _apply_of(module):
     return apply
 
 
+def _whisper_apply(params, batch, cfg):
+    return whisper.forward(params, batch["tokens"], cfg, frames=batch["frames"])
+
+
 def _decode_of(module):
     def decode(params, cache, batch, cfg):
         return module.decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
@@ -227,25 +241,32 @@ _FAMILIES = {
     "linear_attn": (gla.param_table, _apply_of(gla), _decode_of(gla), gla.init_cache),
     "hybrid": (zamba2.param_table, _apply_of(zamba2), _decode_of(zamba2),
                zamba2.init_cache),
+    "audio": (whisper.param_table, _whisper_apply, _decode_of(whisper),
+              whisper.init_cache),
 }
 _FAMILIES["moe"] = _FAMILIES["vlm"] = _FAMILIES["dense"]
 
-# per family: (seq_caches, serving_step, serving_verify)
+# per family: (seq_caches, serving_step, serving_verify, encode_prefill)
 _SERVING = {
-    "dense": (_TRANSFORMER_SEQ_CACHES, _dense_serving_step, _dense_serving_verify),
+    "dense": (_TRANSFORMER_SEQ_CACHES, _dense_serving_step, _dense_serving_verify, None),
     "rwkv": ({"slot": SlotStateCache(init=rwkv6.init_slot_state,
                                      names=rwkv6.SLOT_STATE_NAMES)},
-             rwkv6.serving_step, None),
+             rwkv6.serving_step, None, None),
     "linear_attn": ({"slot": SlotStateCache(init=gla.init_slot_state,
                                             names=gla.SLOT_STATE_NAMES)},
-                    gla.serving_step, None),
+                    gla.serving_step, None, None),
     # the hybrid threads BOTH caches through one step; its ssm / conv state
     # is not snapshot-swapped (preemption recomputes, like a transformer's)
     "hybrid": ({"paged": PagedSeqCache(init=zamba2.init_paged_cache,
                                        names=zamba2.PAGED_CACHE_NAMES),
                 "slot": SlotStateCache(init=zamba2.init_slot_state,
                                        names=zamba2.SLOT_STATE_NAMES, snapshot=False)},
-               zamba2.serving_step, None),
+               zamba2.serving_step, None, None),
+    # the decoder's self K/V and the encoder's cross K/V, both per slot and
+    # snapshot-swapped on preemption; the encoder runs at admission
+    "audio": ({"slot": SlotStateCache(init=whisper.init_slot_state,
+                                      names=whisper.SLOT_STATE_NAMES)},
+              whisper.serving_step, None, whisper.encode_prefill),
 }
 _SERVING["moe"] = _SERVING["vlm"] = _SERVING["dense"]
 
@@ -255,15 +276,11 @@ def get_model(cfg: Union[ModelConfig, str]) -> Model:
     if isinstance(cfg, str):
         cfg = get_config(cfg)   # ValueError naming arch + registered archs
     caps = family_capabilities(cfg.family)   # ValueError on an unknown family
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} (arch {cfg.arch_id!r}) is not ported "
-            f"yet; ported families: {', '.join(PORTED_FAMILIES)}")
     table_fn, apply_fn, decode_fn, init_cache = _FAMILIES[cfg.family]
-    seq_caches, step_fn, verify_fn = _SERVING[cfg.family]
+    seq_caches, step_fn, verify_fn, encode_fn = _SERVING[cfg.family]
     return Model(cfg, table_fn(cfg), capabilities=caps, seq_caches=dict(seq_caches),
                  _apply=apply_fn, _serving_step=step_fn, _serving_verify=verify_fn,
-                 _decode=decode_fn, _init_cache=init_cache)
+                 _decode=decode_fn, _init_cache=init_cache, _encode_prefill=encode_fn)
 
 
 # --- loss ---------------------------------------------------------------------

@@ -156,9 +156,7 @@ def test_other_unported_surface():
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         port_engine.ServingEngine(model, params, mesh=object(), device="cpu")
-    # every family but the audio one (whisper) is ported
-    with pytest.raises(NotImplementedError, match="'audio'"):
-        get_model(dataclasses.replace(model.cfg, family="audio"))
+    # every family is ported: an unknown one is a ValueError naming the known ones
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(dataclasses.replace(model.cfg, family="nope"))
     # compress_model is ported: dense params with lcd=True are compressed,

@@ -498,20 +498,18 @@ def test_priority_chunked_lockstep_with_the_reference(tiny, prefix_cache):
 # surface: fields, signatures, report keys, build_engine, the CLI
 # ---------------------------------------------------------------------------
 
-SLOT_STATE_ONLY = {"frames"}     # waits for the audio family (whisper's encoder input)
-
-
 def test_request_fields_and_defaults_match_the_reference():
     def fields(cls):
         return {f.name: (f.default, f.default_factory) for f in dataclasses.fields(cls)}
-    ref = {k: v for k, v in fields(ref_engine.Request).items() if k not in SLOT_STATE_ONLY}
-    assert fields(port_engine.Request) == ref
+    assert fields(port_engine.Request) == fields(ref_engine.Request)
+    assert [f.name for f in dataclasses.fields(port_engine.Request)] == [
+        f.name for f in dataclasses.fields(ref_engine.Request)]
 
 
 def test_submit_and_preempt_signatures_match_the_reference():
     ref = inspect.signature(ref_engine.ServingEngine.submit).parameters
     port = inspect.signature(port_engine.ServingEngine.submit).parameters
-    assert [p for p in ref if p != "frames"] == list(port)
+    assert list(ref) == list(port)
     assert all(port[p].default == ref[p].default and port[p].kind == ref[p].kind
                for p in port)
     assert (list(inspect.signature(port_engine.ServingEngine.preempt).parameters)

@@ -434,6 +434,55 @@ def test_zamba2_shorter_than_its_period_equals_the_reference():
         _cache_leaves_close(pcaches[kind], caches[kind], f"serving_step {kind}")
 
 
+def _zamba2_site_norms(mods, params, tokens, cfg, to, rms):
+    """The residual stream's RMS over every token after the embedding and
+    after each attention site of a zamba2 forward, walked with a package's
+    own blocks (`mods`: its zamba2 and layers modules; `to` makes its
+    arrays, `rms` reads one back)."""
+    zam, lay = mods
+    x = params["embed"][to(tokens)]
+    norms = [rms(x)]
+    per = cfg.attn_period
+    for site in range(zam.n_sites(cfg)):
+        for l in range(site * per, (site + 1) * per):
+            p = {k: (v[l] if not isinstance(v, dict) else {kk: vv[l] for kk, vv in v.items()})
+                 for k, v in params["blocks"].items()}
+            h, _ = zam.mamba_block(p, lay.rmsnorm(x, p["ln"]["scale"]), cfg, None)
+            x = x + h
+        out = zam._shared_attn(params, x, cfg)
+        x = out[0] if isinstance(out, tuple) else out
+        norms.append(rms(x))
+    return np.array(norms)
+
+
+def test_zamba2_at_12_layers_grows_its_residual_as_the_reference_does():
+    """The check behind `recurrent_parity`'s 2-layer zamba2: at 12 layers
+    (6 attention sites) the random weights' residual stream grows in the
+    reference, and the port's grows the same way: from the same params and
+    tokens, the stream's RMS after each site within 1e-4 (relative) of the
+    reference's, and the logits within 1e-4 of their largest magnitude. A
+    reference property of random weights, not a port fault."""
+    from repro.models import layers as ref_lay
+    model, params, pmodel = pair("zamba2-1.2b", seed=0, n_layers=12)
+    cfg = model.cfg
+    assert ref_zamba2.n_sites(cfg) == 6
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    want = _zamba2_site_norms((ref_zamba2, ref_lay), params, tokens, cfg, jnp.asarray,
+                              lambda x: float(jnp.sqrt(jnp.mean(jnp.square(x)))))
+    pp = _port_tree(params)
+    with torch.no_grad():
+        got = _zamba2_site_norms((port_zamba2, port_layers), pp, tokens, pmodel.cfg,
+                                 lambda t: torch.from_numpy(t).long(),
+                                 lambda x: float(torch.sqrt(torch.mean(torch.square(x)))))
+        logits, _ = pmodel.apply(pp, {"tokens": torch.from_numpy(tokens)})
+    ref_logits, _ = model.apply(params, {"tokens": jnp.asarray(tokens)})
+    assert_close(got, want, rtol=1e-4, what="residual RMS per site")
+    scale = float(np.abs(np.asarray(ref_logits)).max())
+    assert_close(np_of(logits), np.asarray(ref_logits), atol=1e-4 * scale,
+                 what="12-layer logits, relative to their largest")
+    assert want[-1] > 10 * want[0], want       # the stream grows, in both
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_equals_decode_within_the_reference_bound(arch):
     """The full-sequence forward (chunked forms) against token-by-token
@@ -597,12 +646,21 @@ def _leaves(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
-# nothing is served on a model the port refuses
+# every family the reference serves is ported
 # ---------------------------------------------------------------------------
 
-def test_audio_family_is_still_refused():
-    with pytest.raises(NotImplementedError, match="'audio'"):
-        get_model("whisper-large-v3")
-    assert {"rwkv", "linear_attn", "hybrid"} <= set(PORTED_FAMILIES)
-    assert "audio" not in PORTED_FAMILIES
-    assert get_model("rwkv6-1.6b").seq_caches["slot"].snapshot
+def test_ported_families_cover_every_family_of_the_reference():
+    """`PORTED_FAMILIES` holds every family of `FAMILY_CAPS` (the reference's
+    capability table), and `get_model` builds every registered arch with
+    its family's capabilities; the slot protocols snapshot where the
+    reference's do (rwkv6, gla, whisper) and not for zamba2."""
+    from repro.models import registry as ref_registry
+    from repro_torch.models.config import list_archs
+    from repro_torch.models.registry import FAMILY_CAPS
+    assert sorted(PORTED_FAMILIES) == sorted(FAMILY_CAPS) == sorted(ref_registry._FAMILIES)
+    for arch in list_archs():
+        model = get_model(arch)
+        assert model.capabilities == FAMILY_CAPS[model.cfg.family], arch
+    for arch, snap in (("rwkv6-1.6b", True), ("gla-1.3b", True), ("zamba2-1.2b", False),
+                       ("whisper-large-v3", True)):
+        assert get_model(arch).seq_caches["slot"].snapshot == snap, arch
