@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-Builds the ten hand-written CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card at the shapes
+Builds the twelve hand-written CUDA kernels from the sources in this checkout
+(the ten that replace the JAX package's Pallas kernels, and the two of the
+LUT projection's backward), holds each against its plain PyTorch version on
+the card at the shapes
 llama2-7b and qwen2-1.5b give it, and the serving ones (B1-B5) at the shapes
 of gemma2-27b, starcoder2-15b, stablelm-12b and paligemma-3b (every projection of a multi-projection
 launch bit for bit against its solo launch, the §4 layer's int8 LUT GEMM bit
@@ -38,7 +40,9 @@ decode alike alone); runs the paper's pipeline through the trainer
 (`train`: a 4-layer full-width llama2-7b in f32 — forward = decode, 30 train
 steps, a checkpoint round trip, compression under the empirical Fisher,
 teacher and student CE with the student's forward through the LUT GEMMs at
-4096 rows, then an engine on the student); shows, by the kernels' launch counts (a replay adds
+4096 rows, the codebook fine-tune of the student by self-distillation, its
+gradients through the backward kernels, then an engine on the fine-tuned
+student); shows, by the kernels' launch counts (a replay adds
 what its capture recorded), that each path really went through the
 kernels, and reads under torch.profiler where a prefill step's and a
 decode step's time goes, graph and eager body in turns; serves the
@@ -2010,10 +2014,11 @@ def _layernorm_scales_near_one(params, gen):
     return params
 
 
-# the §4 layer's kernels and the attention kernels B8, B9: never launched by a
-# serving step
+# the §4 layer's kernels, the attention kernels B8, B9 and the projection's
+# backward kernels: never launched by a serving step
 NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0,
-               "paged_dequant_attention": 0, "flash_attention": 0}
+               "paged_dequant_attention": 0, "flash_attention": 0, "lut_matmul_t": 0,
+               "lut_codebook_grad": 0}
 
 
 def _mlp_kind(cfg):
@@ -3391,10 +3396,20 @@ STUDENT_TOL_MAX, STUDENT_TOL_MEAN = 1e-3, 1e-4
 # outside compress_model (the squared gradient of that leaf alone, by
 # autograd, over the same calibration batches), to FISHER_TOL of its largest
 FISHER_PATH, FISHER_TOL = "['blocks']['attn']['wq']", 1e-4
-# the kernels the pipeline's path launches: B2 / B4 in the student's forward,
-# B1-B5 in its engine
-TRAIN_PATH_KERNELS = PLAIN_LUT + ("paged_pool_attention",)
-MOE_PATH_KERNELS = TRAIN_PATH_KERNELS
+# the codebook fine-tune (examples/distill_llm.py ft_step): KD steps of the
+# student against the teacher, at the example's OptConfig
+FT_STEPS = 10
+# the kernels of the projection's backward (they replace no TPU kernel)
+BACKWARD_KERNELS = ("lut_matmul_t", "lut_codebook_grad")
+# each backward kernel against its plain version's autograd on the card, to
+# these fractions of the largest |gradient| of the leaf: dx and dsmooth are
+# f32 sums of 4096-11008 terms in another order; dcodebook sums ~1e11
+# products, the plain version's `index_put_` accumulating them serially
+BACKWARD_TOL = {"dxs": 1e-4, "dx": 1e-4, "dsmooth": 1e-4, "dcodebook": 1e-3}
+# the kernels the pipeline's path launches: B2 / B4 in the student's forward
+# and its fine-tune, the backward kernels in the fine-tune, B1-B5 in its engine
+MOE_PATH_KERNELS = PLAIN_LUT + ("paged_pool_attention",)
+TRAIN_PATH_KERNELS = MOE_PATH_KERNELS + BACKWARD_KERNELS
 
 
 def _on_card(batch):
@@ -3410,13 +3425,80 @@ def _rel_errs(compressed, dense, paths):
             for p in paths}
 
 
+def _backward_case(gen, m, k, n, nbits=4) -> dict:
+    """`lut_matmul_t` and `lut_codebook_grad` on one (M, K, N) projection:
+    each called twice (torch.equal), held against the plain version's
+    autograd of y = (x / smooth) @ codebook[codes] on the same card (to
+    BACKWARD_TOL of the largest |gradient|), then timed beside their bound,
+    their plain versions (kernels/ref.py) and a yardstick: torch.matmul over
+    the dequantised f32 weight (dY Wᵀ; Xsᵀ dY). Fails the run on a miss.
+    Returns {kernel: case}."""
+    from repro_torch.core.lut import unpack_codes
+    from repro_torch.kernels.lut_matmul import lut_codebook_grad, lut_matmul_t
+    from repro_torch.kernels.ref import lut_codebook_grad_ref, lut_matmul_t_ref
+    x, smooth, packed, cb = _lut_operands(gen, m, k, n, nbits, torch.float32, 1)
+    smooth, packed, cb = smooth[0], packed[0], cb[0]
+    dy = torch.randn((m, n), generator=gen, device=gen.device)
+    xs = x / smooth
+    dxs = lut_matmul_t(dy, packed, cb, nbits=nbits)
+    dcb, dsm = lut_codebook_grad(xs, dy, packed, cb, smooth, nbits=nbits)
+    again = (lut_matmul_t(dy, packed, cb, nbits=nbits),
+             *lut_codebook_grad(xs, dy, packed, cb, smooth, nbits=nbits))
+    torch.cuda.synchronize()
+    xg, sg, cg = (t.clone().requires_grad_(True) for t in (x, smooth, cb))
+    xsg = xg / sg
+    w = cg[unpack_codes(packed, k, nbits).long()]
+    want = dict(zip(("dxs", "dx", "dsmooth", "dcodebook"),
+                    torch.autograd.grad(xsg @ w, (xsg, xg, sg, cg), dy)))
+    del xg, sg, cg, xsg
+    got = dict(dxs=dxs, dx=dxs / smooth, dsmooth=dsm, dcodebook=dcb)
+    errs = {g: float((got[g] - want[g]).abs().max()) for g in got}
+    tols = {g: BACKWARD_TOL[g] * float(want[g].abs().max()) for g in got}
+    w = w.detach()
+    del want, got
+    same = {"lut_matmul_t": torch.equal(dxs, again[0]),
+            "lut_codebook_grad": torch.equal(dcb, again[1]) and torch.equal(dsm, again[2])}
+    elt = m * k * n
+    cases = {}
+    for name, keys, run, plain, yard, nbytes in (
+            ("lut_matmul_t", ("dxs", "dx"),
+             lambda i: lut_matmul_t(dy, packed, cb, nbits=nbits),
+             lambda i: lut_matmul_t_ref(dy, packed, cb, nbits=nbits),
+             lambda i: torch.matmul(dy, w.T),
+             m * n * 4 + k * n * nbits // 8 + 16 * 4 + m * k * 4),
+            ("lut_codebook_grad", ("dcodebook", "dsmooth"),
+             lambda i: lut_codebook_grad(xs, dy, packed, cb, smooth, nbits=nbits),
+             lambda i: lut_codebook_grad_ref(xs, dy, packed, cb, smooth, nbits=nbits),
+             lambda i: torch.matmul(xs.T, dy),
+             m * k * 4 + m * n * 4 + k * n * nbits // 8 + 16 * 4 + k * 4 + (16 + k) * 4)):
+        t_ops, t_bytes = 2.0 * elt / PEAK_OPS[torch.float32], nbytes / HBM_BYTES_PER_S
+        case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits, dtype="float32",
+                    errs={g: errs[g] for g in keys}, tols={g: tols[g] for g in keys},
+                    max_abs_err=max(errs[g] for g in keys),
+                    same_bits_twice=same[name],
+                    ms=time_ms(run, 3), plain_ms=time_ms(plain, 2, warmup=1),
+                    yardstick_ms=time_ms(yard, 3), library_ms=None,
+                    bound_ms=max(t_ops, t_bytes) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if not (case["same_bits_twice"] and all(errs[g] <= tols[g] for g in keys)):
+            emit("train_kernels", failed=case)
+            raise SystemExit(f"backward kernel disagrees with its plain version: {case}")
+        cases[name] = case
+    return cases
+
+
 def _check_train_kernels(gen) -> dict:
     """B2 and B4 at the student's forward shapes (M = batch x seq = 4096
     rows, f32 activations, 4-bit, float transform) against their plain
     versions (`_lut_check`, `_multi_check`), then timed (`_time_lut`,
-    `_time_multi`) beside their bounds. Returns {kernel: [case, ...]}."""
+    `_time_multi`) beside their bounds; the backward kernels at llama's
+    projection shapes (`_backward_case`). Returns {kernel: [case, ...]}."""
     m = TRAIN_BATCH * TRAIN_SEQ
-    out = {"lut_matmul_fused": [], "lut_matmul_fused_multi": []}
+    out = {"lut_matmul_fused": [], "lut_matmul_fused_multi": [],
+           **{name: [] for name in BACKWARD_KERNELS}}
+    for k, n in LLAMA_KN:
+        for name, case in _backward_case(gen, m, k, n).items():
+            out[name].append(case)
     for k, n in LLAMA_KN:
         case, kern = _lut_check(gen, m, k, n, 4, torch.float32, False)
         case.update(_time_lut(gen, kern, m, k, n, 4, torch.float32, False))
@@ -3433,6 +3515,71 @@ def _check_train_kernels(gen) -> dict:
     return out
 
 
+def _fine_tune(model, teacher, student, data, held, loss_fn, paths, ce_before, fails):
+    """(4b) FT_STEPS steps of `build_distill_step` (examples/distill_llm.py
+    ft_step, its OptConfig, batches 1000 + step of the training data) on
+    the student against the teacher: the forward through B2 / B4 at 4096
+    rows, the backward through `lut_matmul_t` / `lut_codebook_grad`. Returns
+    (the fine-tuned student, the run's launch counts, its report row);
+    `ce_before` is the student's CE per held-out batch before it. Appends to
+    `fails` what did not hold."""
+    from repro_torch.core.api import _flatten_with_paths
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_distill_step
+    from repro_torch.optim.optimizer import OptConfig, init_adam
+
+    ft_cfg = OptConfig(lr=5e-4, warmup_steps=0, total_steps=FT_STEPS, weight_decay=0.0)
+    step_fn = build_distill_step(model, teacher, ft_cfg)
+    before = dict(_flatten_with_paths(student))
+    opt = init_adam(student)
+    kls, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for step in range(FT_STEPS):
+        t0 = time.perf_counter()
+        student, opt, kl = step_fn(student, opt, _on_card(data.batch(1000 + step)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        kls.append(float(kl))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del opt
+    after = dict(_flatten_with_paths(student))
+
+    def rel(field):
+        return {p: float((getattr(after[p], field) - getattr(before[p], field)).norm()
+                         / getattr(before[p], field).norm()) for p in paths}
+    cb_change, smooth_change = rel("codebook"), rel("smooth")
+    frozen = all(torch.equal(getattr(after[p], f), getattr(before[p], f))
+                 for p in paths for f in ("inv_scale", "codes", "packed"))
+    with torch.no_grad():
+        ce_after = [float(loss_fn(student, b)) for b in held]
+    first3, last3 = float(np.mean(kls[:3])), float(np.mean(kls[-3:]))
+    cb_, ca_ = float(np.mean(ce_before)), float(np.mean(ce_after))
+    out = dict(
+        steps=FT_STEPS, lr=ft_cfg.lr, batch=TRAIN_BATCH, seq=TRAIN_SEQ, kl=kls,
+        kl_first3_mean=first3, kl_last3_mean=last3, first_step_s=round(step_s[0], 4),
+        s_per_step=round(float(np.mean(step_s[1:])), 4),
+        peak_device_memory_gib=round(peak, 2),
+        launches={n: c for n, c in counts.items() if c},
+        codebook_rel_change=cb_change,
+        codebook_rel_change_mean=float(np.mean(list(cb_change.values()))),
+        smooth_rel_change_mean=float(np.mean(list(smooth_change.values()))),
+        inv_scale_codes_packed_unchanged=frozen,
+        ce_student_before=cb_, ppl_student_before=math.exp(cb_),
+        ce_student_after=ca_, ppl_student_after=math.exp(ca_),
+        ce_student_after_per_batch=ce_after)
+    if not (all(np.isfinite(kls)) and last3 < first3):
+        fails.append(f"the fine-tune's KL did not fall: {kls}")
+    if not (all(v > 0 for v in cb_change.values()) and frozen):
+        fails.append("the fine-tune did not move every codebook, or moved a frozen leaf")
+    if not all(counts.get(n, 0) > 0 for n in BACKWARD_KERNELS + ("lut_matmul_fused",
+                                                                 "lut_matmul_fused_multi")):
+        fails.append(f"the fine-tune did not run B2 / B4 and both backward kernels: {counts}")
+    return student, counts, out
+
+
 def phase_train(seed: int):
     """The paper's pipeline on llama2-7b at full width (d_model 4096, d_ff
     11008, 32 heads, vocab 32000) cut to 4 layers, in float32, through the
@@ -3445,9 +3592,11 @@ def phase_train(seed: int):
     Fisher of FISHER_PATH held to a plain computation outside it), against
     the same call with H = 1, and CE / PPL of teacher and student on 4
     held-out batches, the student's forward through B2 / B4 at 4096 rows
-    and its logits against the plain versions'; (5) an engine on the
+    and its logits against the plain versions'; (4b) the codebook fine-tune
+    of that student (`_fine_tune`); (5) an engine on the fine-tuned
     student: 4 staggered requests, tokens = each served alone. Returns the
-    launch counts of (4)'s student evaluation and (5)'s drive."""
+    launch counts of (4)'s student evaluation, (4b)'s fine-tune and (5)'s
+    drive, and the `train_kernels` cases."""
     import dataclasses
     import shutil
     import tempfile
@@ -3659,16 +3808,20 @@ def phase_train(seed: int):
         fails.append("the student's kernels and plain versions disagree")
     if not (eval_counts["lut_matmul_fused"] > 0 and eval_counts["lut_matmul_fused_multi"] > 0):
         fails.append("the student's forward did not run B2 / B4")
+
+    # (4b) the codebook fine-tune of the Fisher-compressed student
+    student, ft_counts, row["fine_tune"] = _fine_tune(model, teacher, student, data, held,
+                                                      loss_fn, paths, ce_student, fails)
     del teacher, held
     emit("train", **row)
     if fails:
         raise SystemExit(f"train: {'; '.join(fails)}")
 
-    # (5) serve the student: 4 staggered requests, each = served alone
+    # (5) serve the fine-tuned student: 4 staggered requests, each = served alone
     serve_counts, _ = _serve("train_serve", "llama2-7b", seed, TRAIN_LAYERS, 4, 16, None,
                              solo_ids=(0, 1, 2, 3), params=student)
-    counts = {n: eval_counts.get(n, 0) + serve_counts.get(n, 0)
-              for n in set(eval_counts) | set(serve_counts)}
+    counts = {n: eval_counts.get(n, 0) + ft_counts.get(n, 0) + serve_counts.get(n, 0)
+              for n in set(eval_counts) | set(ft_counts) | set(serve_counts)}
     if not all(counts.get(n, 0) > 0 for n in TRAIN_PATH_KERNELS):
         raise SystemExit(f"train: a kernel of the path was never launched: {counts}")
     del student
@@ -4892,10 +5045,18 @@ def main() -> int:
                                     "src/repro/kernels/paged_attention.py:151"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:108"),
+        # no TPU kernel: the reference leaves the projection's backward to XLA
+        "lut_matmul_t": ("src/repro_torch/kernels/csrc/lut_backward.cu",
+                         "none (XLA's backward of src/repro/core/api.py:119 clustered_matmul)"),
+        "lut_codebook_grad": ("src/repro_torch/kernels/csrc/lut_backward.cu",
+                              "none (XLA's backward of src/repro/core/api.py:119 "
+                              "clustered_matmul)"),
     }
     # launches: the serving path's run for B1-B5, the §4 layer's for B6, B7,
-    # B10, the tuned attention path's for B8, B9
+    # B10, the tuned attention path's for B8, B9, the trainer's pipeline
+    # (its fine-tune) for the backward kernels
     launches = {**{n: counts.get(n, 0) for n in meta},
+                **{n: train_counts.get(n, 0) for n in BACKWARD_KERNELS},
                 **{n: layer_counts.get(n, 0) for n in ("lut_matmul_f32", "lut_matmul_int8",
                                                        "smooth_quant")},
                 **{n: tune_counts.get(n, 0) for n in ("paged_dequant_attention",
@@ -4904,6 +5065,10 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         head, worst = checked.get(name, ({}, None))
         head = tune_heads.get(name, head)
+        if name in BACKWARD_KERNELS and train_cases.get(name):
+            # the headline: llama's gate / up projection, 4096 -> 11008
+            head = next(c for c in train_cases[name] if c["n"] == 11008)
+            worst = max(c["max_abs_err"] for c in train_cases[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst,
@@ -4929,7 +5094,8 @@ def main() -> int:
             "launches_train": train_counts.get(name, 0),
             "train_shapes": [{k: c.get(k) for k in (
                 "group", "m", "k", "n", "widths", "dtype", "ms", "plain_ms", "bound_ms",
-                "bound_by", "f32_core_bound_ms", "max_abs_err", "solo_sum_ms") if k in c}
+                "bound_by", "f32_core_bound_ms", "max_abs_err", "solo_sum_ms", "yardstick_ms",
+                "errs", "tols", "same_bits_twice") if k in c}
                 for c in train_cases.get(name, [])],
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
@@ -4937,6 +5103,9 @@ def main() -> int:
             # one PyTorch call computes the same function only for B9 (the
             # library attention); for the others there is none
             "library_ms": head.get("library_ms"),
+            # the backward kernels' yardstick: torch.matmul over the
+            # dequantised f32 weight
+            "yardstick_ms": head.get("yardstick_ms"),
             "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
             "sdpa_dense_bf16_ms": head.get("sdpa_dense_bf16_ms"),
             "solo_sum_ms": head.get("solo_sum_ms"),

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lut_gemv.cu", "lut_gemm.cu", "lut_multi_gemv.cu", "lut_multi_gemm.cu",
            "paged_attention.cu", "lut_plain.cu", "smooth_quant.cu", "paged_dequant.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "lut_backward.cu")
 HEADERS = ("lut_common.cuh", "lut_gemv.cuh", "lut_gemm.cuh", "paged_attention.cuh",
            "cp_async.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -134,6 +134,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.lut_int8_launch
     # q, packed, cb, s_q, y, M, K, N, packed_rows, nbits, xt, stream
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
+    fn.restype = i
+    fn = lib.lut_matmul_t_launch
+    # dy, packed, cb, dxs, M, K, N, packed_rows, nbits, stream
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.lut_codebook_grad_scratch_floats
+    # K, N -> floats of lut_codebook_grad_launch's scratch
+    fn.argtypes = [i, i]
+    fn.restype = ctypes.c_longlong
+    fn = lib.lut_codebook_grad_launch
+    # xs, dy, packed, cb, smooth, dcb, dsmooth, scratch, M, K, N, packed_rows,
+    # nbits, stream
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.smooth_quant_launch
     # x, x_is_bf16, inv, q, M, C, bits, stream

@@ -15,13 +15,21 @@ the same names:
                                 outputs concatenated along N, in one launch;
   lut_matmul_fused_multi_gemv — the same for decode, M < 128.
 
+and the two kernels of the projection's backward, which replace no Pallas
+kernel (the JAX package leaves that backward to XLA):
+
+  lut_matmul_t                — dXs = dY @ codebook[codes]^T;
+  lut_codebook_grad           — the codebook's and the smoothing vector's
+                                gradients, from Xs = x / smooth and dY.
+
 T is the Eq. 11 input transform: x · inv_scale, and when `quantize`
 clip(round(·), ±127) with round-half-to-even. The caller applies the trailing
 s_q rescale. Weights arrive as packed centroid codes at `nbits` in {2, 3, 4}
 per code (core/lut.py layout); the codebook is padded to KC entries.
 
 On a CUDA tensor a wrapper launches its kernel (kernels/csrc/lut_plain.cu,
-lut_gemv.cu, lut_gemm.cu, lut_multi_gemv.cu, lut_multi_gemm.cu) on the
+lut_gemv.cu, lut_gemm.cu, lut_multi_gemv.cu, lut_multi_gemm.cu,
+lut_backward.cu) on the
 current stream and counts the launch; on a CPU tensor it runs the plain version (kernels/ref.py).
 The GEMM's launches (B2, B4, and B6 / B7 from 128 rows on) take a scratch
 the wrapper allocates, into which their pre-pass writes the transformed
@@ -40,9 +48,10 @@ import torch
 
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (lut_matmul_f32_ref,
+from repro_torch.kernels.ref import (lut_codebook_grad_ref, lut_matmul_f32_ref,
                                      lut_matmul_fused_multi_ref,
-                                     lut_matmul_fused_ref, lut_matmul_int8_ref)
+                                     lut_matmul_fused_ref, lut_matmul_int8_ref,
+                                     lut_matmul_t_ref)
 
 # Codebook capacity the kernels are specialized for: <= 4-bit codes. Codebooks
 # are always padded to KC entries; an nbits-wide tensor references the first
@@ -52,7 +61,8 @@ KC = 16
 # launches of each kernel since the last reset (plain ints; see kernels/ops.py)
 LAUNCHES = {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
             "lut_matmul_fused_multi_gemv": 0, "lut_matmul_fused_multi": 0,
-            "lut_matmul_f32": 0, "lut_matmul_int8": 0}
+            "lut_matmul_f32": 0, "lut_matmul_int8": 0,
+            "lut_matmul_t": 0, "lut_codebook_grad": 0}
 
 # projections one multi launch takes (the kernels' descriptor capacity,
 # csrc/lut_common.cuh MAX_PROJ)
@@ -428,3 +438,98 @@ def lut_matmul_fused_multi_gemv(
             f"lut_matmul_fused_multi_gemv: M ({x.shape[0]}) must be < 128")
     return _multi("lut_matmul_fused_multi_gemv", "lut_multi_gemv_launch", x,
                   inv_stack, cb_stack, packed_list, quantize, nbits)
+
+
+# ---------------------------------------------------------------------------
+# The projection's backward: Y = Xs @ W, Xs = x / smooth, W = codebook[codes]
+# ---------------------------------------------------------------------------
+
+def _check_backward(caller, nbits, packed_codes, codebook, named):
+    """The backward kernels' operands: uint8 packed codes over K = rows * 8 /
+    nbits channels and N columns, a codebook padded to KC, and the f32
+    tensors `named` as (name, tensor, dims) with dims spelled in "M", "K",
+    "N" (M bound by the first tensor that has it); one device, contiguous.
+    Returns (M, K, N)."""
+    if packed_codes.ndim != 2:
+        raise ValueError(f"{caller}: packed_codes must be 2-D; got {tuple(packed_codes.shape)}")
+    if nbits not in SUPPORTED_NBITS or (packed_codes.shape[0] * 8) % nbits:
+        raise ValueError(f"{caller}: {packed_codes.shape[0]} packed rows at {nbits} bits do "
+                         f"not hold a whole number of channels (nbits one of "
+                         f"{SUPPORTED_NBITS})")
+    if packed_codes.dtype != torch.uint8:
+        raise TypeError(f"{caller}: packed_codes must be uint8; got {packed_codes.dtype}")
+    size = {"K": packed_codes.shape[0] * 8 // nbits, "N": packed_codes.shape[1], "C": KC}
+    dev = packed_codes.device
+    for name, t, dims in [*named, ("codebook", codebook, ("C",))]:
+        if t.ndim == len(dims):
+            size.setdefault("M", t.shape[dims.index("M")] if "M" in dims else None)
+        want = tuple(size.get(d) for d in dims)
+        if t.ndim != len(dims) or tuple(t.shape) != want:
+            raise ValueError(f"{caller}: {name} must be {dims} = {want}; got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{caller}: {name} must be float32; got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{caller}: {name} is on {t.device}, packed_codes on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{caller}: {name} must be contiguous; got strides "
+                             f"{t.stride()} for shape {tuple(t.shape)}")
+    return size["M"], size["K"], size["N"]
+
+
+def lut_matmul_t(
+    dy: torch.Tensor,           # (M, N) f32 — the output's gradient
+    packed_codes: torch.Tensor, # (K*nbits//8, N) uint8
+    codebook: torch.Tensor,     # (KC,) f32
+    *,
+    nbits: int = 4,
+) -> torch.Tensor:
+    """dXs = dY @ codebook[codes]^T, (M, K) f32 over the packed rows' K (the
+    packing-group-padded d_in): a LUT GEMM contracting over N that decodes
+    the codes from their bytes; each output one fmaf chain in n order."""
+    m, k, n = _check_backward("lut_matmul_t", nbits, packed_codes, codebook,
+                              [("dy", dy, ("M", "N"))])
+    if dy.device.type != "cuda":
+        return lut_matmul_t_ref(dy, packed_codes, codebook, nbits=nbits)
+    dxs = torch.empty((m, k), dtype=torch.float32, device=dy.device)
+    with torch.cuda.device(dy.device):
+        err = _build.library().lut_matmul_t_launch(
+            dy.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(), dxs.data_ptr(),
+            m, k, n, packed_codes.shape[0], nbits, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "lut_matmul_t")
+    LAUNCHES["lut_matmul_t"] += 1
+    return dxs
+
+
+def lut_codebook_grad(
+    xs: torch.Tensor,           # (M, K) f32 — x / smooth, K padded as the codes
+    dy: torch.Tensor,           # (M, N) f32
+    packed_codes: torch.Tensor, # (K*nbits//8, N) uint8
+    codebook: torch.Tensor,     # (KC,) f32
+    smooth: torch.Tensor,       # (K,) f32 (ones on the padding)
+    *,
+    nbits: int = 4,
+):
+    """(dcodebook (KC,), dsmooth (K,)), f32: with G = Xsᵀ dY, dcodebook[c]
+    sums G over the (k, n) of code c, dsmooth[k] = -(1/smooth[k]) Σ_n
+    G[k, n] W[k, n]. The kernel forms G a 128 x 128 tile at a time inside
+    its blocks and never writes it; the blocks' partial sums go to a scratch
+    allocated here and are folded in a fixed order (no atomics)."""
+    m, k, n = _check_backward("lut_codebook_grad", nbits, packed_codes, codebook,
+                              [("xs", xs, ("M", "K")), ("dy", dy, ("M", "N")),
+                               ("smooth", smooth, ("K",))])
+    if xs.device.type != "cuda":
+        return lut_codebook_grad_ref(xs, dy, packed_codes, codebook, smooth, nbits=nbits)
+    dcb = torch.empty((KC,), dtype=torch.float32, device=xs.device)
+    dsmooth = torch.empty((k,), dtype=torch.float32, device=xs.device)
+    lib = _build.library()
+    scratch = torch.empty((lib.lut_codebook_grad_scratch_floats(k, n),), dtype=torch.float32,
+                          device=xs.device)
+    with torch.cuda.device(xs.device):
+        err = lib.lut_codebook_grad_launch(
+            xs.data_ptr(), dy.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(),
+            smooth.data_ptr(), dcb.data_ptr(), dsmooth.data_ptr(), scratch.data_ptr(),
+            m, k, n, packed_codes.shape[0], nbits, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "lut_codebook_grad")
+    LAUNCHES["lut_codebook_grad"] += 1
+    return dcb, dsmooth

@@ -2,12 +2,17 @@
 selection, and the launch counters.
 
 `clustered_linear(x, ct)` and `clustered_linear_multi(x, cts)` are the
-serving-path entries the models call. They run the fused smooth(+quant)+LUT
-contraction streaming the tensors' packed codes: the CUDA kernels for CUDA
-tensors, their plain versions for CPU tensors (the choice is made by where the
-tensor lies, in the kernel wrappers, and nowhere else). `lut_gemm` and
-`lut_gemm_int8` serve the paper's §4 layer: already-smoothed float
-activations, and int8 Eq. 11 codes.
+entries the models call. Where nothing is differentiated they run the fused
+smooth(+quant)+LUT contraction streaming the tensors' packed codes (Eq. 11
+through `inv_scale`): the CUDA kernels for CUDA tensors, their plain versions
+for CPU tensors (the choice is made by where the tensor lies, in the kernel
+wrappers, and nowhere else). A call that autograd would differentiate
+computes what the reference differentiates, `(x / smooth) @
+codebook[codes]` in float: on the CPU the plain `core/api.py
+clustered_matmul`, on the card `_LutProjections`, whose forward runs B1-B4
+with the float transform and whose backward runs `lut_matmul_t` and
+`lut_codebook_grad`. `lut_gemm` and `lut_gemm_int8` serve the paper's §4
+layer: already-smoothed float activations, and int8 Eq. 11 codes.
 """
 from __future__ import annotations
 
@@ -17,18 +22,19 @@ from typing import Dict, Iterator, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.api import ClusteredTensor
+from repro_torch.core.api import ClusteredTensor, clustered_matmul
 from repro_torch.core.lut import packed_rows, padded_d_in
 from repro_torch.kernels import lut_matmul as _lm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import smooth_quant as _sq
 # by name: the package's attribute `flash_attention` is the function (__init__)
 from repro_torch.kernels.flash_attention import LAUNCHES as _FA_LAUNCHES
-from repro_torch.kernels.lut_matmul import (KC, lut_matmul_f32, lut_matmul_fused,
+from repro_torch.kernels.lut_matmul import (KC, lut_codebook_grad, lut_matmul_f32,
+                                            lut_matmul_fused,
                                             lut_matmul_fused_gemv,
                                             lut_matmul_fused_multi,
                                             lut_matmul_fused_multi_gemv,
-                                            lut_matmul_int8)
+                                            lut_matmul_int8, lut_matmul_t)
 
 GEMV_MAX_M = 128   # M < 128 goes to the GEMV kernel, else to the GEMM kernel
 
@@ -199,22 +205,77 @@ def _reaches_kernel(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def _refuse_grad(x: torch.Tensor, cts) -> None:
-    """The CUDA LUT kernels have no backward, so autograd would see their
-    outputs as constants: a codebook (or an input) that requires grad would
-    get a silent zero gradient. Refuse that call. The plain versions that
-    serve CPU tensors differentiate as the reference's gather contraction
-    does; under `torch.no_grad()` nothing is differentiated."""
-    if not (torch.is_grad_enabled() and _reaches_kernel(x)):
-        return
+def _needs_grad(x: torch.Tensor, cts) -> bool:
+    """Whether autograd would differentiate the call: grad mode on, and x or
+    a float field of a tensor requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
     fields = [getattr(ct, f) for ct in cts
               for f in ("codebook", "smooth", "inv_scale", "act_scale")]
-    if x.requires_grad or any(f is not None and f.requires_grad for f in fields):
-        raise NotImplementedError(
-            "clustered_linear: gradients through the LUT kernels (the codebook "
-            "fine-tune of the LCD student) are not ported - the CUDA kernels have "
-            "no backward; run the student under torch.no_grad(), or fine-tune its "
-            "codebooks on the CPU")
+    return x.requires_grad or any(f is not None and f.requires_grad for f in fields)
+
+
+class _LutProjections(torch.autograd.Function):
+    """P projections sharing x (P = 1: a solo one), differentiated as the
+    reference differentiates `clustered_matmul`: y_p = (x / smooth_p) @
+    codebook_p[codes_p], in float. `inv_scale` and `act_scale` are not read.
+
+    Forward: B1 / B2 (P = 1) or B3 / B4 with the float transform and inv =
+    1 / smooth_p. Backward, per projection in order: dXs_p by `lut_matmul_t`,
+    dx += dXs_p / smooth_p; the codebook's and smooth's gradients by
+    `lut_codebook_grad` on Xs_p = x / smooth_p. Gradients are f32 inside and
+    leave in their tensor's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, packed, nbits, *fields):
+        cbs, smooths = fields[0::2], fields[1::2]
+        invs = [1.0 / s.to(torch.float32) for s in smooths]
+        p = len(packed)
+        if p == 1:
+            ys = (lut_gemm_fused(x, invs[0], packed[0], cbs[0], 1.0, quantize=False,
+                                 nbits=nbits[0]),)
+        else:
+            ys = lut_gemm_fused_multi(x, torch.stack(invs),
+                                      torch.stack([pad_codebook(cb) for cb in cbs]),
+                                      [1.0] * p, *packed, quantize=(False,) * p, nbits=nbits)
+        ctx.save_for_backward(x, *fields)
+        ctx.packed, ctx.nbits = packed, nbits
+        return tuple(y.to(x.dtype) for y in ys)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, *fields = ctx.saved_tensors
+        k = x.shape[1]
+        xf = x.to(torch.float32)
+        dx, grads = None, []
+        for p, (dy, pk, nb) in enumerate(zip(dys, ctx.packed, ctx.nbits)):
+            cb, s = fields[2 * p], fields[2 * p + 1]
+            s32, dy = s.to(torch.float32), dy.to(torch.float32).contiguous()
+            cb16 = pad_codebook(cb)
+            if ctx.needs_input_grad[0]:
+                part = lut_matmul_t(dy, pk, cb16, nbits=nb)[:, :k] / s32
+                dx = part if dx is None else dx + part
+            if ctx.needs_input_grad[3 + 2 * p] or ctx.needs_input_grad[4 + 2 * p]:
+                kc = padded_d_in(k, nb)
+                dcb, dsm = lut_codebook_grad(
+                    _pad_k(xf / s32, nb), dy, pk, cb16,
+                    F.pad(s32, (0, kc - k), value=1.0), nbits=nb)
+                grads += [dcb[:cb.shape[0]].to(cb.dtype), dsm[:k].to(s.dtype)]
+            else:
+                grads += [None, None]
+        return (None if dx is None else dx.to(x.dtype), None, None, *grads)
+
+
+def _grad_route(x: torch.Tensor, cts) -> Tuple[torch.Tensor, ...]:
+    """The differentiable route: `clustered_matmul` per projection on the
+    CPU (autograd differentiates it), `_LutProjections` on the card."""
+    if not _reaches_kernel(x):
+        return tuple(clustered_matmul(x, ct) for ct in cts)
+    lead = x.shape[:-1]
+    fields = [f for ct in cts for f in (ct.codebook, ct.smooth)]
+    ys = _LutProjections.apply(x.reshape(-1, x.shape[-1]), tuple(packed_view(ct) for ct in cts),
+                               tuple(ct.nbits for ct in cts), *fields)
+    return tuple(y.reshape(*lead, -1) for y in ys)
 
 
 def clustered_linear(x: torch.Tensor, ct: ClusteredTensor) -> torch.Tensor:
@@ -222,14 +283,15 @@ def clustered_linear(x: torch.Tensor, ct: ClusteredTensor) -> torch.Tensor:
     tensor's packed codes, cast back to x's dtype. `ct` is one layer's
     tensor with one codebook: stacked (expert) codebooks never come here,
     as in the JAX package's models - `models/layers.py moe_block` resolves
-    them through `layers.resolve_weight`. On the card, a call that autograd
-    would have to differentiate raises NotImplementedError (`_refuse_grad`)."""
-    _refuse_grad(x, (ct,))
+    them through `layers.resolve_weight`. A call that autograd would
+    differentiate takes the reference's float route (`_grad_route`)."""
     if ct.codebook.ndim != 1:
         raise NotImplementedError(
             f"clustered_linear: stacked codebook {tuple(ct.codebook.shape)}; "
             f"stacked experts are resolved by models/layers.py resolve_weight "
             f"(moe_block's route), and a stacked layer axis is indexed first")
+    if _needs_grad(x, (ct,)):
+        return _grad_route(x, (ct,))[0]
     inv, act, quantize = _transform_params(ct)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -283,12 +345,14 @@ def clustered_linear_multi(x: torch.Tensor, cts) -> Tuple[torch.Tensor, ...]:
     nbits and quantize flags may differ.
 
     A single projection, or a stacked (expert) codebook, goes through
-    per-projection `clustered_linear` calls. On the card, a call that
-    autograd would have to differentiate raises NotImplementedError."""
+    per-projection `clustered_linear` calls. A call that autograd would
+    differentiate takes the reference's float route, one B3 / B4 launch
+    forward on the card (`_grad_route`)."""
     cts = tuple(cts)
-    _refuse_grad(x, cts)
     if len(cts) < 2 or any(ct.codebook.ndim != 1 for ct in cts):
         return tuple(clustered_linear(x, ct) for ct in cts)
+    if _needs_grad(x, cts):
+        return _grad_route(x, cts)
     params = [_transform_params(ct) for ct in cts]
     lead = x.shape[:-1]
     ys = lut_gemm_fused_multi(

@@ -79,6 +79,32 @@ def lut_matmul_fused_multi_ref(
     ]
 
 
+def lut_matmul_t_ref(dy: torch.Tensor, packed_codes: torch.Tensor,
+                     codebook: torch.Tensor, *, nbits: int = 4) -> torch.Tensor:
+    """dXs = dY @ codebook[codes]^T: the input gradient of Y = Xs @
+    codebook[codes], over the packed rows' K (M, K f32)."""
+    k = packed_codes.shape[0] * 8 // nbits
+    w = codebook[unpack_codes(packed_codes, k, nbits).long()]        # (K, N)
+    return dy.to(torch.float32) @ w.T
+
+
+def lut_codebook_grad_ref(xs: torch.Tensor, dy: torch.Tensor, packed_codes: torch.Tensor,
+                          codebook: torch.Tensor, smooth: torch.Tensor, *,
+                          nbits: int = 4):
+    """The codebook's and the smoothing vector's gradients of Y = (x /
+    smooth) @ codebook[codes], given Xs = x / smooth and dY: with G = Xsᵀ dY,
+    dcodebook[c] = the sum of G over the (k, n) whose code is c, and
+    dsmooth[k] = -(1 / smooth[k]) * sum_n G[k, n] W[k, n]. Returns
+    (dcodebook like `codebook`, dsmooth (K,))."""
+    k = xs.shape[-1]
+    codes = unpack_codes(packed_codes, k, nbits).long()
+    g = xs.to(torch.float32).T @ dy.to(torch.float32)                # (K, N)
+    dcb = torch.zeros_like(codebook, dtype=torch.float32).index_add_(
+        0, codes.reshape(-1), g.reshape(-1))
+    dsmooth = -(g * codebook[codes]).sum(dim=1) / smooth
+    return dcb, dsmooth
+
+
 def smooth_quant_ref(x: torch.Tensor, inv_scale: torch.Tensor,
                      bits: int = 8) -> torch.Tensor:
     """int8(clip(round(x * inv_scale), -2^(b-1), 2^(b-1)-1)): the standalone

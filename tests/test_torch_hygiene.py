@@ -95,6 +95,19 @@ def test_kernel_sources_exist_and_say_what_they_replace():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def test_backward_source_says_it_replaces_no_tpu_kernel_and_uses_no_atomics():
+    """lut_backward.cu opens with its note (it replaces no Pallas kernel, and
+    what bounds it), sums without atomics, and the differentiable route in
+    kernels/ops.py calls no scatter / index-add and no dense matmul."""
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / "lut_backward.cu").read_text()
+    assert "Replaces no TPU kernel" in text[:2500] and "What bounds it" in text[:2500]
+    assert "atomicAdd" not in text and "torch/extension.h" not in text
+    ops_text = (PKG / "kernels" / "ops.py").read_text()
+    for call in ("scatter_add", "index_add", "torch.matmul", "clustered_dequant"):
+        assert call not in ops_text, call
+
+
 def test_build_directory_is_ignored_and_keyed_by_the_sources():
     from repro_torch.kernels import _build
     ignored = (ROOT / ".gitignore").read_text().split()

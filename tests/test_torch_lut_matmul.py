@@ -225,9 +225,17 @@ def test_cpu_tensors_launch_no_kernel():
     port_ops.lut_gemm_fused_multi(torch.from_numpy(x), torch.from_numpy(1 / smooth)[None],
                                   torch.from_numpy(np.pad(cb, (0, 16 - cb.size)))[None], [1.0],
                                   torch.from_numpy(packed), quantize=(False,), nbits=(4,))
+    cb16 = torch.from_numpy(np.pad(cb, (0, 16 - cb.size)))
+    dy = torch.ones(x.shape[0], packed.shape[1])
+    port_ops.lut_matmul_t(dy, torch.from_numpy(packed), cb16, nbits=4)
+    port_ops.lut_codebook_grad(torch.from_numpy(np.pad(x, ((0, 0), (0, 1)))), dy,
+                               torch.from_numpy(packed), cb16,
+                               torch.from_numpy(np.pad(smooth, (0, 1), constant_values=1)),
+                               nbits=4)
     assert port_ops.launch_counts() == {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
                                         "lut_matmul_fused_multi_gemv": 0,
                                         "lut_matmul_fused_multi": 0,
                                         "paged_pool_attention": 0, "lut_matmul_f32": 0,
                                         "lut_matmul_int8": 0, "smooth_quant": 0,
-                                        "paged_dequant_attention": 0, "flash_attention": 0}
+                                        "paged_dequant_attention": 0, "flash_attention": 0,
+                                        "lut_matmul_t": 0, "lut_codebook_grad": 0}

@@ -2,8 +2,9 @@
 against the reference's (`optim/optimizer.py`, `optim/compress.py`,
 `launch/steps.py`, `launch/train.py`), the same numpy inputs through both;
 the trainer's contracts within the port (the loss falls, microbatches =
-the full batch, resume); the LUT kernels' refusal of gradients on the card;
-and `compress_model` with the empirical Fisher of a real LM loss.
+the full batch, resume); on the card, gradients through the LUT path take
+the backward kernels (device check and wrappers stubbed); and
+`compress_model` with the empirical Fisher of a real LM loss.
 
 Tolerances: `lr_at`, `global_norm` and one `adam_update` rtol 1e-6 (integer
 leaves exact); `compress_decompress` / `apply_ef` exact (the same f32
@@ -351,42 +352,78 @@ def test_trainer_checkpoint_resume(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the LUT kernels refuse gradients on the card
+# gradients through the LUT path on the card: the backward kernels
 # ---------------------------------------------------------------------------
 
-def test_grad_requiring_codebook_on_the_card_raises(monkeypatch):
-    """With the device check stubbed to say "the card", a codebook (or an
-    input) that requires grad raises NotImplementedError naming the
-    codebook fine-tune, before any kernel is reached; under
-    torch.no_grad() the call goes on. On the CPU the plain versions give
-    the codebook its gradient, as the reference's gather contraction does."""
+@pytest.mark.parametrize("multi", [False, True], ids=["solo", "multi"])
+def test_grad_requiring_calls_on_the_card_take_the_backward_kernels(monkeypatch, multi):
+    """With the device check stubbed to say "the card" and every kernel
+    wrapper stubbed: a call that requires grad runs the differentiable
+    route's forward (the float transform, inv = 1 / smooth, one launch for
+    the group) and, on backward, `lut_matmul_t` and `lut_codebook_grad` once
+    per projection, never the serving route (Eq. 11 through `inv_scale`);
+    under torch.no_grad() the serving route runs and no backward kernel; a
+    stacked codebook still raises."""
     rng = np.random.default_rng(0)
     from repro_torch.core.api import dense_to_clustered
-    w = rng.normal(size=(64, 32)).astype(np.float32)
-    codes = rng.integers(0, 8, (64, 32)).astype(np.uint8)
-    ct = dense_to_clustered(w, codes, np.sort(rng.normal(size=8)).astype(np.float32),
-                            device="cpu")
+
+    def tensor(n):
+        w = rng.normal(size=(64, n)).astype(np.float32)
+        codes = rng.integers(0, 8, (64, n)).astype(np.uint8)
+        return dense_to_clustered(w, codes, np.sort(rng.normal(size=8)).astype(np.float32),
+                                  smooth=rng.uniform(0.5, 2.0, 64).astype(np.float32),
+                                  act_scale=0.05, device="cpu")
+    cts = (tensor(32), tensor(16)) if multi else (tensor(32),)
     x = torch.from_numpy(rng.normal(size=(5, 64)).astype(np.float32))
-    cb = ct.codebook.clone().requires_grad_(True)
-    trainable = ct._replace(codebook=cb)
-    y = ops.clustered_linear(x, trainable)          # CPU: differentiable
-    (g,) = torch.autograd.grad(y.sum(), cb)
-    assert g.abs().sum() > 0
-    launched = []
+    calls = []
+
+    def solo(x2, inv, pk, cb, act, *, quantize, nbits):
+        calls.append(("forward", 1, quantize, inv))
+        return torch.zeros(x2.shape[0], pk.shape[1])
+
+    def group(x2, inv_stack, cb_stack, acts, *pks, quantize, nbits):
+        calls.append(("forward", len(pks), quantize, inv_stack))
+        return tuple(torch.zeros(x2.shape[0], pk.shape[1]) for pk in pks)
+
+    def t_kernel(dy, pk, cb, *, nbits):
+        calls.append(("lut_matmul_t",))
+        return torch.zeros(dy.shape[0], pk.shape[0] * 8 // nbits)
+
+    def grad_kernel(xs, dy, pk, cb, smooth, *, nbits):
+        calls.append(("lut_codebook_grad",))
+        return torch.zeros(16), torch.zeros(xs.shape[1])
     monkeypatch.setattr(ops, "_reaches_kernel", lambda t: True)
-    def kernel(x2, *a, **k):
-        launched.append(1)
-        return torch.zeros(x2.shape[0], 32)
-    monkeypatch.setattr(ops, "lut_gemm_fused", kernel)
-    for call in (lambda: ops.clustered_linear(x, trainable),
-                 lambda: ops.clustered_linear_multi(x, (trainable, ct)),
-                 lambda: ops.clustered_linear(x.clone().requires_grad_(True), ct)):
-        with pytest.raises(NotImplementedError, match="codebook fine-tune"):
-            call()
-    assert not launched
+    for name, fn in (("lut_gemm_fused", solo), ("lut_gemm_fused_multi", group),
+                     ("lut_matmul_t", t_kernel), ("lut_codebook_grad", grad_kernel)):
+        monkeypatch.setattr(ops, name, fn)
+
+    def call(x, cts):
+        return ops.clustered_linear_multi(x, cts) if multi else (ops.clustered_linear(x, cts[0]),)
+
+    trainable = tuple(ct._replace(codebook=ct.codebook.clone().requires_grad_(True),
+                                  smooth=ct.smooth.clone().requires_grad_(True)) for ct in cts)
+    xg = x.clone().requires_grad_(True)
+    ys = call(xg, trainable)
+    (kind, launched, quantize, inv), = calls
+    assert kind == "forward" and launched == len(cts) and not any(np.atleast_1d(quantize))
+    want_inv = torch.stack([1.0 / ct.smooth for ct in cts])
+    assert torch.equal(inv.reshape(want_inv.shape), want_inv)
+    assert not any(torch.equal(inv.reshape(want_inv.shape)[p], ct.inv_scale)
+                   for p, ct in enumerate(cts))
+    grads = torch.autograd.grad(sum(y.sum() for y in ys),
+                                [xg, *[f for ct in trainable for f in (ct.codebook, ct.smooth)]])
+    assert [c[0] for c in calls[1:]] == ["lut_matmul_t", "lut_codebook_grad"] * len(cts)
+    assert all(g is not None for g in grads)
+    calls.clear()
     with torch.no_grad():
-        ops.clustered_linear(x, trainable)
-    assert launched == [1]
+        call(xg, trainable)
+    (kind, launched, quantize, inv), = calls
+    assert all(np.atleast_1d(quantize))
+    assert torch.equal(inv.reshape(want_inv.shape),
+                       torch.stack([ct.inv_scale for ct in cts]))
+    stacked = cts[0]._replace(codebook=cts[0].codebook.expand(2, -1).clone().requires_grad_(True))
+    with pytest.raises(NotImplementedError, match="stacked codebook"):
+        ops.clustered_linear(xg, stacked)
 
 
 # ---------------------------------------------------------------------------
