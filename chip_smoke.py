@@ -30,9 +30,14 @@ of the KV pools (`graph` lines); serves speculatively (`serve_spec`: the
 with the same tokens as the plain engine, the verify's rows bit for bit
 those of width-1 steps and the identical draft accepting every round;
 serves the rest of the transformer family at full width (`serve_family`:
-gemma2-27b at its 46 layers, paligemma-3b at its 18, starcoder2-15b and
+gemma2-27b cut to 16 of its 46 layers, paligemma-3b at its 18, starcoder2-15b and
 stablelm-12b cut to 4) and each of the four speculatively at 2 layers
-(`serve_spec_family`);
+(`serve_spec_family`); serves on (data, model) meshes whose every
+coordinate is the one card (`serve_mesh`: the `serve` drive on (1, 2) and
+(2, 1) with `serve`'s tokens, one decode step's logits and the pools
+torch.equal to 1 x 1, B1-B5 on a rank's shard torch.equal to that part of
+the full launch, the int8 pool on (2, 2), the layout search's report; and
+the speculative engine on (1, 2) with plain greedy's tokens);
 compresses a 2-layer full-width llama2-7b
 with the LCD pipeline on the card (twice: the same bytes; under a bits
 budget; then inside `build_engine`, whose engine serves requests that
@@ -49,13 +54,14 @@ decode step's time goes, graph and eager body in turns; serves the
 mixture-of-experts family (`moe_parity`: a 2-layer full-width phi3.5-moe
 with its stacked experts clustered, kernels against their plain versions,
 the MoE block alone against its f32 run, B1-B5 at both MoE archs' shapes;
-`serve_moe`: phi3.5-moe cut to 16 of its 32 layers and llama4-scout to 4 at
+`serve_moe`: phi3.5-moe cut to 8 of its 32 layers and llama4-scout to 4 at
 full width, every replay equal to its eager body, where a step's time goes,
 then phi3.5-moe's first 2 layers over an int8 pool and speculatively);
 serves the recurrent and hybrid families (`recurrent_parity`: rwkv6-1.6b,
 gla-1.3b and zamba2-1.2b at full width and 2 layers, serving steps and the
 forward through the kernels against their plain versions, B1 / B3 / B5 at
-their shapes; `serve_recurrent`: the three at full width and full depth
+their shapes; `serve_recurrent`: the three at full width, cut to 8, 8 and 12
+layers,
 through the slot-state engine, every replay equal to its eager body with a
 snapshot preemption inside, preempted = unpreempted tokens, the new ops'
 row bits at 1 and 8 slots, a decode step's device time by kernel and
@@ -75,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -2066,21 +2073,34 @@ def _no_host_sync():
 def _clone_pools(engine):
     """Clones of every cache of the engine (the paged pool, the slot state)
     and, in speculative mode, of the draft's (None otherwise), keyed by kind
-    as `engine.caches` is."""
-    return [None if c is None else {kind: {k: v.clone() for k, v in cache.items()}
-                                    for kind, cache in c.items()}
+    as `engine.caches` is; a mesh's pool (`MeshTree`) as a clone of every
+    distinct part."""
+    from repro_torch.distributed.placement import MeshTree
+
+    def cl(cache):
+        if isinstance(cache, MeshTree):
+            return cache.clone()
+        return {k: v.clone() for k, v in cache.items()}
+    return [None if c is None else {kind: cl(cache) for kind, cache in c.items()}
             for c in (engine.caches, engine.draft_caches)]
 
 
 def _pools_differ(engine, clones):
     """Names ("kind/name", the draft's prefixed) of the cache tensors that
-    differ from `clones`."""
+    differ from `clones` (on a mesh, "kind/part i")."""
+    from repro_torch.distributed.placement import MeshTree
     bad = []
     for tag, c, clone in (("", engine.caches, clones[0]), ("draft ", engine.draft_caches,
                                                          clones[1])):
-        if c is not None:
-            bad += [f"{tag}{kind}/{k}" for kind, cache in c.items() for k, v in cache.items()
-                    if not torch.equal(v, clone[kind][k])]
+        if c is None:
+            continue
+        for kind, cache in c.items():
+            if isinstance(cache, MeshTree):
+                bad += [f"{tag}{kind}/part {i}" for i, (a, b) in enumerate(
+                    zip(cache.tensors(), clone[kind].tensors())) if not torch.equal(a, b)]
+            else:
+                bad += [f"{tag}{kind}/{k}" for k, v in cache.items()
+                        if not torch.equal(v, clone[kind][k])]
     return bad
 
 
@@ -2106,7 +2126,13 @@ def _verify_rows_check(engine, buf, drafts, wide_pool, step_pool, seen):
                     seen["verify_row_misses"].append(dict(
                         step=engine.steps, slot=s, row=j,
                         max_abs_diff=float((wide[s, j] - one[s]).abs().max())))
-    bad = [k for k in wide_pool if not torch.equal(wide_pool[k], step_pool[k])]
+    from repro_torch.distributed.placement import MeshTree
+    if isinstance(wide_pool, MeshTree):
+        bad = [f"part {i}" for i, (a, b) in enumerate(zip(wide_pool.tensors(),
+                                                          step_pool.tensors()))
+               if not torch.equal(a, b)]
+    else:
+        bad = [k for k in wide_pool if not torch.equal(wide_pool[k], step_pool[k])]
     if bad:
         seen["verify_row_misses"].append(dict(step=engine.steps, pools_differ=bad))
 
@@ -2256,14 +2282,19 @@ def _step_ms(engine, seed):
 
 
 def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_ids,
-           fused=True, params=None, want_tokens=None, step_times=False, after_drive=None):
+           fused=True, params=None, want_tokens=None, step_times=False, after_drive=None,
+           mesh=None, want_name="fused", report=None):
     """The engine at full width: staggered requests, launch counts per model
     step, engine-vs-solo token identity for `solo_ids` (each alone on the
     drive's engine once it is idle, one after another) and, with `want_tokens`,
-    token identity with another configuration's run; with `step_times`, the
-    step times of `_step_ms` on the same engine; with `after_drive`, its
-    checks on the same engine after the graph check
-    (after_drive(engine, prompts, tokens) -> a list of failures)."""
+    token identity with another configuration's run (`want_name`'s); with
+    `step_times`, the step times of `_step_ms` on the same engine; with
+    `after_drive`, its checks on the same engine after the graph check
+    (after_drive(engine, prompts, tokens) -> a list of failures). With
+    `mesh`, the engine serves on it: every rank launches its kernels, so a
+    dense arch cut on every projection and kv head launches each kernel
+    mesh.size times as often. `report`, when given, receives the line's
+    fields."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.launch.engine import EngineConfig, build_engine
 
@@ -2274,9 +2305,9 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     t0 = time.perf_counter()
     engine, _ = build_engine(arch, use_reduced=False, lcd=True, ecfg=ecfg, seed=seed,
                              params=params, fused_projections=fused, n_layers=n_layers,
-                             device="cuda")
+                             device="cuda", mesh=mesh)
     build_s = time.perf_counter() - t0
-    if kv_dtype == "int8":          # calibrated by build_engine, on the card
+    if kv_dtype == "int8" and mesh is None:      # calibrated by build_engine, on the card
         pool = engine.caches["paged"]
         if all(bool((pool[k] == 1.0).all()) for k in ("k_smooth", "v_smooth")):
             raise SystemExit(f"{name}: the int8 pool kept identity smoothing vectors")
@@ -2306,6 +2337,8 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     else:
         expected = _expected_launches(fused, n_layers, widths, _mlp_kind(cfg))
         path = [n for n in expected if fused and n not in NOT_SERVING]
+    if mesh is not None:
+        expected = {n: c * mesh.size for n, c in expected.items()}
     ok = (all(r.state == "finished" and len(r.out_tokens) == new_tokens for r in requests)
           and all(0 <= tok < cfg.vocab for r in requests for tok in r.out_tokens)
           and counts == expected and all(expected[n] > 0 for n in path))
@@ -2341,7 +2374,11 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     if steps_ms is not None:
         row["step_ms_8_slots_busy"] = steps_ms
     if want_tokens is not None:
-        row["same_tokens_as_fused"] = tokens == want_tokens
+        row[f"same_tokens_as_{want_name}"] = tokens == want_tokens
+    if mesh is not None:
+        row["mesh"] = mesh.shape
+    if report is not None:
+        report.update(row)
     emit(name, **row)
     if not ok:
         raise SystemExit(f"{name}: launch counts or outputs are wrong: {counts} vs "
@@ -2349,7 +2386,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
     if not all(solo_same.values()):
         raise SystemExit(f"{name}: engine tokens differ from solo decoding: {solo_same}")
     if want_tokens is not None and tokens != want_tokens:
-        raise SystemExit(f"{name}: tokens differ from the fused configuration's")
+        raise SystemExit(f"{name}: tokens differ from the {want_name} configuration's")
     if after:
         raise SystemExit(f"{name}: {after}")
     return counts, tokens
@@ -2378,9 +2415,257 @@ def _first_layers(params, n):
     return {**params, "blocks": cut(params["blocks"])}
 
 
-# the rest of the transformer family at full width: gemma2-27b and paligemma-3b
-# at full depth, starcoder2-15b and stablelm-12b cut to 4 layers (the run's time)
-FAMILY_DEPTHS = (("gemma2-27b", 46), ("paligemma-3b", 18), ("starcoder2-15b", 4),
+# ---------------------------------------------------------------------------
+# serving on a (data, model) mesh of one card
+# ---------------------------------------------------------------------------
+
+# the meshes the 32-layer drive runs on; every coordinate is cuda:0 (one card)
+MESH_SHAPES = ((1, 2), (2, 1))
+SERVE_ECFG = dict(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
+                  max_blocks_per_slot=32)
+MESH_PATH = PLAIN_LUT + ("paged_pool_attention",)
+
+
+def _mesh_of(shape):
+    """A (data, model) mesh of `shape` whose every coordinate is cuda:0."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"), [torch.device("cuda", 0)] * (shape[0] * shape[1]))
+
+
+def _whole_pool(engine):
+    """The engine's paged pool as whole tensors: on a mesh, each leaf's parts
+    concatenated on their cut dim."""
+    from repro_torch.distributed.placement import MeshTree
+    pool = engine.caches["paged"]
+    if not isinstance(pool, MeshTree):
+        return dict(pool)
+    return {name: leaf.parts[0] if leaf.dim is None else torch.cat(leaf.parts, dim=leaf.dim)
+            for name, leaf in pool.views[0].items()}
+
+
+def _next_decode_logits(engine):
+    """The logits of the engine's next width-1 step (every running slot
+    feeds its last token), through the eager body on clones of its pools."""
+    s = engine.ecfg.num_slots
+    tokens, n_new = np.zeros((s, 1), np.int32), np.zeros(s, np.int32)
+    for i, r in enumerate(engine.slots):
+        if r is not None:
+            tokens[i, 0], n_new[i] = r.out_tokens[-1], 1
+    args = engine._unpack(engine._host_upload(tokens, n_new), 1)
+    with torch.no_grad(), _no_host_sync():
+        logits, _ = engine.model.serving_step(engine.params, _clone_pools(engine)[0], *args)
+    return logits
+
+
+def _lockstep_logits(engine, seed):
+    """The 8 prompts of the mesh logits check on `engine`, stepped until
+    every slot decodes: (the next decode step's logits, the paged pool as
+    whole tensors, its counts); the engine then runs to the end."""
+    rng = np.random.default_rng(seed + 21)
+    for _ in range(SERVE_ECFG["num_slots"]):
+        prompt = rng.integers(0, engine.model.cfg.vocab,
+                              int(rng.integers(40, 121))).astype(np.int32)
+        engine.submit(prompt, max_new_tokens=6)
+    for _ in range(64):
+        if all(r is not None and not r.prefilling and r.out_tokens for r in engine.slots):
+            break
+        engine.step()
+    seen = dict(steps=engine.steps,
+                slots_decoding=sum(r is not None and not r.prefilling for r in engine.slots),
+                cached_tokens=int(engine.lengths.sum()))
+    logits = _next_decode_logits(engine)
+    pool = {k: v.clone() for k, v in _whole_pool(engine).items()}
+    engine.run()
+    return logits, pool, seen
+
+
+def _mesh_logits_check(model, params, seed, mesh, want):
+    """`_lockstep_logits` on an engine over `mesh` against `want`, its run
+    on the 1 x 1 engine: the next decode step's logits torch.equal, and the
+    mesh's pool, its parts gathered, torch.equal to the 1 x 1 pool, at the
+    same step with every slot decoding."""
+    from repro_torch.launch.engine import EngineConfig, ServingEngine
+    engine = ServingEngine(model, params, EngineConfig(**SERVE_ECFG), mesh=mesh, device="cuda")
+    got, pool, seen = _lockstep_logits(engine, seed)
+    one, one_pool, one_seen = want
+    out = dict(logits_equal=bool(torch.equal(one, got)),
+               max_abs_diff=float((one.float() - got.float()).abs().max()),
+               pools_equal=all(torch.equal(one_pool[k], pool[k]) for k in one_pool), **seen)
+    if seen != one_seen or seen["slots_decoding"] != SERVE_ECFG["num_slots"]:
+        out["logits_equal"] = False        # the same step, with every slot decoding
+    return out
+
+
+def _shard_bits(gen) -> dict:
+    """Each kernel on a model rank's shard against the same part of its full
+    launch, at llama2-7b's shapes, bf16 activations, quantized transform:
+    B1 / B2 (`clustered_linear`) and B3 / B4 (`clustered_linear_multi`) at 8
+    and 256 rows on every column shard at 2 and 4 ranks; B5 at T 1 and 32
+    over bf16 and int8 pools on every kv-head shard at 2 and 4 ranks. All
+    must be torch.equal. Then two ops the mesh step keeps whole, informative:
+    the bf16 head at half the rows and half the columns."""
+    from repro_torch.core.api import ClusteredTensor
+    from repro_torch.core.lut import packed_rows
+    from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    dev = gen.device
+
+    def ct(k, n):
+        packed = torch.randint(0, 255, (packed_rows(k, 4), n), generator=gen,
+                               dtype=torch.uint8, device=dev)
+        cb = torch.sort(torch.randn((16,), generator=gen, device=dev) * 0.02).values
+        smooth = 0.5 + torch.rand((k,), generator=gen, device=dev)
+        return ClusteredTensor(codes=packed, codebook=cb, smooth=smooth, packed=packed,
+                               inv_scale=1.0 / (smooth * 0.04),
+                               act_scale=torch.tensor(0.04, device=dev), nbits=4)
+
+    def cut(w, r, parts):
+        n = w.codes.shape[-1] // parts
+        return w._replace(codes=w.codes[:, r * n:(r + 1) * n].contiguous(),
+                          packed=w.packed[:, r * n:(r + 1) * n].contiguous())
+
+    cases = []
+    with torch.no_grad():
+        for m in (8, 256):
+            for k, n in LLAMA_KN:
+                w = ct(k, n)
+                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                full = clustered_linear(x, w)
+                for parts in (2, 4):
+                    c = n // parts
+                    cases.append(dict(kernel="B1" if m < 128 else "B2", m=m, k=k, n=n,
+                                      ranks=parts, equal=all(torch.equal(
+                                          clustered_linear(x, cut(w, r, parts)),
+                                          full[:, r * c:(r + 1) * c]) for r in range(parts))))
+            for group, (k, widths) in list(MULTI_GROUPS.items())[:2]:
+                ws = [ct(k, n) for n in widths]
+                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                full = clustered_linear_multi(x, ws)
+                for parts in (2, 4):
+                    ok = True
+                    for r in range(parts):
+                        got = clustered_linear_multi(x, [cut(w, r, parts) for w in ws])
+                        ok &= all(torch.equal(g, f[:, r * (f.shape[1] // parts):
+                                                     (r + 1) * (f.shape[1] // parts)])
+                                  for g, f in zip(got, full))
+                    cases.append(dict(kernel="B3" if m < 128 else "B4", group=group, m=m,
+                                      ranks=parts, equal=bool(ok)))
+        for t in (1, 32):
+            for pool in ("bf16", "int8"):
+                args, kw, _ = _attn_case(gen, t, 32, 32, torch.bfloat16, pool, 0, 0.0)
+                full = paged_pool_attention(*args, **kw)
+                q, kp, vp, rest = args[0], args[1], args[2], args[3:]
+                for parts in (2, 4):
+                    h = 32 // parts
+                    ok = True
+                    for r in range(parts):
+                        sl = slice(r * h, (r + 1) * h)
+                        kw_r = {key: (v[..., sl].contiguous() if key in ("k_scale", "v_scale")
+                                      else v[sl].contiguous() if key in ("k_smooth", "v_smooth")
+                                      else v) for key, v in kw.items()}
+                        got = paged_pool_attention(q[:, :, sl].contiguous(),
+                                                   kp[:, :, sl].contiguous(),
+                                                   vp[:, :, sl].contiguous(), *rest, **kw_r)
+                        ok &= bool(torch.equal(got, full[:, :, sl]))
+                    cases.append(dict(kernel="B5", t=t, pool=pool, heads=32, ranks=parts,
+                                      equal=ok))
+        # the head, kept whole on every rank: its bits at half the rows / columns
+        x = torch.randn((8, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        head = (torch.randn((4096, 32768), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        full = x @ head
+        head_bits = dict(half_rows_same=bool(torch.equal(x[:4] @ head, full[:4])),
+                         half_columns_same=bool(torch.equal(
+                             x @ head[:, :16384].contiguous(), full[:, :16384])))
+    return dict(cases=cases, head_kept_whole=head_bits)
+
+
+def phase_serve_mesh(seed: int, params, tokens) -> dict:
+    """Serving on a (data, model) mesh of one card (`[cuda:0] x n`: every
+    rank's shard, gather and step runs for real; traffic between ranks is a
+    copy on the card). On the `serve` weights (llama2-7b, 32 layers, LCD
+    4-bit, quantized transform): B1-B5 on a rank's shard torch.equal to that
+    part of the full launch (`_shard_bits`); one decode step's logits and
+    the pool on (1, 2) and (2, 1) torch.equal to 1 x 1
+    (`_mesh_logits_check`); the `serve` drive (12 requests, 24 new tokens) on
+    (1, 2) and (2, 1) through `_serve`: `serve`'s tokens, engine = solo,
+    launch counts (every rank launches), every replay equal to its eager
+    body, step times beside a 1 x 1 engine's; the int8 pool at 4 layers on
+    (2, 2) with its own 1 x 1 engine's tokens, every replay equal to its
+    eager body; `choose_layout`'s report over [cuda:0] x 4. Returns the
+    mesh drives' launches."""
+    from repro_torch.distributed.layout import choose_layout
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import EngineConfig, ServingEngine, calibrate_kv_smooth
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    bits = _shard_bits(gen)
+    model = get_model(get_config("llama2-7b"))
+    fails = [c for c in bits["cases"] if not c["equal"]]
+    # the 1 x 1 engine's lockstep run captures both widths, as the mesh
+    # engines' drives do, before its step times
+    one = ServingEngine(model, params, EngineConfig(**SERVE_ECFG), device="cuda")
+    want = _lockstep_logits(one, seed)
+    step_ms = {"1x1": _step_ms(one, seed)}
+    del one
+    logits = {f"{d}x{m}": _mesh_logits_check(model, params, seed, _mesh_of((d, m)), want)
+              for d, m in MESH_SHAPES}
+    fails += [(k, v) for k, v in logits.items() if not (v["logits_equal"] and v["pools_equal"])]
+    counts, rows = {}, {}
+    for d, m in MESH_SHAPES:
+        key = f"{d}x{m}"
+        rows[key] = {}
+        c, _ = _serve(f"serve_mesh_{key}", "llama2-7b", seed, 32, 12, 24, None,
+                      solo_ids=(0, 11), params=params, want_tokens=tokens, want_name="serve",
+                      mesh=_mesh_of((d, m)), step_times=True, report=rows[key])
+        step_ms[key] = rows[key]["step_ms_8_slots_busy"]
+        for n, v in c.items():
+            counts[n] = counts.get(n, 0) + v
+    # the int8 pool on (2, 2) at 4 layers, against its own 1 x 1 engine
+    p4 = _first_layers(params, 4)
+    m4 = get_model(dataclasses.replace(get_config("llama2-7b"), n_layers=4))
+    smooth = calibrate_kv_smooth(m4, p4, seed=seed)
+    ecfg8 = EngineConfig(kv_dtype="int8", **SERVE_ECFG)
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, m4.cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
+               for _ in range(8)]
+    int8 = {}
+    for key, mesh in (("1x1", None), ("2x2", _mesh_of((2, 2)))):
+        e = ServingEngine(m4, p4, ecfg8, mesh=mesh, device="cuda", kv_smooth=smooth)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reqs = _drive(e, prompts, 24)
+        torch.cuda.synchronize()
+        int8[key] = [list(r.out_tokens) for r in reqs]
+        if mesh is not None:
+            for n, v in launch_counts().items():
+                counts[n] = counts.get(n, 0) + v
+            _graph_check("serve_mesh_int8_2x2", e, seed)
+        del e
+    int8_same = int8["2x2"] == int8["1x1"]
+    if not int8_same:
+        fails.append("int8 2x2 tokens differ from its 1x1 engine's")
+    _, report = choose_layout(model, params, EngineConfig(**SERVE_ECFG),
+                              devices=[torch.device("cuda", 0)] * 4)
+    decode = {k: v["decode_width_1"] for k, v in step_ms.items()}
+    emit("serve_mesh", arch="llama2-7b", layers=32, shard_bits=bits,
+         decode_step_logits=logits, int8_2x2_4_layers_tokens_equal_1x1=int8_same,
+         step_ms_8_slots_busy=step_ms,
+         decode_wall_ms_per_step={k: v["wall_ms_per_step"] for k, v in decode.items()},
+         decode_device_ms_per_replay={k: v["device_ms_per_replay"] for k, v in decode.items()},
+         launches=counts, layout_report_cuda0_x4=report)
+    if fails:
+        raise SystemExit(f"serve_mesh: {fails}")
+    missing = [n for n in MESH_PATH if not counts.get(n)]
+    if missing:
+        raise SystemExit(f"serve_mesh: {missing} never launched: {counts}")
+    return counts
+
+
+# the rest of the transformer family at full width: paligemma-3b at full
+# depth, gemma2-27b cut to 16 of its 46 layers (to make room for serve_mesh in
+# the run's time), starcoder2-15b and stablelm-12b cut to 4 layers
+FAMILY_DEPTHS = (("gemma2-27b", 16), ("paligemma-3b", 18), ("starcoder2-15b", 4),
                  ("stablelm-12b", 4))
 
 
@@ -2680,7 +2965,7 @@ def phase_profile(seed: int, params) -> None:
     # 13 prefill-width steps (416 / 32) and 47 decode steps at most per engine:
     # one warm-up step per width, then per configuration 4 turns of n_wall
     # steps and 2 profiled runs of n_prof + 1 steps
-    prompt_len, n_pre, n_dec = 416, (1, 2), (6, 6)
+    prompt_len, n_pre, n_dec = 416, (1, 2), (6, 3)
     engines = {}
     for fused in (True, False):
         engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
@@ -2968,6 +3253,19 @@ def phase_serve_spec(seed: int):
                          f"{counts} vs {expected}")
     # every replay of the three graphs against the eager bodies, verify rows included
     _graph_check("serve_spec", spec, seed)
+    del spec
+    # the same draft on a (1, 2) mesh of the card: plain greedy's tokens
+    on_mesh = ServingEngine(model, params, EngineConfig(speculative_k=k, **base),
+                            mesh=_mesh_of((1, 2)), draft_params=draft, device="cuda")
+    mesh_tokens = [list(r.out_tokens) for r in _drive(on_mesh, prompts, new_tokens)]
+    on_mesh.assert_bounded_traces()
+    same_on_mesh = mesh_tokens == tokens["plain"][0]
+    emit("serve_spec_mesh", mesh=on_mesh.mesh.shape, speculative_k=k,
+         tokens_equal_plain=same_on_mesh, acceptance_summary=on_mesh.acceptance_summary())
+    if not same_on_mesh:
+        raise SystemExit("serve_spec: on the (1, 2) mesh the speculative engine's tokens "
+                         "differ from plain greedy's")
+    _graph_check("serve_spec_mesh_1x2", on_mesh, seed)
     return counts
 
 
@@ -3398,7 +3696,7 @@ STUDENT_TOL_MAX, STUDENT_TOL_MEAN = 1e-3, 1e-4
 FISHER_PATH, FISHER_TOL = "['blocks']['attn']['wq']", 1e-4
 # the codebook fine-tune (examples/distill_llm.py ft_step): KD steps of the
 # student against the teacher, at the example's OptConfig
-FT_STEPS = 10
+FT_STEPS = 6
 # the kernels of the projection's backward (they replace no TPU kernel)
 BACKWARD_KERNELS = ("lut_matmul_t", "lut_codebook_grad")
 # each backward kernel against its plain version's autograd on the card, to
@@ -4152,12 +4450,12 @@ def _serve_spec_moe(arch, seed, params, n_layers=2, k=SPEC_K, new_tokens=16):
     return counts
 
 
-# the MoE family at full width: phi3.5-moe cut to 16 of its 32 layers (with the
-# audio phases the whole script passed 820 s: the cut the script's time limit
-# asks for first), llama4-scout cut to 4 (its 48 would need ~54 GB of packed
+# the MoE family at full width: phi3.5-moe cut to 8 of its 32 layers (32 -> 16
+# when the audio phases came, 16 -> 8 for serve_mesh: the cut the script's
+# time limit asks for first), llama4-scout cut to 4 (its 48 would need ~54 GB of packed
 # experts; at 8 layers the script ran 771 s, run 24b, and a decode step
 # resolves 2 B expert weights a layer)
-MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 16), ("llama4-scout-17b-a16e", 4))
+MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 8), ("llama4-scout-17b-a16e", 4))
 
 
 def phase_serve_moe(seed: int) -> dict:
@@ -4165,7 +4463,7 @@ def phase_serve_moe(seed: int) -> dict:
     with the stacked experts clustered too (`materialize_clustered`) and the
     quantized transform armed, fused projections, the `serve` engine's
     geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b cut
-    to 16 layers and llama4-scout-17b-a16e to 4 (`MOE_DEPTHS`), at full width. Launch
+    to 8 layers and llama4-scout-17b-a16e to 4 (`MOE_DEPTHS`), at full width. Launch
     counts per model step (an MoE layer's LUT launches are its attention's),
     bounded shapes, every replay equal to its eager body in tokens and pools
     (`_graph_check`), tokens/s, and the step times with 8 slots busy and
@@ -4891,7 +5189,7 @@ def phase_serve_audio(seed: int) -> dict:
     return counts
 
 
-ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
+ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve", "serve_mesh",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
@@ -4899,8 +5197,8 @@ ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve",
               "serve_audio", "train")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
-ON_SERVE_WEIGHTS = {"serve", "serve_unfused", "serve_static", "profile", "serve_prefix",
-                    "serve_prefix_spec", "serve_prefix_int8", "serve_sched"}
+ON_SERVE_WEIGHTS = {"serve", "serve_mesh", "serve_unfused", "serve_static", "profile",
+                    "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched"}
 
 
 def main() -> int:
@@ -4948,6 +5246,14 @@ def main() -> int:
     if "serve" in phases:
         counts, tokens = timed("serve", _serve, "serve", "llama2-7b", args.seed, 32, 12, 24,
                                None, solo_ids=(0, 11), params=params)
+    # the same weights and drive on (data, model) meshes of the card, counted on their own
+    mesh_counts = {}
+    if "serve_mesh" in phases:
+        if tokens is None:
+            print("chip_smoke: serve_mesh holds the mesh engines to serve's tokens; run "
+                  "serve too", file=sys.stderr)
+            return 1
+        mesh_counts = timed("serve_mesh", phase_serve_mesh, args.seed, params, tokens)
     if "serve_unfused" in phases:
         # the same prompts through per-projection launches: the same tokens
         timed("serve_unfused", _serve, "serve_unfused", "llama2-7b", args.seed, 32, 12, 24,
@@ -5074,6 +5380,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst,
             # the speculative engine's run (serve_spec), counted on its own
             "launches_serve_spec": spec_counts.get(name, 0),
+            # the serve drive on (1, 2) and (2, 1) meshes of the card and the
+            # int8 pool on (2, 2): every rank's launches
+            "launches_serve_mesh": mesh_counts.get(name, 0),
             # the rest of the family: its full-depth drives and its speculative ones
             "launches_serve_family": family_counts.get(name, 0),
             "launches_serve_spec_family": family_spec_counts.get(name, 0),
@@ -5119,6 +5428,10 @@ def main() -> int:
     complete = set(phases) >= set(ALL_PHASES)
     if complete and not all(k["launches"] > 0 and k["ms"] for k in kernels):
         print("chip_smoke: a kernel of the main path was never launched", file=sys.stderr)
+        return 1
+    if complete and not all(k["launches_serve_mesh"] > 0 for k in kernels
+                            if k["name"] in MESH_PATH):
+        print("chip_smoke: a kernel of the mesh path was never launched", file=sys.stderr)
         return 1
     if complete and not all(k["launches_train"] > 0 for k in kernels
                             if k["name"] in TRAIN_PATH_KERNELS):

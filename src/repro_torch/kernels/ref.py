@@ -13,6 +13,8 @@ import torch
 from repro_torch.core.lut import lut_matmul_dequant_ref, unpack_codes
 
 KC = 16
+# the fewest rows the plain LUT GEMM computes at once (`lut_matmul_fused_ref`)
+MIN_ROWS = 16
 
 
 def lut_matmul_f32_ref(x: torch.Tensor, packed_codes: torch.Tensor,
@@ -47,14 +49,24 @@ def lut_matmul_fused_ref(
 ) -> torch.Tensor:
     """The fused serving GEMM: Eq. 11 transform (symmetric clip, |q| <= 127)
     composed with the gather-dequant contraction. `torch.round` rounds half
-    to even, as the kernels' `rintf` does."""
+    to even, as the kernels' `rintf` does.
+
+    On the CPU fewer than MIN_ROWS rows of x are computed inside MIN_ROWS
+    (zero rows added, sliced away after): the CPU's GEMM sums a row in
+    another order at 2 or 4 rows than at 16 and more, and a row's bits must
+    not depend on how many rows share the call (the kernels' row contract),
+    nor a column's on how many columns do (a mesh's column shard). The card
+    computes the rows it is given."""
     k = x.shape[-1]
+    m = x.shape[0]
+    if x.device.type == "cpu" and 0 < m < MIN_ROWS:
+        x = torch.cat([x, x.new_zeros((MIN_ROWS - m,) + tuple(x.shape[1:]))])
     codes = unpack_codes(packed_codes, k, nbits)
     xs = x.to(torch.float32) * inv_scale
     if not quantize:
-        return xs @ codebook[codes.long()]
+        return (xs @ codebook[codes.long()])[:m]
     q = torch.clamp(torch.round(xs), -127, 127).to(torch.int8)
-    return lut_matmul_dequant_ref(q, codes, codebook, act_scale)
+    return lut_matmul_dequant_ref(q, codes, codebook, act_scale)[:m]
 
 
 def lut_matmul_fused_multi_ref(
@@ -119,7 +131,28 @@ def smooth_quant_ref(x: torch.Tensor, inv_scale: torch.Tensor,
 
 def _masked_paged_softmax(q, k, v, lengths, n_new, window: int, softcap: float):
     """Masked softmax attention over per-slot ragged logical KV views:
-    q (S,T,H,D) float; k/v (S,L,KV,D) float. `window` is a Python int."""
+    q (S,T,H,D) float; k/v (S,L,KV,D) float. `window` is a Python int.
+
+    One batched call over every slot and kv-head (`_batched_softmax`). On
+    the CPU the g·T query rows of each (slot, kv-head) are first padded with
+    zero queries to at least MIN_ROWS (sliced away after): the CPU's batched
+    GEMM and vectorised exp give a row other bits at fewer rows, and a row's
+    bits must not depend on how many window positions share the call (a
+    verify's window, a mesh's kv-head shards). The card computes the rows it
+    is given."""
+    if q.device.type != "cpu":
+        return _batched_softmax(q, k, v, lengths, n_new, window, softcap)
+    t, g = q.shape[1], q.shape[2] // k.shape[2]
+    if g * t < MIN_ROWS:
+        q = torch.cat([q, q.new_zeros((q.shape[0], -(-MIN_ROWS // g) - t) + tuple(q.shape[2:]))],
+                      dim=1)
+    out = _batched_softmax(q, k, v, lengths, n_new, window, softcap)
+    return out[:, :t].contiguous()
+
+
+def _batched_softmax(q, k, v, lengths, n_new, window: int, softcap: float):
+    """`_masked_paged_softmax` as one batched call over every slot and
+    kv-head, on the rows it is given."""
     s_slots, t, h, d = q.shape
     l, kv = k.shape[1], k.shape[2]
     g = h // kv

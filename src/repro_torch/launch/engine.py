@@ -103,8 +103,20 @@ With `lcd=True` both paths serve LCD-compressed weights: dense weights (drawn
 from `seed`, or passed in) go through `compress_model` (core/api.py) on their
 device first, at `weight_bits` or under a `bits_budget`, as in the reference.
 
-Not ported yet, and refused with NotImplementedError naming the knob: serving
-meshes.
+Serving meshes, as in the reference: `ServingEngine(mesh=)` (or the
+`EngineConfig.data_parallel` / `model_parallel` knobs through `build_engine`,
+which otherwise picks the roofline-cheapest layout over a device list the
+caller passes, `distributed/layout.py choose_layout`) places the params, the
+draft's and both pools on a (data, model) `launch/mesh.py Mesh` (`_place_sharded`):
+LUT codes cut by the projections' columns, the pools by kv heads, the slots
+by data rank. One process drives every rank: each data rank runs its slots,
+each model rank its shards through B1-B5, the parts combine in rank order
+(`models/transformer.py _mesh_step`), and the tokens and every step's logits
+are the bits of the one-device engine. The mesh's devices must repeat
+(`[cuda:0] x n`, built only when asked for); on it the whole mesh step is one
+CUDA graph per step shape. A mesh of distinct cards raises
+NotImplementedError: it waits for a multi-process torch.distributed backend. The dense and vlm families serve on a mesh; the others
+raise NotImplementedError naming the family.
 """
 from __future__ import annotations
 
@@ -122,7 +134,10 @@ import torch
 from repro_torch.core.api import CT_ARRAY_FIELDS, compress_model, is_clustered
 from repro_torch.core.clustered_params import make_draft_params
 from repro_torch.core.lut import SUPPORTED_NBITS
+from repro_torch.distributed.placement import MeshTree, place
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.kernels.ops import add_launches, capture_launches
+from repro_torch.launch.mesh import make_mesh, require_one_device, visible_devices
 from repro_torch.models.config import get_config, reduced
 from repro_torch.models.registry import (CAP_ENCODER, CAP_INT8_KV, CAP_PAGED,
                                          CAP_PREFIX_CACHE, CAP_SLOT_STATE,
@@ -591,7 +606,10 @@ class EngineConfig:
     # validated EAGERLY against the arch's family capabilities at config
     # construction.
     arch: Optional[str] = None
-    # requested (data, model) axis sizes of a serving mesh. None = one device.
+    # requested (data, model) axis sizes of the serving mesh. None = let
+    # build_engine pick (the roofline layout search on multi-device hosts,
+    # one device otherwise). A knob that disagrees with the mesh an engine
+    # is constructed on fails at engine init with both values named.
     data_parallel: Optional[int] = None
     model_parallel: Optional[int] = None
 
@@ -665,15 +683,18 @@ class EngineConfig:
         return self.max_blocks_per_slot * self.block_size
 
 
-def _refuse_unported(ecfg: EngineConfig) -> None:
-    """NotImplementedError, naming the knob, for everything the reference
-    engine serves and this one does not yet: a serving mesh."""
-    for knob in ("data_parallel", "model_parallel"):
-        v = getattr(ecfg, knob)
-        if v not in (None, 1):
-            raise NotImplementedError(
-                f"EngineConfig.{knob}={v}: serving on a mesh is not ported yet; "
-                f"the engine runs on one device")
+# the families whose serving step runs on a mesh
+MESH_FAMILIES = ("dense", "vlm")
+
+
+def _refuse_mesh_family(model: Model, mesh, ecfg: EngineConfig) -> None:
+    """NotImplementedError, naming the family, for a family the port does
+    not serve on a mesh yet, on any mesh but 1 x 1 (or knobs asking for one)."""
+    knobs = [v for v in (ecfg.data_parallel, ecfg.model_parallel) if v not in (None, 1)]
+    if model.cfg.family not in MESH_FAMILIES and (mesh.size > 1 or knobs):
+        raise NotImplementedError(
+            f"family '{model.cfg.family}' ({model.cfg.arch_id}) does not serve on a mesh "
+            f"yet (mesh {mesh.shape}); the families that do: {', '.join(MESH_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -689,12 +710,15 @@ class ServingEngine:
     freed, immediately reusable by the queue).
 
         engine = ServingEngine(model, params, EngineConfig(...), device="cuda")
+        engine = ServingEngine(model, params, ecfg, mesh=make_mesh(
+            (1, 2), ("data", "model"), ["cuda:0"] * 2))   # two model ranks
         engine.submit(prompt, max_new_tokens=32)
         finished = engine.run()          # drive until queue + slots drain
         engine.assert_bounded_traces()   # bounded set of step shapes
 
-    `params` and the KV pools live on `device`; the pools are updated in
-    place by every step.
+    `params` and the KV pools live on `device` (on a mesh, placed on its
+    devices and `device` ignored); the pools are updated in place by every
+    step.
 
     Speculative mode (ecfg.speculative_k > 0) also takes the 2-bit draft
     clustering as `draft_params` (core/clustered_params.py
@@ -707,11 +731,28 @@ class ServingEngine:
                  mesh=None, clock=time.perf_counter, draft_params=None,
                  kv_smooth=None, device="cuda"):
         ecfg = EngineConfig() if ecfg is None else ecfg
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...): serving on a mesh is not ported yet; "
-                "the engine runs on one device")
-        _refuse_unported(ecfg)
+        if mesh is None:
+            self.device = resolve_device(device)
+            mesh = make_mesh((1, 1), ("data", "model"), [self.device])
+        else:
+            if tuple(mesh.axis_names) != ("data", "model"):
+                raise NotImplementedError(
+                    f"ServingEngine: the serving mesh's axes must be ('data', 'model'); "
+                    f"got {mesh.axis_names}")
+            require_one_device(mesh, "ServingEngine")
+            self.device = mesh.lead_device
+        self.mesh = mesh
+        _refuse_mesh_family(model, mesh, ecfg)
+        # mesh-knob agreement: a config that requested axis sizes must match
+        # the mesh this engine actually serves on
+        axes = dict(self.mesh.shape)
+        for knob, axis in (("data_parallel", "data"), ("model_parallel", "model")):
+            want = getattr(ecfg, knob)
+            if want is not None and want != axes.get(axis, 1):
+                raise ValueError(
+                    f"EngineConfig.{knob}={want} does not match the engine "
+                    f"mesh's '{axis}' axis ({axes.get(axis, 1)}); mesh shape "
+                    f"is {axes}")
         caps = model.capabilities
         if CAP_PAGED not in caps and CAP_SLOT_STATE not in caps:
             raise ValueError(
@@ -730,7 +771,6 @@ class ServingEngine:
                     "speculative decoding needs draft_params (see "
                     "core/clustered_params.py make_draft_params)")
         self.draft_params = draft_params
-        self.device = resolve_device(device)
         # the RESOLVED pool dtype: an explicit knob wins, else follow the
         # model config
         if CAP_INT8_KV in caps:
@@ -824,9 +864,39 @@ class ServingEngine:
         self.spec_rounds = 0
         # the CompressReport of the draft, when build_engine made it
         self.draft_report = None
-        # on the card the model step is captured per width, after the pools
-        # above are final; the CPU runs it eagerly
+        # the layout search's report, when build_engine chose the mesh
+        self.layout_report = None
+        self._place_sharded()
+        # on the card the model step (the whole mesh step) is captured per
+        # width, after the pools above are final; the CPU runs it eagerly
         self._graphs = _StepGraphs() if self.device.type == "cuda" else None
+
+    def _place_sharded(self) -> None:
+        """Place the params, the draft's and both pools on the mesh (a 1 x 1
+        mesh keeps them as they are). Weights by the serving names
+        (`distributed/layout.py serving_names`: ClusteredTensor codes cut by
+        the projections' output columns, smoothing vectors like the input
+        dims, codebooks and the vocab tables whole); pools by the family's
+        cache names (kv heads on the model axis: each rank holds its
+        kv-head shard of EVERY block, so block tables stay valid
+        everywhere)."""
+        if self.mesh.size == 1:
+            return
+        from repro_torch.distributed.layout import (SERVE_RULES, cache_shardings,
+                                                    serving_names)
+        from repro_torch.distributed.sharding import auto_shard
+        with use_rules(self.mesh, SERVE_RULES, fsdp=False):
+            names = serving_names(self.model)
+            self.params = place(self.params, auto_shard(self.params, names), self.mesh)
+            if self.draft_params is not None:
+                self.draft_params = place(self.draft_params,
+                                          auto_shard(self.draft_params, names), self.mesh)
+            for attr in ("caches", "draft_caches"):
+                caches = getattr(self, attr)
+                if caches is not None:
+                    shard = cache_shardings(self.model, caches)
+                    setattr(self, attr, {kind: place(c, shard[kind], self.mesh, writable=True)
+                                         for kind, c in caches.items()})
 
     @property
     def draft_cache(self):
@@ -1498,8 +1568,11 @@ class ServingEngine:
                 continue
             pool = caches["paged"]
             for name in ("k", "v", "k_scale", "v_scale"):
-                if name in pool:
-                    pool[name][:, dst].copy_(pool[name][:, src])
+                if name not in pool:
+                    continue
+                held = pool.named_tensors(name) if isinstance(pool, MeshTree) else [pool[name]]
+                for t in held:              # every rank's part, every copy of it
+                    t[:, dst].copy_(t[:, src])
         self.traces["cow"] = self.traces.get("cow", 0) + 1
 
     def _pick_next(self) -> Optional[Request]:
@@ -1603,7 +1676,9 @@ class ServingEngine:
 
 def _tensors_in(tree) -> List[torch.Tensor]:
     """Every tensor of a parameter or cache tree, a ClusteredTensor's fields
-    included, in a fixed order."""
+    included (a mesh's: every distinct tensor), in a fixed order."""
+    if isinstance(tree, MeshTree):
+        return tree.tensors()
     if is_clustered(tree):
         return [t for f in CT_ARRAY_FIELDS for t in _tensors_in(getattr(tree, f))]
     if isinstance(tree, dict):
@@ -1815,7 +1890,9 @@ def _has_clustered(tree) -> bool:
 
 def _tree_bytes(tree) -> int:
     """Bytes of every tensor in a parameter tree (a ClusteredTensor's fields
-    included)."""
+    included; on a mesh, of every distinct tensor it holds)."""
+    if isinstance(tree, MeshTree):
+        return sum(t.numel() * t.element_size() for t in tree.tensors())
     if is_clustered(tree):
         return sum(_tree_bytes(getattr(tree, f)) for f in CT_ARRAY_FIELDS)
     if isinstance(tree, dict):
@@ -1829,10 +1906,22 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
                  target_centroids: int = 8, ecfg: Optional[EngineConfig] = None,
                  seed: int = 0, params=None, draft_params=None, kv_smooth=None,
                  fused_projections: bool = True, n_layers: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None, devices=None):
     """(engine, params): model + params wrapped in a ready ServingEngine on
     `device` ("cuda" unless the caller asks for the CPU; asking for a card
     that is not there raises).
+
+    Mesh selection, as the reference's: `mesh=` serves on that mesh;
+    otherwise `ecfg.data_parallel` / `ecfg.model_parallel` pin a (data,
+    model) mesh over the visible devices (`devices`, default every CUDA
+    card for "cuda", the one CPU for "cpu"; the missing factor is derived, a
+    non-factoring request raises). With neither, a `devices` list the caller
+    passes gets the roofline layout search (`distributed/layout.py
+    choose_layout`, its report on the engine as `layout_report`); otherwise
+    the engine serves on `device` alone, however many cards are visible. A
+    mesh is served only where its devices repeat (`[cuda:0] x n`, built on
+    request); one over distinct cards raises NotImplementedError until a
+    multi-process backend exists.
 
     Without `params`, dense weights are drawn from `seed`. With `lcd=True` and
     no clustered leaf among the params, the dense weights are LCD-compressed
@@ -1847,13 +1936,12 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
     `kv_smooth`, the cache smoothing vectors are calibrated here
     (`calibrate_kv_smooth`). `n_layers` cuts the model's depth, an
     encoder-decoder's both stacks (widths stay)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.lead_device
     ecfg = EngineConfig() if ecfg is None else ecfg
     if ecfg.arch is None:
         # bind the config to the arch so capability-dependent knobs fail
         # eagerly with the capability named
         ecfg = dataclasses.replace(ecfg, arch=arch)
-    _refuse_unported(ecfg)
     model, params, report = _model_and_params(
         arch, use_reduced=use_reduced, n_layers=n_layers,
         fused_projections=fused_projections, lcd=lcd,
@@ -1871,8 +1959,31 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
         kv_smooth = calibrate_kv_smooth(model, params, seed=seed)
         logger.info("int8 KV cache: smoothing calibrated "
                     "(Eq. 9 candidate search per layer x kv-head)")
-    engine = ServingEngine(model, params, ecfg, draft_params=draft_params,
+    layout_report = None
+    if mesh is None:
+        devs = list(devices) if devices is not None else (
+            visible_devices() if dev.type == "cuda" else [dev])
+        n = len(devs)
+        dp, mp = ecfg.data_parallel, ecfg.model_parallel
+        if dp is not None or mp is not None:
+            # derive the unpinned factor from the visible device count
+            if dp is None:
+                dp = n // mp if mp and n % mp == 0 else 0
+            if mp is None:
+                mp = n // dp if dp and n % dp == 0 else 0
+            if dp < 1 or mp < 1 or dp * mp != n:
+                raise ValueError(
+                    f"build_engine: data_parallel x model_parallel must "
+                    f"factor the {n} visible device(s); got "
+                    f"{ecfg.data_parallel} x {ecfg.model_parallel}")
+            mesh = make_mesh((dp, mp), ("data", "model"), devs)
+        elif devices is not None and n > 1 and model.cfg.family in MESH_FAMILIES:
+            from repro_torch.distributed.layout import choose_layout
+            mesh, layout_report = choose_layout(model, params, ecfg, devices=devs)
+            logger.info(f"mesh layout: chose {layout_report['chosen']} over {n} device(s)")
+    engine = ServingEngine(model, params, ecfg, mesh=mesh, draft_params=draft_params,
                            kv_smooth=kv_smooth, device=dev)
     engine.compress_report = report
     engine.draft_report = draft_report
+    engine.layout_report = layout_report
     return engine, params

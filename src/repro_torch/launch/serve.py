@@ -58,11 +58,13 @@ from __future__ import annotations
 
 import argparse
 import time
+import types
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.placement import MeshTree
 from repro_torch.launch.engine import (BlockAllocator, EngineConfig, Request,
                                        ServingEngine, build_decode_fns,
                                        build_engine, serve)
@@ -90,6 +92,19 @@ def _describe(engine) -> None:
     cluster), the KV pool dtype, and the bytes of the paged pools (the
     draft's included) beside those of the per-slot recurrent state."""
     from repro_torch.core.clustered_params import packed_weight_bytes
+    logger.info(f"serving mesh: {engine.mesh}")
+    if engine.mesh.size > 1:
+        # every rank holds the same bytes; report what model rank 0 holds
+        logger.info("describe: the bytes below are one rank's (model rank 0)")
+
+        def rank0(tree):
+            return tree.rank_tree(0) if isinstance(tree, MeshTree) else tree
+        engine = types.SimpleNamespace(**{
+            **vars(engine), "params": rank0(engine.params),
+            "draft_params": rank0(engine.draft_params),
+            "caches": {k: rank0(v) for k, v in engine.caches.items()},
+            "draft_caches": None if engine.draft_caches is None else {
+                k: rank0(v) for k, v in engine.draft_caches.items()}})
     if engine.compress_report is None:
         logger.info("describe: params are not LCD-compressed (run with --lcd)")
     else:
@@ -128,7 +143,8 @@ def _run_continuous(args, device) -> list:
                         bits_budget=args.bits_budget, prefix_cache=args.prefix_cache,
                         chunked_prefill=args.chunked_prefill,
                         scheduler="priority" if args.priority else "fcfs",
-                        arch=args.arch)
+                        arch=args.arch, data_parallel=args.data_parallel,
+                        model_parallel=args.model_parallel)
     engine, _ = build_engine(args.arch, use_reduced=args.reduced, lcd=args.lcd,
                              target_centroids=args.centroids, ecfg=ecfg,
                              seed=args.seed, fused_projections=args.fused_projections,
@@ -252,6 +268,16 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
                          "place of FCFS; the demo tags requests with "
                          "alternating tenants and priorities (continuous "
                          "mode only)")
+    ap.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                    help="pin the serving mesh's data axis; the model axis is "
+                         "derived from the visible device count. Default: the "
+                         "roofline layout search on multi-device hosts "
+                         "(continuous mode only)")
+    ap.add_argument("--model-parallel", type=int, default=None, metavar="N",
+                    help="pin the serving mesh's model (tensor-parallel) "
+                         "axis; ClusteredTensor codes/scales and the paged "
+                         "pool's kv heads shard across it (continuous mode "
+                         "only)")
     ap.add_argument("--no-fused-projections", dest="fused_projections",
                     action="store_false",
                     help="serve same-input projection groups (QKV; gate+up) "
@@ -273,6 +299,8 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
         ap.error("--describe inspects the paged engine; add --continuous")
     for flag, name in ((args.prefix_cache, "--prefix-cache"),
                        (args.chunked_prefill, "--chunked-prefill"),
+                       (args.data_parallel is not None, "--data-parallel"),
+                       (args.model_parallel is not None, "--model-parallel"),
                        (args.priority, "--priority")):
         if flag and not args.continuous:
             ap.error(f"{name} applies to the paged engine; add --continuous")

@@ -1,21 +1,26 @@
-"""Step functions: train and prefill — the port of the JAX package's
+"""Step functions: train, prefill and serve — the port of the JAX package's
 `launch/steps.py`.
 
-The reference's builders return a `StepBundle` (the function, its shardings
-and abstract inputs for `jax.jit(...).lower(...)`). The port runs on one
-device with no mesh, so its builders return the step function alone;
-shardings and abstract inputs come with distribution (ROADMAP A7). The
-reference's `build_serve_step` has its counterpart in
-`launch/engine.py build_decode_fns`. `build_distill_step` is the port of
-the codebook fine-tune's step, `ft_step` of `examples/distill_llm.py`.
+`build_serve_step` and `build_prefill_step` return a `StepBundle`, as the
+reference's do: the step function, its placements (`distributed/sharding.py`
+specs from the model's logical names under the installed `use_rules`
+context) and its abstract inputs, tensors on the "meta" device. The bundle
+calls its function. `build_train_step` returns the step function alone: the
+trainer runs on one device (training on a mesh waits, ROADMAP A7).
+`build_distill_step` is the port of the codebook fine-tune's step, `ft_step`
+of `examples/distill_llm.py`.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (auto_shard, named_sharding, parse_names,
+                                              tree_shardings)
+from repro_torch.models.config import ShapeConfig, input_specs
 from repro_torch.models.registry import Model, lm_loss
 from repro_torch.optim.compress import apply_ef
 from repro_torch.optim.optimizer import OptConfig, adam_update
@@ -58,8 +63,8 @@ def build_train_step(
     f32 gradients of the splits are summed and divided by their count, as
     the reference's scan does. With `grad_compress` the gradients pass
     through the int8 error-feedback round trip (`optim/compress.py
-    apply_ef`) before the update. Returns only the step function: the
-    reference's shardings and abstract inputs belong to a mesh (ROADMAP A7)."""
+    apply_ef`) before the update. Returns only the step function: training
+    on a mesh waits (ROADMAP A7)."""
     cfg = model.cfg
 
     def grads_of(params, batch):
@@ -130,15 +135,80 @@ def build_distill_step(model: Model, teacher, opt_cfg: OptConfig) -> Callable:
     return distill_step
 
 
-def build_prefill_step(model: Model) -> Callable:
+BATCH_NAMES = {
+    "tokens": "batch,.",
+    "targets": "batch,.",
+    "loss_mask": "batch,.",
+    "pos": "",
+    "img_embeds": "batch,.,.",
+    "frames": "batch,.,.",
+}
+
+
+def batch_shardings(batch_specs: Dict[str, torch.Tensor], sr=None):
+    return {k: named_sharding(tuple(v.shape), parse_names(BATCH_NAMES[k]), sr)
+            for k, v in batch_specs.items()}
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """A step function with its placements and abstract inputs (tensors on
+    the "meta" device); calling the bundle calls the function."""
+    fn: Callable
+    in_shardings: Tuple
+    out_shardings: Any
+    abstract_inputs: Tuple
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+def build_prefill_step(model: Model, shape: ShapeConfig) -> StepBundle:
     """`prefill_step(params, batch) -> (B, padded_vocab)`: the full-sequence
     forward under `torch.no_grad()`, returning only the last position's
-    logits (the next-token distribution). Returns only the step function
-    (see `build_train_step`)."""
+    logits (the next-token distribution). Placements of the params, the
+    batch and the logits under the installed rules; abstract params and
+    batch."""
+    cfg = model.cfg
 
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         logits, _ = model.apply(params, batch)
         return logits[:, -1, :]
 
-    return prefill_step
+    aparams = model.abstract()
+    ps = tree_shardings(aparams, model.names())
+    abatch = input_specs(cfg, shape)
+    out_sh = named_sharding((shape.global_batch, cfg.padded_vocab), ("batch", "vocab"))
+    return StepBundle(prefill_step, (ps, batch_shardings(abatch)), out_sh, (aparams, abatch))
+
+
+def build_serve_step(model: Model, shape: ShapeConfig, *, clustered_params=None,
+                     clustered_names=None) -> StepBundle:
+    """The static path's decode step, `serve_step(params, cache, batch) ->
+    (next_tok (B,) int32, cache)` (the cache updated in place). With
+    `clustered_params` / `clustered_names` (LCD serving) the parameter tree
+    is the ClusteredTensor one, the packed codes streamed in place of dense
+    weights. Placements under the installed rules; abstract params, cache
+    (`model.init_cache` on "meta") and batch."""
+    cfg = model.cfg
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        logits, cache = model.decode(params, cache, batch)
+        return torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32), cache
+
+    aparams = clustered_params if clustered_params is not None else model.abstract()
+    names = clustered_names if clustered_names is not None else model.names()
+    ps = (tree_shardings(aparams, names) if clustered_params is None
+          else auto_shard(aparams, names))
+    acache = model.init_cache(shape.global_batch, shape.seq_len, device="meta")
+    cache_names = model.cache_names
+    cache_sh = {k: named_sharding(tuple(v.shape), parse_names(cache_names[k])
+                                  if k in cache_names else (None,) * v.ndim)
+                for k, v in acache.items()}
+    abatch = input_specs(cfg, shape)
+    tok_sh = named_sharding((shape.global_batch,), ("batch",))
+    return StepBundle(serve_step, (ps, cache_sh, batch_shardings(abatch)), (tok_sh, cache_sh),
+                      (aparams, acache, abatch))
+

@@ -14,8 +14,9 @@ runs on the card; add `--device cpu` for a rehearsal on the CPU.
   * optional int8 gradient compression (error feedback);
   * optional microbatch accumulation.
 
-One device, no mesh: the reference's host mesh and sharding rules come with
-distribution (ROADMAP A7).
+One device: the port's meshes serve (`launch/engine.py ServingEngine(mesh=)`);
+training on a mesh, with the reference's FSDP `embed` rule and its elastic
+restarts, is still to come (ROADMAP A7).
 """
 from __future__ import annotations
 

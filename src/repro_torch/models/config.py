@@ -16,7 +16,7 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -165,6 +165,66 @@ class ModelConfig:
                 body += self.n_layers * attn
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return int(body + emb)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned set)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# archs with sub-quadratic sequence mixing: long_500k applies to these only
+SUBQUADRATIC = {"rwkv6-1.6b", "zamba2-1.2b", "gla-1.3b"}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a meaningful cell."""
+    if shape.name == "long_500k" and cfg.arch_id not in SUBQUADRATIC:
+        return False, "quadratic full attention at 512k decode — skipped per spec"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                per_host_batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of (arch, shape): tensors on the
+    "meta" device (shape and dtype, no storage; the JAX package's
+    ShapeDtypeStructs), keyed as the step's batch:
+      train   -> {"tokens", "targets", "loss_mask"}
+      prefill -> {"tokens"}
+      decode  -> {"tokens" (B, 1), "pos" ()}
+    plus "img_embeds" for the vlm family and "frames" for the audio family
+    (precomputed patch / frame embeddings)."""
+    b = per_host_batch or shape.global_batch
+    s = shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    i32 = torch.int32
+    if shape.kind == "train":
+        batch = {"tokens": meta((b, s), i32), "targets": meta((b, s), i32),
+                 "loss_mask": meta((b, s), torch.float32)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": meta((b, s), i32)}
+    else:  # decode: one new token against a seq_len-deep cache / state
+        batch = {"tokens": meta((b, 1), i32), "pos": meta((), i32)}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = meta((b, cfg.n_img_tokens, cfg.d_model), cfg.torch_dtype)
+    if cfg.family == "audio":
+        batch["frames"] = meta((b, cfg.enc_seq, cfg.d_model), cfg.torch_dtype)
+    return batch
 
 
 # ---------------------------------------------------------------------------

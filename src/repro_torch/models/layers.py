@@ -5,8 +5,15 @@ evaluation).
 
 Everything is functional: `fn(params_subtree, inputs, cfg, ...) -> outputs`,
 on plain tensors and nested dicts of tensors. Names and conventions are those
-of the JAX package's `models/layers.py`; its sharding annotations
-(`maybe_shard`) have no counterpart here, the port serves on one device.
+of the JAX package's `models/layers.py`.
+
+On a serving mesh (`launch/engine.py ServingEngine(mesh=)`) a weight or a
+pool cut over the model axis arrives as a `distributed/sharding.py Sharded`:
+`linear` / `linear_group` run each model rank's LUT projection on its column
+shard (B1-B4 on the card), `paged_attn_block` runs B5 on each rank's kv
+heads with the query heads of their groups, and the parts combine at the
+`maybe_shard` calls, where the JAX package places its sharding constraints.
+On one device every value is a tensor and those calls return it unchanged.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import _unpack_codes, is_clustered
+from repro_torch.distributed.sharding import Sharded, device_of, gather, maybe_shard
 from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
 from repro_torch.kernels.paged_attention import paged_pool_attention
 from repro_torch.models.config import ModelConfig
@@ -58,7 +66,10 @@ def resolve_weight(w, dtype) -> torch.Tensor:
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense projection. `w` may be a plain tensor or an LCD ClusteredTensor;
     clustered weights go through kernels.ops.clustered_linear (the fused
-    smooth+quant+LUT kernels on CUDA tensors)."""
+    smooth+quant+LUT kernels on CUDA tensors). A `Sharded` w (a serving
+    mesh) gives a `Sharded` result: `_sharded_linear`."""
+    if isinstance(w, Sharded):
+        return _sharded_linear(x, w, b)
     if is_clustered(w):
         y = clustered_linear(x, w)
     else:
@@ -76,6 +87,8 @@ def linear_group(x: torch.Tensor, ws, bs, cfg: ModelConfig) -> Tuple[torch.Tenso
     launch whose outputs are the same bits as per-projection calls, so the
     flag changes launch counts, never numerics. Otherwise — or with any dense
     weight in the group — each projection is an independent `linear` call."""
+    if any(isinstance(w, Sharded) for w in ws):
+        return _sharded_group(x, ws, bs, cfg)
     if (cfg.fused_projections and len(ws) > 1
             and all(is_clustered(w) for w in ws)):
         ys = clustered_linear_multi(x, ws)
@@ -83,6 +96,52 @@ def linear_group(x: torch.Tensor, ws, bs, cfg: ModelConfig) -> Tuple[torch.Tenso
         ys = tuple(linear(x, w) for w in ws)
     return tuple(y if b is None else y + b.to(y.dtype)
                  for y, b in zip(ys, bs))
+
+
+def _on(x, part):
+    """`x` on the device of a model rank's part (the same tensor where that
+    is x's device: a mesh whose devices repeat moves nothing)."""
+    return x.to(device_of(part))
+
+
+def _column_cut(w: Sharded) -> bool:
+    """Whether a per-layer (K, N) weight is cut on its output columns."""
+    return w.dim == 1
+
+
+def _sharded_linear(x: torch.Tensor, w: Sharded, b=None):
+    """`linear` over a weight cut on the model axis: each rank's product on
+    its column shard, a `Sharded` result cut on the last dim (the caller
+    gathers it at a `maybe_shard`). The canonical K order of the LUT kernels
+    makes every output column the same sum whatever N, so a column shard
+    gives those columns' bits of the whole launch. A bias cut like the
+    columns is added per rank; a whole one after the gather."""
+    if not _column_cut(w):
+        raise NotImplementedError(
+            f"linear: a weight cut on dim {w.dim} (along K) is row-parallel; the "
+            f"serving placement cuts every projection by its output columns "
+            f"(distributed/layout.py serving_names)")
+    ys = [linear(_on(x, p), p) for p in w.parts]
+    if b is None:
+        return Sharded(tuple(ys), ys[0].ndim - 1)
+    if isinstance(b, Sharded):
+        return Sharded(tuple(y + bb.to(y.dtype) for y, bb in zip(ys, b.parts)), ys[0].ndim - 1)
+    y = gather(ys, ys[0].ndim - 1)
+    return y + b.to(y.dtype)
+
+
+def _sharded_group(x: torch.Tensor, ws, bs, cfg: ModelConfig):
+    """`linear_group` over weights cut on the model axis: where every
+    weight is cut by its columns, each rank runs the group fused on its
+    shards (one B3 / B4 launch a rank), the outputs `Sharded`; otherwise
+    each projection alone."""
+    if all(isinstance(w, Sharded) and _column_cut(w) for w in ws) and all(
+            b is None or isinstance(b, Sharded) for b in bs):
+        per_rank = [linear_group(_on(x, parts[0]), parts,
+                                 [None if b is None else b.parts[m] for b in bs], cfg)
+                    for m, parts in enumerate(zip(*(w.parts for w in ws)))]
+        return tuple(Sharded(tuple(out), out[0].ndim - 1) for out in zip(*per_rank))
+    return tuple(linear(x, w, b) for w, b in zip(ws, bs))
 
 
 # PyTorch's CUDA reduction picks its thread-block shape from the number of rows
@@ -409,19 +468,60 @@ def paged_attn_block(
     int8 cache (kc.dtype == int8): appended K/V are smoothed and
     absmax-quantized per (token, kv-head) (`quantize_kv`), scales scatter into
     their own pools through the same block table, and the kernel dequantizes
-    on read."""
-    b, t, _ = x.shape
-    hd, nh, nkv = cfg.hd, cfg.n_heads_eff, cfg.n_kv_heads
-    bs = kc.shape[1]
-    int8_kv = kc.dtype == torch.int8
+    on read.
 
+    On a mesh the pools are `Sharded`: cut on kv heads, each model rank
+    attends over its own (`_attend` on its parts of q, k, v and the pool);
+    whole (kv heads the model axis does not divide), q, k and v are gathered
+    and attended once. The output is gathered for `wo`, whose output
+    columns are cut, and gathered again for the residual."""
     q, k, v = linear_group(
         x, (p["wq"], p["wk"], p["wv"]),
         (p.get("bq"), p.get("bk"), p.get("bv")), cfg)
-    q = q.reshape(b, t, nh, hd)
-    k = k.reshape(b, t, nkv, hd)
-    v = v.reshape(b, t, nkv, hd)
-    steps = torch.arange(t, dtype=lengths.dtype, device=x.device)
+    pool = dict(kc=kc, vc=vc, kc_scale=kc_scale, vc_scale=vc_scale, k_smooth=k_smooth,
+                v_smooth=v_smooth)
+    args = (cfg, int(layer_window), block_tables, lengths, n_new)
+    if not isinstance(kc, Sharded):
+        o = _attend(q, k, v, pool, *args)
+    elif kc.dim is None:
+        # kv heads the model axis does not divide: the pool is whole on every
+        # rank, and so are the heads that attend over it
+        q, k, v = (maybe_shard(a, "slots", None, None) for a in (q, k, v))
+        o = _attend(q, k, v, _pool_part(pool, 0), *args)
+    else:
+        # each model rank: B5 over its kv heads with the query heads of their
+        # groups (its columns of wq, wk and wv are exactly those heads)
+        if not all(isinstance(a, Sharded) for a in (q, k, v)):
+            raise ValueError("paged_attn_block: the pool is cut on kv heads but the "
+                             "QKV projections are not cut alike")
+        o = Sharded(tuple(_attend(q.parts[m], k.parts[m], v.parts[m], _pool_part(pool, m),
+                                  *args) for m in range(len(kc.parts))), 2)
+    o = maybe_shard(o, "slots", None, None)
+    return maybe_shard(linear(o, p["wo"]), "slots", None, "embed")
+
+
+def _pool_part(pool: Dict[str, Any], m: int) -> Dict[str, Any]:
+    """Model rank m's part of every pool tensor."""
+    return {name: None if t is None else t.parts[m] for name, t in pool.items()}
+
+
+def _attend(q, k, v, pool, cfg: ModelConfig, layer_window: int, block_tables,
+            lengths, n_new) -> torch.Tensor:
+    """The paged block's attention over one rank's heads: q (S, T, Hq·D),
+    k / v (S, T, Hkv·D) get RoPE, this step's K / V are scattered into
+    `pool` (the rank's part; the int8 pools quantized first) and B5 reads
+    it. Returns (S, T, Hq·D)."""
+    b, t, _ = q.shape
+    hd = cfg.hd
+    dev = q.device
+    block_tables, lengths, n_new = (a.to(dev) for a in (block_tables, lengths, n_new))
+    kc = pool["kc"]
+    bs = kc.shape[1]
+    q = q.reshape(b, t, -1, hd)
+    k = k.reshape(b, t, -1, hd)
+    v = v.reshape(b, t, -1, hd)
+    nkv = k.shape[2]
+    steps = torch.arange(t, dtype=lengths.dtype, device=dev)
     pos = lengths[:, None] + steps[None, :]                              # (S, T)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -433,22 +533,20 @@ def paged_attn_block(
     idx = (blk.long() * bs + (pos % bs).long()).reshape(-1)
     k = k.reshape(b * t, nkv, hd)
     v = v.reshape(b * t, nkv, hd)
-    if int8_kv:
-        kq8, ks8 = quantize_kv(k, k_smooth)
-        vq8, vs8 = quantize_kv(v, v_smooth)
-        _scatter_rows(kc, idx, kq8, valid)
-        _scatter_rows(vc, idx, vq8, valid)
-        _scatter_rows(kc_scale, idx, ks8, valid)
-        _scatter_rows(vc_scale, idx, vs8, valid)
+    if kc.dtype == torch.int8:
+        kq8, ks8 = quantize_kv(k, pool["k_smooth"])
+        vq8, vs8 = quantize_kv(v, pool["v_smooth"])
+        writes = (("kc", kq8), ("vc", vq8), ("kc_scale", ks8), ("vc_scale", vs8))
     else:
-        _scatter_rows(kc, idx, k.to(kc.dtype), valid)
-        _scatter_rows(vc, idx, v.to(vc.dtype), valid)
+        writes = (("kc", k.to(kc.dtype)), ("vc", v.to(kc.dtype)))
+    for name, vals in writes:
+        _scatter_rows(pool[name], idx, vals, valid)
 
     o = paged_pool_attention(
-        q.contiguous(), kc, vc, block_tables, lengths, n_new, int(layer_window),
-        k_scale=kc_scale, v_scale=vc_scale, k_smooth=k_smooth,
-        v_smooth=v_smooth, softcap=cfg.attn_softcap)
-    return linear(o.reshape(b, t, nh * hd), p["wo"])
+        q.contiguous(), kc, pool["vc"], block_tables, lengths, n_new, layer_window,
+        k_scale=pool["kc_scale"], v_scale=pool["vc_scale"], k_smooth=pool["k_smooth"],
+        v_smooth=pool["v_smooth"], softcap=cfg.attn_softcap)
+    return o.reshape(b, t, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -456,12 +554,21 @@ def paged_attn_block(
 # ---------------------------------------------------------------------------
 
 def mlp_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense MLP (SwiGLU or gelu). On a mesh each model rank runs its
+    columns of the up projections; they are gathered and the activation
+    runs on the whole hidden, as on one device (the CPU's vectorised silu /
+    gelu can give an element other bits in a tensor of another size), for
+    `w_down`, whose output columns are cut too and gathered again for the
+    residual."""
     if cfg.mlp == "swiglu":
         gate, up = linear_group(x, (p["w_gate"], p["w_up"]),
                                 (None, None), cfg)
-        return linear(F.silu(gate) * up, p["w_down"])
-    h = F.gelu(linear(x, p["w_up"], p.get("b_up")), approximate="tanh")
-    return linear(h, p["w_down"], p.get("b_down"))
+        h = F.silu(maybe_shard(gate, "batch", None, None)) * maybe_shard(
+            up, "batch", None, None)
+    else:
+        h = F.gelu(maybe_shard(linear(x, p["w_up"], p.get("b_up")), "batch", None, None),
+                   approximate="tanh")
+    return maybe_shard(linear(h, p["w_down"], p.get("b_down")), "batch", None, "embed")
 
 
 # ---------------------------------------------------------------------------

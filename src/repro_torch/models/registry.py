@@ -128,6 +128,21 @@ class Model:
         return PT.init_params(generator, self.table, self.cfg.torch_dtype,
                               device)
 
+    def abstract(self):
+        """The parameter tree as tensors on the "meta" device: shapes and
+        dtypes, no storage (the JAX package's ShapeDtypeStruct tree)."""
+        return PT.map_table(self.table, lambda _, d: torch.empty(
+            d.shape, dtype=PT.decl_dtype(d, self.cfg.torch_dtype), device="meta"))
+
+    def names(self):
+        """The tree of comma-joined logical dim names, one per parameter."""
+        return PT.map_table(self.table, lambda _, d: d.names)
+
+    @property
+    def cache_names(self) -> Dict[str, str]:
+        """Logical dim names of the static path's cache (`init_cache`)."""
+        return getattr(_MODULES.get(self.cfg.family), "CACHE_NAMES", {})
+
     def apply(self, params, batch: Dict[str, Any]):
         """Full-sequence forward: batch = {"tokens": (B, S)[, "img_embeds":
         (B, P, d)][, "frames": (B, enc_seq, d), the audio family's]}. Returns
@@ -245,6 +260,9 @@ _FAMILIES = {
               whisper.init_cache),
 }
 _FAMILIES["moe"] = _FAMILIES["vlm"] = _FAMILIES["dense"]
+# the module of each family's static-path cache
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer, "rwkv": rwkv6,
+            "linear_attn": gla, "hybrid": zamba2, "audio": whisper}
 
 # per family: (seq_caches, serving_step, serving_verify, encode_prefill)
 _SERVING = {

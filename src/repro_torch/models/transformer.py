@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import is_clustered, map_arrays
+from repro_torch.distributed.placement import MeshTree, data_rows
+from repro_torch.distributed.sharding import Sharded, maybe_shard, use_rules
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attn_block, mlp_block, moe_block, norm,
@@ -133,11 +135,14 @@ def lm_head_logits(params: Dict[str, Any], x: torch.Tensor,
 def layer_slice(tree: Any, l: int) -> Any:
     """Layer `l` of a tree of stacked (L, ...) tensors: every tensor — and
     every array field of a ClusteredTensor — indexed on its leading axis.
-    The slices are views; nothing is copied."""
+    The slices are views; nothing is copied. A `Sharded` leaf (a mesh's) is
+    sliced part by part."""
     if is_clustered(tree):
         return map_arrays(tree, lambda a: a[l])
     if isinstance(tree, dict):
         return {k: layer_slice(v, l) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.map(lambda p: layer_slice(p, l), dims_dropped=1)
     return tree[l]
 
 
@@ -323,6 +328,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     }
 
 
+CACHE_NAMES = {"k": "layers,batch,seq_kv,kv,.", "v": "layers,batch,seq_kv,kv,.",
+               "pos": "", "k_scale": "layers,batch,seq_kv,kv",
+               "v_scale": "layers,batch,seq_kv,kv"}
+
+
 PAGED_CACHE_NAMES = {"k": "layers,blocks,.,kv,.", "v": "layers,blocks,.,kv,.",
                      "k_scale": "layers,blocks,.,kv", "v_scale": "layers,blocks,.,kv",
                      "k_smooth": "layers,kv,.", "v_smooth": "layers,kv,."}
@@ -351,10 +361,11 @@ def _paged_trunk(
 
     for l in range(cfg.n_layers):
         p = layer_slice(blocks, l)
-        kv_kw = dict(kc=cache["k"][l], vc=cache["v"][l])
+        kv_kw = dict(kc=layer_slice(cache["k"], l), vc=layer_slice(cache["v"], l))
         if int8_kv:
-            kv_kw.update(kc_scale=cache["k_scale"][l], vc_scale=cache["v_scale"][l],
-                         k_smooth=cache["k_smooth"][l], v_smooth=cache["v_smooth"][l])
+            kv_kw.update({kw: layer_slice(cache[name], l) for kw, name in (
+                ("kc_scale", "k_scale"), ("vc_scale", "v_scale"), ("k_smooth", "k_smooth"),
+                ("v_smooth", "v_smooth"))})
         h = norm(x, p["ln_attn"], cfg.norm)
         x = x + paged_attn_block(
             p["attn"], h, cfg, layer_window=int(windows[l]),
@@ -382,12 +393,52 @@ def paged_decode_step(
     exactly one step shape per token-window width T. Returns the logits of
     each slot's LAST valid token (its next-token distribution) and `cache`,
     whose pools were updated in place."""
-    x = _paged_trunk(params, cache, tokens, lengths, n_new, block_tables, cfg)
-    # lm_head only at each slot's last valid token — the padded tail of a
-    # prefill chunk never reaches the vocab matmul
-    last_idx = torch.clamp(n_new - 1, min=0).long()
-    last = x[torch.arange(x.shape[0], device=x.device), last_idx]      # (S, d)
+    if isinstance(params, MeshTree):
+        return _mesh_step(params, cache, tokens, lengths, n_new, block_tables, cfg,
+                          _last_valid), cache
+    last = _last_valid(_paged_trunk(params, cache, tokens, lengths, n_new, block_tables,
+                                    cfg), n_new)
     return lm_head_logits(params, last, cfg), cache
+
+
+def _last_valid(x: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:
+    """Each slot's hidden state at its last valid token, (S, d): the lm_head
+    runs only there, so the padded tail of a prefill chunk never reaches the
+    vocab matmul."""
+    last_idx = torch.clamp(n_new - 1, min=0).long()
+    return x[torch.arange(x.shape[0], device=x.device), last_idx]
+
+
+def _mesh_step(params: MeshTree, cache: MeshTree, tokens, lengths, n_new, block_tables,
+               cfg: ModelConfig, rows_of=None) -> torch.Tensor:
+    """The paged step on a (data, model) mesh, from one process: each data
+    rank runs the trunk over its slots (`data_rows`) on its tree of shards
+    (`_paged_trunk`: each model rank's LUT projections on its column shard,
+    B5 on its kv heads, the parts combined at `maybe_shard`); the data
+    ranks' hidden rows are gathered in rank order and the head runs ONCE over
+    every row, whole, as on one device: cuBLAS picks the head's kernel by
+    its (rows, columns), and a row's bits must not depend on the mesh
+    (ROADMAP C). `rows_of(x, n_new)` picks the rows the head needs (the
+    last valid token's, or every position for the verify). Returns the
+    logits on the mesh's first device; the pools were written in place."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"family '{cfg.family}' ({cfg.arch_id}): the MoE layer does not serve on a "
+            f"mesh yet (its experts' axis is the next slice)")
+    mesh = params.mesh
+    outs = []
+    rows_all = data_rows(mesh, tokens.shape[0])
+    with use_rules(mesh, fsdp=False):
+        for d, rows in enumerate(rows_all):
+            dev = mesh.device_at(data=d)
+            args = [a[rows].to(dev) for a in (tokens, lengths, n_new, block_tables)]
+            x = _paged_trunk(params.views[d], cache.views[d], *args, cfg)
+            outs.append(x if rows_of is None else rows_of(x, args[2]))
+        if rows_all[0] == slice(None):     # every data rank ran every slot
+            x = outs[0]
+        else:                              # the head's rows: every data rank's
+            x = maybe_shard(Sharded(tuple(outs), 0, axis="data"), *[None] * outs[0].ndim)
+    return lm_head_logits(params.views[0], x, cfg)
 
 
 @torch.no_grad()
@@ -418,5 +469,7 @@ def paged_verify_step(
     (`layers._stat_rows`), the head's one product; `chip_smoke.py` checks
     them on the card). Returns ((S, T, padded_vocab) logits, `cache`, whose
     pools were updated in place)."""
+    if isinstance(params, MeshTree):
+        return _mesh_step(params, cache, tokens, lengths, n_new, block_tables, cfg), cache
     x = _paged_trunk(params, cache, tokens, lengths, n_new, block_tables, cfg)
     return lm_head_logits(params, x, cfg), cache

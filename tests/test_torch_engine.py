@@ -139,12 +139,19 @@ UNPORTED = [(dict(data_parallel=2), "data_parallel"), (dict(model_parallel=4), "
 
 @pytest.mark.parametrize("kw,knob", UNPORTED, ids=[k for _, k in UNPORTED])
 def test_unported_knobs_raise_not_implemented_naming_the_knob(kw, knob):
+    """The mesh knobs are ported: without a mesh the engine serves on one
+    device, so a knob asking for more raises the reference's ValueError
+    naming the knob and the axis, and build_engine on the CPU (one visible
+    device) the reference's "must factor" one."""
     ecfg = port_engine.EngineConfig(**kw)          # valid knobs: constructs fine
     model = port_model("llama2-7b", n_layers=1)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
+    axis = knob.split("_")[0]
+    with pytest.raises(ValueError, match=rf"EngineConfig\.{knob}=\d+ does not match the "
+                                         rf"engine mesh's '{axis}' axis \(1\)"):
         port_engine.ServingEngine(model, params, ecfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(ValueError, match=r"data_parallel x model_parallel must factor the 1 "
+                                         r"visible device\(s\)"):
         port_engine.build_engine("llama2-7b", ecfg=ecfg, device="cpu")
 
 
@@ -154,8 +161,14 @@ def test_other_unported_surface():
     from repro_torch.models.registry import get_model
     model = port_model("llama2-7b", n_layers=1)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_engine.ServingEngine(model, params, mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
+    cpus = [torch.device("cpu")] * 4
+    engine = port_engine.ServingEngine(model, params, mesh=make_mesh(
+        (1, 2), ("data", "model"), cpus[:2]))
+    assert engine.mesh.shape == {"data": 1, "model": 2} and engine.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="mesh's axes"):
+        port_engine.ServingEngine(model, params, mesh=make_elastic_mesh(
+            4, model_parallel=1, chips_per_pod=2, devices=cpus))
     # every family is ported: an unknown one is a ValueError naming the known ones
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(dataclasses.replace(model.cfg, family="nope"))

@@ -48,9 +48,11 @@ from repro.optim import optimizer as ref_opt
 from repro_torch.convert import from_reference
 from repro_torch.core import api as port_api
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, calibration_batches
+from repro_torch.distributed.sharding import use_rules as port_use_rules
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as port_steps
 from repro_torch.launch import train as port_train
+from repro_torch.launch.mesh import make_host_mesh as port_make_host_mesh
 from repro_torch.models import config as port_config
 from repro_torch.models.registry import get_model, lm_loss
 from repro_torch.optim import compress as port_compress
@@ -318,7 +320,9 @@ def test_prefill_step_is_the_forwards_last_position():
     rmodel, model, params = _tiny_pair()
     pp = _port(params)
     tokens = np.random.default_rng(2).integers(0, 256, (2, 12)).astype(np.int32)
-    got = port_steps.build_prefill_step(model)(pp, {"tokens": torch.from_numpy(tokens)})
+    with port_use_rules(port_make_host_mesh([torch.device("cpu")])):
+        got = port_steps.build_prefill_step(model, port_config.ShapeConfig(
+            "p", 12, 2, "prefill"))(pp, {"tokens": torch.from_numpy(tokens)})
     assert not got.requires_grad and tuple(got.shape) == (2, model.cfg.padded_vocab)
     with use_rules(make_host_mesh()):
         want = ref_steps.build_prefill_step(rmodel, ref_config.ShapeConfig("p", 12, 2, "prefill")
