@@ -30,8 +30,8 @@ of the KV pools (`graph` lines); serves speculatively (`serve_spec`: the
 with the same tokens as the plain engine, the verify's rows bit for bit
 those of width-1 steps and the identical draft accepting every round;
 serves the rest of the transformer family at full width (`serve_family`:
-gemma2-27b cut to 16 of its 46 layers, paligemma-3b at its 18, starcoder2-15b and
-stablelm-12b cut to 4) and each of the four speculatively at 2 layers
+gemma2-27b, starcoder2-15b and stablelm-12b cut to 4 layers, paligemma-3b at
+its 18) and each of the four speculatively at 2 layers
 (`serve_spec_family`); serves on (data, model) meshes whose every
 coordinate is the one card (`serve_mesh`: the `serve` drive on (1, 2) and
 (2, 1) with `serve`'s tokens, one decode step's logits and the pools
@@ -60,8 +60,7 @@ then phi3.5-moe's first 2 layers over an int8 pool and speculatively);
 serves the recurrent and hybrid families (`recurrent_parity`: rwkv6-1.6b,
 gla-1.3b and zamba2-1.2b at full width and 2 layers, serving steps and the
 forward through the kernels against their plain versions, B1 / B3 / B5 at
-their shapes; `serve_recurrent`: the three at full width, cut to 8, 8 and 12
-layers,
+their shapes; `serve_recurrent`: the three at full width and depth,
 through the slot-state engine, every replay equal to its eager body with a
 snapshot preemption inside, preempted = unpreempted tokens, the new ops'
 row bits at 1 and 8 slots, a decode step's device time by kernel and
@@ -71,7 +70,13 @@ cross-K/V build, serving steps and forward through the kernels against their
 plain versions, B1 / B2 at its shapes, B2 at 1500 rows; `serve_audio`:
 whisper at 32 + 32 layers through the slot-state engine, each request's
 encoder run once at admission, the same checks as `serve_recurrent`, and
-distinct frames giving distinct tokens). Every phase prints
+distinct frames giving distinct tokens); serves every family but the dense
+one on the (1, 2) and (2, 1) meshes of the card (`serve_mesh_family`: the
+MoE archs at 2 layers, their experts cut over the model axis and a step's
+rows routed once; rwkv6 and gla at 4, zamba2 at 6, whisper at 4 + 4, their
+slot state cut by heads; the next decode step's logits, the pools and the
+slot state and a drive's tokens torch.equal to 1 x 1, every replay equal to
+its eager body, the ops on a rank's part equal to the whole). Every phase prints
 one JSON line; any failed phase ends the process with a non-zero exit
 code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
@@ -2432,20 +2437,25 @@ def _mesh_of(shape):
     return make_mesh(shape, ("data", "model"), [torch.device("cuda", 0)] * (shape[0] * shape[1]))
 
 
-def _whole_pool(engine):
-    """The engine's paged pool as whole tensors: on a mesh, each leaf's parts
+def _whole_caches(engine):
+    """Every cache tensor of the engine (the paged pool, the slot state) as a
+    whole tensor, keyed "kind/name": on a mesh, each leaf's parts
     concatenated on their cut dim."""
     from repro_torch.distributed.placement import MeshTree
-    pool = engine.caches["paged"]
-    if not isinstance(pool, MeshTree):
-        return dict(pool)
-    return {name: leaf.parts[0] if leaf.dim is None else torch.cat(leaf.parts, dim=leaf.dim)
-            for name, leaf in pool.views[0].items()}
+    out = {}
+    for kind, cache in engine.caches.items():
+        if not isinstance(cache, MeshTree):
+            out.update({f"{kind}/{name}": t for name, t in cache.items()})
+            continue
+        for name, leaf in cache.views[0].items():
+            out[f"{kind}/{name}"] = (leaf.parts[0] if leaf.dim is None
+                                     else torch.cat(leaf.parts, dim=leaf.dim))
+    return out
 
 
 def _next_decode_logits(engine):
     """The logits of the engine's next width-1 step (every running slot
-    feeds its last token), through the eager body on clones of its pools."""
+    feeds its last token), through the eager body on clones of its caches."""
     s = engine.ecfg.num_slots
     tokens, n_new = np.zeros((s, 1), np.int32), np.zeros(s, np.int32)
     for i, r in enumerate(engine.slots):
@@ -2457,15 +2467,17 @@ def _next_decode_logits(engine):
     return logits
 
 
-def _lockstep_logits(engine, seed):
-    """The 8 prompts of the mesh logits check on `engine`, stepped until
-    every slot decodes: (the next decode step's logits, the paged pool as
-    whole tensors, its counts); the engine then runs to the end."""
-    rng = np.random.default_rng(seed + 21)
-    for _ in range(SERVE_ECFG["num_slots"]):
-        prompt = rng.integers(0, engine.model.cfg.vocab,
-                              int(rng.integers(40, 121))).astype(np.int32)
-        engine.submit(prompt, max_new_tokens=6)
+def _lockstep_drive(engine, prompts, new_tokens, timed=False):
+    """`prompts` submitted at once on `engine` and stepped until every slot
+    decodes, where the next decode step's logits (through the eager body on
+    clones of the caches) and every cache as whole tensors are taken; then
+    run to the end. Returns (logits, caches, counts, tokens) and the drive's
+    launches; `timed` adds a third item, the drive's decode step times
+    (`_drive_decode_ms`)."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reqs = [_submit(engine, p, new_tokens) for p in prompts]
     for _ in range(64):
         if all(r is not None and not r.prefilling and r.out_tokens for r in engine.slots):
             break
@@ -2474,26 +2486,126 @@ def _lockstep_logits(engine, seed):
                 slots_decoding=sum(r is not None and not r.prefilling for r in engine.slots),
                 cached_tokens=int(engine.lengths.sum()))
     logits = _next_decode_logits(engine)
-    pool = {k: v.clone() for k, v in _whole_pool(engine).items()}
+    caches = {k: v.clone() for k, v in _whole_caches(engine).items()}
+    times = _drive_decode_ms(engine) if timed else None
     engine.run()
-    return logits, pool, seen
+    torch.cuda.synchronize()
+    tokens = [list(r.out_tokens) for r in reqs]
+    launched = {n: c for n, c in launch_counts().items() if c}
+    if timed:
+        # after the drive: a replay writes the caches again
+        times["device_ms_per_replay"] = round(_replay_ms(engine._graphs._graphs[1], n=10), 3)
+        return (logits, caches, seen, tokens), launched, times
+    return (logits, caches, seen, tokens), launched
+
+
+def _drive_decode_ms(engine):
+    """A decode step of a drive with all 8 slots decoding: one step (the
+    width-1 graph's capture if it has none yet), then host-clock ms per step
+    and the CUDA-event span per step over 4 steps (profiler off)."""
+    engine.step()
+    ran = engine.traces.get(1, 0)
+    wall, span = _wall_ms_per_step(engine, 4)
+    if engine.traces.get(1, 0) - ran != 4 or any(r is None or r.prefilling
+                                                 for r in engine.slots):
+        raise SystemExit("mesh family decode ms: not every step was of width 1 with all "
+                         "8 slots decoding")
+    return dict(wall_ms_per_step=round(wall, 3), event_span_ms_per_step=round(span, 3))
+
+
+def _lockstep_logits(engine, seed):
+    """The mesh logits check's 8 prompts (40-120 tokens, 6 new) through
+    `_lockstep_drive`: (logits, caches, counts)."""
+    rng = np.random.default_rng(seed + 21)
+    prompts = [rng.integers(0, engine.model.cfg.vocab, int(rng.integers(40, 121))).astype(
+        np.int32) for _ in range(SERVE_ECFG["num_slots"])]
+    return _lockstep_drive(engine, prompts, 6)[0][:3]
 
 
 def _mesh_logits_check(model, params, seed, mesh, want):
     """`_lockstep_logits` on an engine over `mesh` against `want`, its run
     on the 1 x 1 engine: the next decode step's logits torch.equal, and the
-    mesh's pool, its parts gathered, torch.equal to the 1 x 1 pool, at the
-    same step with every slot decoding."""
+    mesh's caches, their parts gathered, torch.equal to the 1 x 1 caches, at
+    the same step with every slot decoding."""
     from repro_torch.launch.engine import EngineConfig, ServingEngine
     engine = ServingEngine(model, params, EngineConfig(**SERVE_ECFG), mesh=mesh, device="cuda")
-    got, pool, seen = _lockstep_logits(engine, seed)
-    one, one_pool, one_seen = want
+    got, caches, seen = _lockstep_logits(engine, seed)
+    one, one_caches, one_seen = want
     out = dict(logits_equal=bool(torch.equal(one, got)),
                max_abs_diff=float((one.float() - got.float()).abs().max()),
-               pools_equal=all(torch.equal(one_pool[k], pool[k]) for k in one_pool), **seen)
+               caches_equal=all(torch.equal(one_caches[k], caches[k]) for k in one_caches),
+               **seen)
     if seen != one_seen or seen["slots_decoding"] != SERVE_ECFG["num_slots"]:
         out["logits_equal"] = False        # the same step, with every slot decoding
     return out
+
+
+def _shard_ct(gen, k, n):
+    """A 4-bit (k, n) ClusteredTensor from `gen`, quantized transform armed."""
+    from repro_torch.core.api import ClusteredTensor
+    from repro_torch.core.lut import packed_rows
+    dev = gen.device
+    packed = torch.randint(0, 255, (packed_rows(k, 4), n), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    cb = torch.sort(torch.randn((16,), generator=gen, device=dev) * 0.02).values
+    smooth = 0.5 + torch.rand((k,), generator=gen, device=dev)
+    return ClusteredTensor(codes=packed, codebook=cb, smooth=smooth, packed=packed,
+                           inv_scale=1.0 / (smooth * 0.04),
+                           act_scale=torch.tensor(0.04, device=dev), nbits=4)
+
+
+def _column_part(w, r, parts):
+    """Model rank r's column shard of a (K, N) ClusteredTensor cut in `parts`."""
+    n = w.codes.shape[-1] // parts
+    return w._replace(codes=w.codes[:, r * n:(r + 1) * n].contiguous(),
+                      packed=w.packed[:, r * n:(r + 1) * n].contiguous())
+
+
+def _columns_equal(gen, m, k, n, parts):
+    """B1 / B2 (`clustered_linear`) on each column shard against its slice of
+    the full launch, bf16 activations at M = m."""
+    from repro_torch.kernels.ops import clustered_linear
+    w = _shard_ct(gen, k, n)
+    x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+    full = clustered_linear(x, w)
+    c = n // parts
+    return all(torch.equal(clustered_linear(x, _column_part(w, r, parts)),
+                           full[:, r * c:(r + 1) * c]) for r in range(parts))
+
+
+def _multi_columns_equal(gen, m, k, widths, parts):
+    """B3 / B4 (`clustered_linear_multi`) on each rank's column shards of
+    every projection against their slices of the full launch."""
+    from repro_torch.kernels.ops import clustered_linear_multi
+    ws = [_shard_ct(gen, k, n) for n in widths]
+    x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+    full = clustered_linear_multi(x, ws)
+    ok = True
+    for r in range(parts):
+        got = clustered_linear_multi(x, [_column_part(w, r, parts) for w in ws])
+        ok &= all(torch.equal(g, f[:, r * (f.shape[1] // parts):(r + 1) * (f.shape[1] // parts)])
+                  for g, f in zip(got, full))
+    return bool(ok)
+
+
+def _heads_equal(gen, t, h, kv, pool, d, parts):
+    """B5 on each rank's kv heads (with the query heads of their groups)
+    against its slice of the full launch."""
+    from repro_torch.kernels.paged_attention import paged_pool_attention
+    args, kw, _ = _attn_case(gen, t, h, kv, torch.bfloat16, pool, 0, 0.0, d=d)
+    full = paged_pool_attention(*args, **kw)
+    q, kp, vp, rest = args[0], args[1], args[2], args[3:]
+    hq, hk = h // parts, kv // parts
+    ok = True
+    for r in range(parts):
+        sq, sk = slice(r * hq, (r + 1) * hq), slice(r * hk, (r + 1) * hk)
+        kw_r = {key: (v[..., sk].contiguous() if key in ("k_scale", "v_scale")
+                      else v[sk].contiguous() if key in ("k_smooth", "v_smooth")
+                      else v) for key, v in kw.items()}
+        got = paged_pool_attention(q[:, :, sq].contiguous(), kp[:, :, sk].contiguous(),
+                                   vp[:, :, sk].contiguous(), *rest, **kw_r)
+        ok &= bool(torch.equal(got, full[:, :, sq]))
+    return ok
 
 
 def _shard_bits(gen) -> dict:
@@ -2504,71 +2616,24 @@ def _shard_bits(gen) -> dict:
     over bf16 and int8 pools on every kv-head shard at 2 and 4 ranks. All
     must be torch.equal. Then two ops the mesh step keeps whole, informative:
     the bf16 head at half the rows and half the columns."""
-    from repro_torch.core.api import ClusteredTensor
-    from repro_torch.core.lut import packed_rows
-    from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
-    from repro_torch.kernels.paged_attention import paged_pool_attention
     dev = gen.device
-
-    def ct(k, n):
-        packed = torch.randint(0, 255, (packed_rows(k, 4), n), generator=gen,
-                               dtype=torch.uint8, device=dev)
-        cb = torch.sort(torch.randn((16,), generator=gen, device=dev) * 0.02).values
-        smooth = 0.5 + torch.rand((k,), generator=gen, device=dev)
-        return ClusteredTensor(codes=packed, codebook=cb, smooth=smooth, packed=packed,
-                               inv_scale=1.0 / (smooth * 0.04),
-                               act_scale=torch.tensor(0.04, device=dev), nbits=4)
-
-    def cut(w, r, parts):
-        n = w.codes.shape[-1] // parts
-        return w._replace(codes=w.codes[:, r * n:(r + 1) * n].contiguous(),
-                          packed=w.packed[:, r * n:(r + 1) * n].contiguous())
-
     cases = []
     with torch.no_grad():
         for m in (8, 256):
             for k, n in LLAMA_KN:
-                w = ct(k, n)
-                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-                full = clustered_linear(x, w)
                 for parts in (2, 4):
-                    c = n // parts
                     cases.append(dict(kernel="B1" if m < 128 else "B2", m=m, k=k, n=n,
-                                      ranks=parts, equal=all(torch.equal(
-                                          clustered_linear(x, cut(w, r, parts)),
-                                          full[:, r * c:(r + 1) * c]) for r in range(parts))))
+                                      ranks=parts, equal=_columns_equal(gen, m, k, n, parts)))
             for group, (k, widths) in list(MULTI_GROUPS.items())[:2]:
-                ws = [ct(k, n) for n in widths]
-                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-                full = clustered_linear_multi(x, ws)
                 for parts in (2, 4):
-                    ok = True
-                    for r in range(parts):
-                        got = clustered_linear_multi(x, [cut(w, r, parts) for w in ws])
-                        ok &= all(torch.equal(g, f[:, r * (f.shape[1] // parts):
-                                                     (r + 1) * (f.shape[1] // parts)])
-                                  for g, f in zip(got, full))
                     cases.append(dict(kernel="B3" if m < 128 else "B4", group=group, m=m,
-                                      ranks=parts, equal=bool(ok)))
+                                      ranks=parts,
+                                      equal=_multi_columns_equal(gen, m, k, widths, parts)))
         for t in (1, 32):
             for pool in ("bf16", "int8"):
-                args, kw, _ = _attn_case(gen, t, 32, 32, torch.bfloat16, pool, 0, 0.0)
-                full = paged_pool_attention(*args, **kw)
-                q, kp, vp, rest = args[0], args[1], args[2], args[3:]
                 for parts in (2, 4):
-                    h = 32 // parts
-                    ok = True
-                    for r in range(parts):
-                        sl = slice(r * h, (r + 1) * h)
-                        kw_r = {key: (v[..., sl].contiguous() if key in ("k_scale", "v_scale")
-                                      else v[sl].contiguous() if key in ("k_smooth", "v_smooth")
-                                      else v) for key, v in kw.items()}
-                        got = paged_pool_attention(q[:, :, sl].contiguous(),
-                                                   kp[:, :, sl].contiguous(),
-                                                   vp[:, :, sl].contiguous(), *rest, **kw_r)
-                        ok &= bool(torch.equal(got, full[:, :, sl]))
                     cases.append(dict(kernel="B5", t=t, pool=pool, heads=32, ranks=parts,
-                                      equal=ok))
+                                      equal=_heads_equal(gen, t, 32, 32, pool, 128, parts)))
         # the head, kept whole on every rank: its bits at half the rows / columns
         x = torch.randn((8, 4096), generator=gen, device=dev).to(torch.bfloat16)
         head = (torch.randn((4096, 32768), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
@@ -2610,7 +2675,7 @@ def phase_serve_mesh(seed: int, params, tokens) -> dict:
     del one
     logits = {f"{d}x{m}": _mesh_logits_check(model, params, seed, _mesh_of((d, m)), want)
               for d, m in MESH_SHAPES}
-    fails += [(k, v) for k, v in logits.items() if not (v["logits_equal"] and v["pools_equal"])]
+    fails += [(k, v) for k, v in logits.items() if not (v["logits_equal"] and v["caches_equal"])]
     counts, rows = {}, {}
     for d, m in MESH_SHAPES:
         key = f"{d}x{m}"
@@ -2662,10 +2727,181 @@ def phase_serve_mesh(seed: int, params, tokens) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# every other family on a (data, model) mesh of one card
+# ---------------------------------------------------------------------------
+
+# full width, LCD 4-bit, quantized transform; cut to these depths (zamba2's 6
+# layers run one shared-attention site, whisper's 4 are 4 + 4)
+MESH_FAMILY_DEPTHS = (("phi3.5-moe-42b-a6.6b", 2), ("llama4-scout-17b-a16e", 2),
+                      ("rwkv6-1.6b", 4), ("gla-1.3b", 4), ("zamba2-1.2b", 6),
+                      ("whisper-large-v3", 4))
+# the drive of every arch and mesh: 8 requests of 16-48 prompt tokens, 16 new,
+# submitted at once (`_lockstep_drive`)
+MESH_FAMILY_DRIVE = dict(n=8, lens=(16, 49), new_tokens=16)
+# B1 / B3 at the new families' projections (2-way column shards, M = 8)
+MESH_FAMILY_SOLO = {"rwkv6 r/k/v/g/o, gla q/k/v/o": (2048, 2048),
+                    "rwkv6 cm.wk": (2048, 7168), "rwkv6 cm.wv": (7168, 2048),
+                    "gla w_up": (2048, 5632), "gla w_down": (5632, 2048),
+                    "zamba2 w_out": (4096, 2048), "whisper q/k/v": (1280, 2048),
+                    "whisper wo": (2048, 1280), "whisper w_up": (1280, 5120),
+                    "whisper w_down": (5120, 1280), "llama4-scout wo": (6144, 5120)}
+MESH_FAMILY_MULTI = {"zamba2 shared QKV": (2048, (2048, 2048, 2048)),
+                     "zamba2 shared gate+up": (2048, (8192, 8192)),
+                     "phi3.5-moe QKV": (4096, (4096, 1024, 1024)),
+                     "llama4-scout QKV": (5120, (6144, 1024, 1024))}
+
+
+def _family_shard_bits(gen) -> dict:
+    """The ops a rank runs on its part of the new families' cuts, against
+    the same part of the whole, all torch.equal: B1 (M 8) on 2-way column
+    shards at their projections, B3 on 2-way shards of their QKV and
+    gate+up groups, B5 on 2-way kv-head shards at zamba2's sites (D 64,
+    H = KV = 32) and phi3.5-moe's attention (D 128, 32 over 8), an MoE
+    layer's experts' SwiGLU (`layers._expert_swiglu`, bf16) at E/2 against
+    its slice at E, and whisper's ragged attention (bf16, 32 padded heads,
+    self over 512 keys and cross over 1500) at H/2 against its slice at H."""
+    from repro_torch.models import layers
+    dev = gen.device
+    cases = []
+    with torch.no_grad():
+        for name, (k, n) in MESH_FAMILY_SOLO.items():
+            cases.append(dict(kernel="B1", shape=name, m=8, k=k, n=n, ranks=2,
+                              equal=_columns_equal(gen, 8, k, n, 2)))
+        for name, (k, widths) in MESH_FAMILY_MULTI.items():
+            cases.append(dict(kernel="B3", shape=name, m=8, k=k, widths=list(widths), ranks=2,
+                              equal=_multi_columns_equal(gen, 8, k, widths, 2)))
+        cases.append(dict(kernel="B5", shape="zamba2 sites", t=1, heads=32, kv=32, d=64,
+                          ranks=2, equal=_heads_equal(gen, 1, 32, 32, "bf16", 64, 2)))
+        cases.append(dict(kernel="B5", shape="phi3.5-moe attention", t=1, heads=32, kv=8,
+                          d=128, ranks=2, equal=_heads_equal(gen, 1, 32, 8, "bf16", 128, 2)))
+        # phi3.5-moe's experts at a decode step's capacity (8 tokens, top-2: C = 4)
+        e, d, f = 16, 4096, 6400
+        xe = torch.randn((e, 1, 4, d), generator=gen, device=dev).to(torch.bfloat16)
+        ws = [(torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+              for shape in ((e, d, f), (e, d, f), (e, f, d))]
+        full = layers._expert_swiglu(xe, *ws)
+        half = [layers._expert_swiglu(xe[r * 8:(r + 1) * 8], *(w[r * 8:(r + 1) * 8] for w in ws))
+                for r in range(2)]
+        cases.append(dict(op="moe experts' SwiGLU", experts=e, ranks=2,
+                          equal=all(torch.equal(h, full[r * 8:(r + 1) * 8])
+                                    for r, h in enumerate(half))))
+        del ws
+        # whisper's attention of 8 slots at width 1 over its self and cross K/V
+        s, h, hd = 8, 32, 64
+        for what, keys, causal in (("self", 512, True), ("cross", 1500, False)):
+            q = torch.randn((s, 1, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+            kv = [torch.randn((s, keys, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2)]
+            pos = torch.tensor([[200], [37], [0], [95], [16], [0], [130], [63]], device=dev)
+            k_len = (pos[:, 0] + 1) if causal else None
+            k_pos = torch.arange(keys, device=dev)
+            full = layers.ragged_attention(q, *kv, pos, k_pos, causal=causal,
+                                           scale=1 / math.sqrt(hd), k_len=k_len)
+            ok = True
+            for r in range(2):
+                hs = slice(r * h // 2, (r + 1) * h // 2)
+                got = layers.ragged_attention(q[:, :, hs].contiguous(),
+                                              *(a[:, :, hs].contiguous() for a in kv), pos,
+                                              k_pos, causal=causal, scale=1 / math.sqrt(hd),
+                                              k_len=k_len)
+                ok &= bool(torch.equal(got, full[:, :, hs]))
+            cases.append(dict(op=f"whisper ragged attention ({what})", heads=h, keys=keys,
+                              ranks=2, equal=ok))
+    return dict(cases=cases)
+
+
+def _family_prompts(cfg, seed):
+    rng = np.random.default_rng(seed + 5)
+    lo, hi = MESH_FAMILY_DRIVE["lens"]
+    return [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi))).astype(np.int32)
+            for _ in range(MESH_FAMILY_DRIVE["n"])]
+
+
+def _mesh_family_arch(arch, layers, seed, counts, graph_mesh) -> dict:
+    """One arch of `serve_mesh_family`: the drive (`_lockstep_drive` of
+    `_family_prompts`, its decode steps timed) of its 1 x 1 engine, then of
+    an engine on each of MESH_SHAPES, whose next decode step's logits, paged
+    pool and slot state and whose tokens must equal 1 x 1's; on
+    `graph_mesh` every replay must also equal its eager body (`_graph_check`,
+    a preemption inside); rwkv6 on (2, 1) also preempted = unpreempted
+    (`_preempt_check`). Adds the mesh drives' launches to `counts`; returns
+    the arch's line."""
+    from repro_torch.distributed.layout import choose_layout
+    from repro_torch.launch.engine import EngineConfig, ServingEngine
+    t0 = time.perf_counter()
+    model, params = _served_params(arch, seed, layers)
+    ecfg = EngineConfig(**SERVE_ECFG)
+    prompts = _family_prompts(model.cfg, seed)
+    new = MESH_FAMILY_DRIVE["new_tokens"]
+    one = ServingEngine(model, params, ecfg, device="cuda")
+    (want_logits, want_caches, want_seen, tokens), _, one_ms = _lockstep_drive(
+        one, prompts, new, timed=True)
+    decode = {"1x1": one_ms}
+    del one
+    fails, rows = [], {}
+    for shape in MESH_SHAPES:
+        key = f"{shape[0]}x{shape[1]}"
+        engine = ServingEngine(model, params, ecfg, mesh=_mesh_of(shape), device="cuda")
+        (got, caches, seen, got_tokens), launched, decode[key] = _lockstep_drive(
+            engine, prompts, new, timed=True)
+        for n, c in launched.items():
+            counts[n] = counts.get(n, 0) + c
+        row = dict(logits_equal=bool(torch.equal(got, want_logits)) and seen == want_seen,
+                   max_abs_diff=float((got.float() - want_logits.float()).abs().max()),
+                   caches_equal=all(torch.equal(want_caches[k], caches[k]) for k in want_caches),
+                   same_tokens_as_1x1=got_tokens == tokens, **seen, launches=launched)
+        if arch == "rwkv6-1.6b" and shape == (2, 1):
+            row["preemption"] = _preempt_check(engine, prompts, tokens, new)
+            if not row["preemption"]["ok"]:
+                fails.append(f"{key}: preemption {row['preemption']}")
+        if shape == graph_mesh:
+            _graph_check(f"serve_mesh_family_{key}", engine, seed, prompt_lens=(20, 9, 36, 14))
+        if not (row["logits_equal"] and row["caches_equal"] and row["same_tokens_as_1x1"]
+                and seen["slots_decoding"] == ecfg.num_slots):
+            fails.append(f"{key}: {row}")
+        rows[key] = row
+        del engine
+    _, report = choose_layout(model, params, ecfg, devices=[torch.device("cuda", 0)] * 4)
+    del params
+    torch.cuda.empty_cache()
+    line = dict(arch=arch, layers=layers, meshes=rows, graph_checked_on=list(graph_mesh),
+                decode_ms_8_slots_decoding=decode, layout_report_cuda0_x4=report,
+                seconds=round(time.perf_counter() - t0, 1))
+    emit("serve_mesh_family_arch", **line)
+    if fails:
+        raise SystemExit(f"serve_mesh_family: {arch}: {fails}")
+    return line
+
+
+def phase_serve_mesh_family(seed: int) -> dict:
+    """Every family but the dense one on (data, model) meshes of one card
+    (`[cuda:0] x 2` at (1, 2) and (2, 1)): the MoE archs (their experts cut
+    over the model axis, a step's rows routed once), rwkv6, gla, zamba2 and
+    whisper (their slot state cut by heads) at full width (MESH_FAMILY_DEPTHS),
+    LCD 4-bit, quantized transform: the ops on a rank's parts torch.equal to
+    the whole (`_family_shard_bits`), then per arch `_mesh_family_arch`.
+    Returns the mesh drives' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    bits = _family_shard_bits(gen)
+    emit("serve_mesh_family_shard_bits", **bits)
+    bad = [c for c in bits["cases"] if not c["equal"]]
+    if bad:
+        raise SystemExit(f"serve_mesh_family: a rank's part differs from the whole: {bad}")
+    counts = {}
+    for i, (arch, layers) in enumerate(MESH_FAMILY_DEPTHS):
+        # the graph check on one mesh an arch, the two meshes in turn
+        _mesh_family_arch(arch, layers, seed, counts, MESH_SHAPES[i % len(MESH_SHAPES)])
+    missing = [n for n in MESH_PATH if not counts.get(n)]
+    if missing:
+        raise SystemExit(f"serve_mesh_family: {missing} never launched: {counts}")
+    return counts
+
+
 # the rest of the transformer family at full width: paligemma-3b at full
-# depth, gemma2-27b cut to 16 of its 46 layers (to make room for serve_mesh in
-# the run's time), starcoder2-15b and stablelm-12b cut to 4 layers
-FAMILY_DEPTHS = (("gemma2-27b", 16), ("paligemma-3b", 18), ("starcoder2-15b", 4),
+# depth, gemma2-27b, starcoder2-15b and stablelm-12b cut to 4 layers (gemma2's
+# local / global pair twice; the run's time has the mesh phases to hold)
+FAMILY_DEPTHS = (("gemma2-27b", 4), ("paligemma-3b", 18), ("starcoder2-15b", 4),
                  ("stablelm-12b", 4))
 
 
@@ -2949,9 +3185,10 @@ def _profile_row(reads, rows, n_steps):
 def phase_profile(seed: int, params) -> None:
     """Where a serving step's time goes: the 32-layer engine with all 8 slots
     busy, in the default (fused) configuration, prefill-width steps, then
-    decode steps of the fused and the unfused configuration on the same
-    weights; each through the step's CUDA graph and through the engine's
-    eager body, in turns (graph, eager, eager, graph) on the same engine —
+    decode steps (the unfused configuration is driven by `serve_unfused`,
+    not profiled here); each through the step's CUDA graph and
+    through the engine's eager body, in turns (graph, eager, eager, graph)
+    on the same engine —
     wall time per step on the host's clock, the card's busy time under
     torch.profiler, the idle share, the kernels that take it, and each
     width's capture time. torch.profiler must see the kernels inside a
@@ -2966,17 +3203,13 @@ def phase_profile(seed: int, params) -> None:
     # one warm-up step per width, then per configuration 4 turns of n_wall
     # steps and 2 profiled runs of n_prof + 1 steps
     prompt_len, n_pre, n_dec = 416, (1, 2), (6, 3)
-    engines = {}
-    for fused in (True, False):
-        engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
-                                 seed=seed, params=params, fused_projections=fused,
-                                 device="cuda")
-        rng = np.random.default_rng(seed)
-        for _ in range(8):
-            engine.submit(rng.integers(0, engine.model.cfg.vocab, prompt_len),
-                          max_new_tokens=48)
-        engine.step()                    # the prefill width's warm-up and capture
-        engines[fused] = engine
+    engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
+                             seed=seed, params=params, device="cuda")
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        engine.submit(rng.integers(0, engine.model.cfg.vocab, prompt_len),
+                      max_new_tokens=48)
+    engine.step()                        # the prefill width's warm-up and capture
 
     def turns(engine, n, key, out):
         (n_wall, n_prof), width = n, 32 if key.startswith("prefill") else 1
@@ -2993,30 +3226,26 @@ def phase_profile(seed: int, params) -> None:
                              f"all 8 slots busy")
 
     out = {}
-    turns(engines[True], n_pre, "prefill_width_32", out)
-    for engine in engines.values():
-        while any(r is not None and r.prefilling for r in engine.slots):
-            engine.step()
-        engine.step()                    # the decode width's warm-up and capture
-    turns(engines[True], n_dec, "decode_width_1", out)
-    turns(engines[False], n_dec, "decode_width_1_unfused", out)
+    turns(engine, n_pre, "prefill_width_32", out)
+    while any(r is not None and r.prefilling for r in engine.slots):
+        engine.step()
+    engine.step()                        # the decode width's warm-up and capture
+    turns(engine, n_dec, "decode_width_1", out)
     # an eager profile can drop a few kernel records (3,633 of 3,637 a step
     # were seen) but never adds one: a graph step that shows at least the
     # eager step's calls shows every kernel of its replay
     calls = {k: (out[k]["device_calls_per_step"], out[k + "_eager"]["device_calls_per_step"])
-             for k in ("prefill_width_32", "decode_width_1", "decode_width_1_unfused")}
+             for k in ("prefill_width_32", "decode_width_1")}
     seen = all(0 < graph >= eager for graph, eager in calls.values())
     if not seen:
-        for k in ("prefill_width_32", "decode_width_1", "decode_width_1_unfused"):
+        for k in ("prefill_width_32", "decode_width_1"):
             row = out[k]
             row["device_busy_ms_per_step"] = row["event_span_ms_per_step"]
             row["device_idle_share"] = round(1.0 - row["event_span_ms_per_step"]
                                              / row["wall_ms_per_step"], 3)
             row["device_time_from"] = ("CUDA events around the steps, profiler off: the "
                                        "profiler does not see every kernel of a replay")
-    capture_s = {("fused" if f else "unfused"): {str(w): round(c, 3) for w, c in
-                                                 e._graphs.capture_seconds().items()}
-                 for f, e in engines.items()}
+    capture_s = {str(w): round(c, 3) for w, c in engine._graphs.capture_seconds().items()}
     emit("profile", arch="llama2-7b", layers=32, slots=8, prompt_len=prompt_len,
          profiler_sees_graph_kernels=seen,
          calls_per_step_graph_and_eager={k: list(v) for k, v in calls.items()},
@@ -5194,7 +5423,7 @@ ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve", "serv
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
               "serve_moe", "recurrent_parity", "serve_recurrent", "audio_parity",
-              "serve_audio", "train")
+              "serve_audio", "serve_mesh_family", "train")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
 ON_SERVE_WEIGHTS = {"serve", "serve_mesh", "serve_unfused", "serve_static", "profile",
@@ -5321,6 +5550,9 @@ def main() -> int:
         print(f"chip_smoke: serve_audio did not launch every kernel of its path: "
               f"{audio_counts}", file=sys.stderr)
         return 1
+    # every other family on (1, 2) and (2, 1) meshes of the card, counted on its own
+    mesh_family_counts = (timed("serve_mesh_family", phase_serve_mesh_family, args.seed)
+                          if "serve_mesh_family" in phases else {})
     # the trainer and the paper's pipeline: the student's forward (B2 / B4 at
     # 4096 rows) and its engine (B1-B5), counted on their own; B2 / B4 at
     # those rows against their plain versions, timed
@@ -5383,6 +5615,8 @@ def main() -> int:
             # the serve drive on (1, 2) and (2, 1) meshes of the card and the
             # int8 pool on (2, 2): every rank's launches
             "launches_serve_mesh": mesh_counts.get(name, 0),
+            # the MoE, recurrent, hybrid and audio drives on the same meshes
+            "launches_serve_mesh_family": mesh_family_counts.get(name, 0),
             # the rest of the family: its full-depth drives and its speculative ones
             "launches_serve_family": family_counts.get(name, 0),
             "launches_serve_spec_family": family_spec_counts.get(name, 0),
@@ -5429,8 +5663,8 @@ def main() -> int:
     if complete and not all(k["launches"] > 0 and k["ms"] for k in kernels):
         print("chip_smoke: a kernel of the main path was never launched", file=sys.stderr)
         return 1
-    if complete and not all(k["launches_serve_mesh"] > 0 for k in kernels
-                            if k["name"] in MESH_PATH):
+    if complete and not all(k["launches_serve_mesh"] > 0 and k["launches_serve_mesh_family"] > 0
+                            for k in kernels if k["name"] in MESH_PATH):
         print("chip_smoke: a kernel of the mesh path was never launched", file=sys.stderr)
         return 1
     if complete and not all(k["launches_train"] > 0 for k in kernels

@@ -15,10 +15,14 @@ a multi-process torch.distributed backend.
     cut dim; a cut along K must fall on whole 8-channel k-blocks (the
     packing group of the LUT kernels, kernels/csrc/lut_common.cuh);
     `smooth` and `inv_scale` are cut like the input dims; `codebook` and
-    `act_scale` stay whole;
+    `act_scale` stay whole, except where the cut is a stack dim (an MoE
+    layer's experts): every field that carries it is cut there too, so a
+    rank resolves its own experts with their own codebooks;
   * a pool is cut on `kv`: each model rank holds its kv-head shard of every
     block, so block tables stay valid everywhere; the data ranks write their
-    slots' rows into the same parts.
+    slots' rows into the same parts. Slot state likewise: cut on its head
+    dim (or its inner dim), never on the data axis: the data ranks share
+    its tensors and each writes its own slots' rows (`data_rows`).
 
 The result is a `MeshTree`: one tree per data rank whose cut leaves are
 `Sharded` (parts per model rank) and whose whole leaves are plain tensors on
@@ -113,12 +117,15 @@ def _map_leaves(tree, fn):
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
-def _model_dim(spec, what: str) -> Optional[int]:
+def _model_dim(spec, what: str, shared: Tuple[str, ...] = ()) -> Optional[int]:
     """The dim `spec` cuts on the model axis (None: whole). A cut on the
-    data or pod axis (FSDP) is refused: training on a mesh waits."""
+    `shared` axes is dropped (a writable tree's slots: every data rank
+    holds the same tensors); any other cut on the data or pod axis (FSDP)
+    is refused: training on a mesh waits."""
     dim = None
     for i, entry in enumerate(spec):
         axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if a not in shared)
         if any(a != "model" for a in axes):
             raise NotImplementedError(
                 f"place: {what} is cut on {axes}; only the model axis cuts a "
@@ -146,6 +153,13 @@ def _cut_clustered(ct, shardings, m: int, what: str):
         dims[f] = _model_dim(ns.spec, f"{what}.{f}")
         fields[f] = _cut(arr, dims[f], m)
     dim = dims["codes"]
+    if dim is not None and dim < ct.codes.ndim - 2:
+        # a stack dim (experts): every field carrying it follows the cut
+        lead = tuple(ct.codes.shape[:dim + 1])
+        for f in fields:
+            arr = getattr(ct, f)
+            if dims[f] is None and tuple(arr.shape[:dim + 1]) == lead:
+                dims[f], fields[f] = dim, _cut(arr, dim, m)
     d_in = ct.smooth.shape[-1]
     if dim is not None and dim == ct.codes.ndim - 2 and (d_in // m) % K_BLOCK:
         raise ValueError(
@@ -161,9 +175,9 @@ def place(tree, shardings, mesh, *, writable: bool = False) -> MeshTree:
     `cache_shardings`) onto `mesh` (axes "data" and "model"), whose devices
     must repeat (`launch/mesh.py require_one_device`). Each part is moved to
     the mesh's device once and every data rank's view holds that same
-    tensor. `writable` marks a tree the step writes (a pool): its leaves are
-    always `Sharded`, so a write by one data rank is what every other
-    reads."""
+    tensor. `writable` marks a tree the step writes (a pool, slot state):
+    its leaves are always `Sharded` and never cut on the data axis, so a
+    write by one data rank is what every other reads."""
     require_one_device(mesh, "place")
     n_data, n_model = mesh.shape["data"], mesh.shape["model"]
     dev = mesh.lead_device
@@ -173,11 +187,13 @@ def place(tree, shardings, mesh, *, writable: bool = False) -> MeshTree:
             return map_arrays(x, to)
         return x.to(dev)
 
+    shared = ("pod", "data") if writable else ()
+
     def one(x, ns, what):
         if is_clustered(x):
             parts, dim = _cut_clustered(x, ns, n_model, what)
         else:
-            dim = _model_dim(ns.spec, what)
+            dim = _model_dim(ns.spec, what, shared)
             parts = _cut(x, dim, n_model)
         parts = [to(p) for p in parts] if dim is not None else [to(x)] * n_model
         leaf = Sharded(tuple(parts), dim) if dim is not None or writable else parts[0]

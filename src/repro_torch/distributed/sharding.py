@@ -33,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -299,6 +299,44 @@ def whole(x):
     if not isinstance(x, Sharded):
         return x
     return x.parts[0] if x.dim is None else gather(x.parts, x.dim)
+
+
+def parts_on(x, n: int, dim: int) -> List[torch.Tensor]:
+    """`x` as `n` equal parts on `dim`, in rank order: a `Sharded` x cut on
+    that dim in n parts gives its own parts; anything else is made whole and
+    narrowed (views). n = 1 gives [whole(x)]."""
+    if isinstance(x, Sharded) and x.dim is not None and len(x.parts) == n:
+        nd = x.parts[0].ndim
+        if x.dim % nd == dim % nd:
+            return list(x.parts)
+    w = whole(x)
+    if n == 1:
+        return [w]
+    size = w.shape[dim] // n
+    return [w.narrow(dim, i * size, size) for i in range(n)]
+
+
+def rank_parts(x) -> List[Any]:
+    """The distinct parts of a value a model rank computes on: a cut
+    `Sharded`'s parts, a whole one's single tensor, a plain value alone."""
+    if not isinstance(x, Sharded):
+        return [x]
+    return list(x.parts) if x.dim is not None else [x.parts[0]]
+
+
+def like(x, parts: Sequence[Any]):
+    """`parts` (one per `rank_parts(x)`) wrapped as `x` is: a `Sharded` with
+    x's cut (a whole one's single part repeated), or the one part."""
+    if not isinstance(x, Sharded):
+        return parts[0]
+    if x.dim is None:
+        return Sharded((parts[0],) * len(x.parts), None, x.axis)
+    return Sharded(tuple(parts), x.dim, x.axis)
+
+
+def on_parts(x, fn, dims_dropped: int = 0):
+    """`fn` on every part of a `Sharded` x (`Sharded.map`), or on x."""
+    return x.map(fn, dims_dropped) if isinstance(x, Sharded) else fn(x)
 
 
 def maybe_shard(x, *names: Optional[str]):

@@ -3,6 +3,12 @@
 They mirror the mathematical definition, not the machine mapping. The CPU
 tests run them, a kernel's wrapper uses them for CPU tensors, and the on-card
 smoke script holds every kernel against them.
+
+The CPU's row-count padding lives here too: on the CPU a row's bits must
+not depend on how many rows share a call (a data rank's slots, a model
+rank's heads on a mesh), so the plain LUT GEMM and the plain attention
+compute at least MIN_ROWS rows, and `lane_stable` runs an elementwise op on
+whole 32-element vectors. On the card these pads are not taken.
 """
 from __future__ import annotations
 
@@ -15,6 +21,21 @@ from repro_torch.core.lut import lut_matmul_dequant_ref, unpack_codes
 KC = 16
 # the fewest rows the plain LUT GEMM computes at once (`lut_matmul_fused_ref`)
 MIN_ROWS = 16
+# ATen's CPU elementwise loop runs a tensor in vectors of 32 f32 elements and
+# its last numel % 32 elements by a scalar path, and the vector and scalar
+# softplus / exp differ in the last bit: an element's value would depend on
+# how many rows share the call. The card computes every element alike.
+CPU_LANES = 32
+
+
+def lane_stable(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for an elementwise fn, on the CPU over x's rows padded to a
+    whole number of CPU_LANES-element vectors (every element then takes the
+    vector path, whatever the row count); elsewhere fn(x)."""
+    pad = -x.shape[-1] % CPU_LANES
+    if x.device.type != "cpu" or not pad:
+        return fn(x)
+    return fn(torch.nn.functional.pad(x, (0, pad)))[..., :x.shape[-1]]
 
 
 def lut_matmul_f32_ref(x: torch.Tensor, packed_codes: torch.Tensor,

@@ -114,9 +114,12 @@ each model rank its shards through B1-B5, the parts combine in rank order
 (`models/transformer.py _mesh_step`), and the tokens and every step's logits
 are the bits of the one-device engine. The mesh's devices must repeat
 (`[cuda:0] x n`, built only when asked for); on it the whole mesh step is one
-CUDA graph per step shape. A mesh of distinct cards raises
-NotImplementedError: it waits for a multi-process torch.distributed backend. The dense and vlm families serve on a mesh; the others
-raise NotImplementedError naming the family.
+CUDA graph per step shape. Every family serves on a mesh: an MoE layer
+routes the step's gathered rows once, each model rank running its experts;
+the slot state is cut by heads, its rows shared by the data ranks (each
+writes its own slots), and the slot ops act on every part. A mesh of
+distinct cards raises NotImplementedError: it waits for a multi-process
+torch.distributed backend.
 """
 from __future__ import annotations
 
@@ -135,7 +138,7 @@ from repro_torch.core.api import CT_ARRAY_FIELDS, compress_model, is_clustered
 from repro_torch.core.clustered_params import make_draft_params
 from repro_torch.core.lut import SUPPORTED_NBITS
 from repro_torch.distributed.placement import MeshTree, place
-from repro_torch.distributed.sharding import use_rules
+from repro_torch.distributed.sharding import parts_on, use_rules
 from repro_torch.kernels.ops import add_launches, capture_launches
 from repro_torch.launch.mesh import make_mesh, require_one_device, visible_devices
 from repro_torch.models.config import get_config, reduced
@@ -536,7 +539,7 @@ class Request:
     # embeddings (1, enc_seq, d_model) in the model dtype on the engine's
     # device, encoded ONCE at admission into the slot's cross-attention state
     frames: Optional[Any] = None
-    # snapshot preemption: the slot's state rows ({name: tensor}) and its
+    # snapshot preemption: the slot's state rows ({name: [a tensor a part]}) and its
     # length when it was preempted; re-admission restores both instead of
     # re-prefilling
     snapshot: Optional[Dict[str, Any]] = None
@@ -683,20 +686,6 @@ class EngineConfig:
         return self.max_blocks_per_slot * self.block_size
 
 
-# the families whose serving step runs on a mesh
-MESH_FAMILIES = ("dense", "vlm")
-
-
-def _refuse_mesh_family(model: Model, mesh, ecfg: EngineConfig) -> None:
-    """NotImplementedError, naming the family, for a family the port does
-    not serve on a mesh yet, on any mesh but 1 x 1 (or knobs asking for one)."""
-    knobs = [v for v in (ecfg.data_parallel, ecfg.model_parallel) if v not in (None, 1)]
-    if model.cfg.family not in MESH_FAMILIES and (mesh.size > 1 or knobs):
-        raise NotImplementedError(
-            f"family '{model.cfg.family}' ({model.cfg.arch_id}) does not serve on a mesh "
-            f"yet (mesh {mesh.shape}); the families that do: {', '.join(MESH_FAMILIES)}")
-
-
 # ---------------------------------------------------------------------------
 # Continuous-batching engine
 # ---------------------------------------------------------------------------
@@ -742,7 +731,6 @@ class ServingEngine:
             require_one_device(mesh, "ServingEngine")
             self.device = mesh.lead_device
         self.mesh = mesh
-        _refuse_mesh_family(model, mesh, ecfg)
         # mesh-knob agreement: a config that requested axis sizes must match
         # the mesh this engine actually serves on
         axes = dict(self.mesh.shape)
@@ -872,14 +860,16 @@ class ServingEngine:
         self._graphs = _StepGraphs() if self.device.type == "cuda" else None
 
     def _place_sharded(self) -> None:
-        """Place the params, the draft's and both pools on the mesh (a 1 x 1
+        """Place the params, the draft's and every cache on the mesh (a 1 x 1
         mesh keeps them as they are). Weights by the serving names
         (`distributed/layout.py serving_names`: ClusteredTensor codes cut by
         the projections' output columns, smoothing vectors like the input
-        dims, codebooks and the vocab tables whole); pools by the family's
-        cache names (kv heads on the model axis: each rank holds its
-        kv-head shard of EVERY block, so block tables stay valid
-        everywhere)."""
+        dims, an MoE layer's stacked experts on their experts with every
+        field that carries them, codebooks and the vocab tables whole);
+        caches by the family's cache names (kv heads on the model axis: each
+        rank holds its kv-head shard of EVERY block, so block tables stay
+        valid everywhere; slot state by heads), every data rank holding the
+        same cache tensors."""
         if self.mesh.size == 1:
             return
         from repro_torch.distributed.layout import (SERVE_RULES, cache_shardings,
@@ -1436,14 +1426,24 @@ class ServingEngine:
     # copy-on-write copy is: the slot is a host int, so nothing waits for the
     # card, and every state tensor a step graph reads keeps its identity.
     # Each op is one entry in `traces`, the counterpart of the reference's
-    # one jitted function per op.
+    # one jitted function per op. On a mesh a leaf's model ranks hold its
+    # parts (`_state_parts`), every data rank the same tensors.
+
+    def _state_parts(self, name: str) -> List[torch.Tensor]:
+        """The tensors holding slot-state leaf `name`: itself, or on a mesh
+        each distinct part, in rank order."""
+        state = self.caches["slot"]
+        if isinstance(state, MeshTree):
+            return state.named_tensors(name)
+        return [state[name]]
 
     @torch.no_grad()
     def _slot_reset(self, s: int) -> None:
         """Zero slot `s`'s state rows: a fresh stint must not read the
         previous occupant's recurrence."""
-        for t in self.caches["slot"].values():
-            t[:, s].zero_()
+        for name in self.model.seq_caches["slot"].names:
+            for t in self._state_parts(name):
+                t[:, s].zero_()
         self.traces["slot_reset"] = self.traces.get("slot_reset", 0) + 1
 
     @torch.no_grad()
@@ -1451,25 +1451,30 @@ class ServingEngine:
         """Run the encoder ONCE for the request admitted into slot `s` and
         write its cross-attention K/V into the slot's rows of "ck" / "cv" in
         place (CAP_ENCODER): the encoder is a second prefill shape, fixed at
-        (1, enc_seq, d_model)."""
+        (1, enc_seq, d_model). On a mesh each model rank's part takes its
+        kv heads."""
         ck, cv = self.model.encode_prefill(self.params, frames)
-        state = self.caches["slot"]
-        state["ck"][:, s].copy_(ck)
-        state["cv"][:, s].copy_(cv)
+        for name, value in (("ck", ck), ("cv", cv)):
+            parts = self._state_parts(name)
+            for t, v in zip(parts, parts_on(value, len(parts), 2)):
+                t[:, s].copy_(v)
         self.traces["encode"] = self.traces.get("encode", 0) + 1
 
     @torch.no_grad()
-    def _slot_snapshot(self, s: int) -> Dict[str, torch.Tensor]:
-        """Copies of slot `s`'s state rows (a preemption snapshot)."""
-        snap = {name: t[:, s].clone() for name, t in self.caches["slot"].items()}
+    def _slot_snapshot(self, s: int) -> Dict[str, List[torch.Tensor]]:
+        """Copies of slot `s`'s state rows, part by part (a preemption
+        snapshot)."""
+        snap = {name: [t[:, s].clone() for t in self._state_parts(name)]
+                for name in self.model.seq_caches["slot"].names}
         self.traces["snapshot"] = self.traces.get("snapshot", 0) + 1
         return snap
 
     @torch.no_grad()
-    def _slot_restore(self, s: int, snap: Dict[str, torch.Tensor]) -> None:
+    def _slot_restore(self, s: int, snap: Dict[str, List[torch.Tensor]]) -> None:
         """Put a preemption snapshot back into slot `s`."""
-        for name, t in self.caches["slot"].items():
-            t[:, s].copy_(snap[name])
+        for name, saved in snap.items():
+            for t, v in zip(self._state_parts(name), saved):
+                t[:, s].copy_(v)
         self.traces["restore"] = self.traces.get("restore", 0) + 1
 
     # -- prefix cache, copy-on-write and tenant accounting --------------------
@@ -1977,7 +1982,7 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
                     f"factor the {n} visible device(s); got "
                     f"{ecfg.data_parallel} x {ecfg.model_parallel}")
             mesh = make_mesh((dp, mp), ("data", "model"), devs)
-        elif devices is not None and n > 1 and model.cfg.family in MESH_FAMILIES:
+        elif devices is not None and n > 1:
             from repro_torch.distributed.layout import choose_layout
             mesh, layout_report = choose_layout(model, params, ecfg, devices=devs)
             logger.info(f"mesh layout: chose {layout_report['chosen']} over {n} device(s)")

@@ -275,8 +275,9 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
                          "(continuous mode only)")
     ap.add_argument("--model-parallel", type=int, default=None, metavar="N",
                     help="pin the serving mesh's model (tensor-parallel) "
-                         "axis; ClusteredTensor codes/scales and the paged "
-                         "pool's kv heads shard across it (continuous mode "
+                         "axis; ClusteredTensor codes/scales, an MoE layer's "
+                         "experts, the paged pool's kv heads and the slot "
+                         "state's heads shard across it (continuous mode "
                          "only)")
     ap.add_argument("--no-fused-projections", dest="fused_projections",
                     action="store_false",

@@ -29,11 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
+from repro_torch.distributed.sharding import on_parts, whole
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import linear, rmsnorm, row_stable_matmul
 from repro_torch.models.linear_attn import gla_chunked
-from repro_torch.models.slot_state import gather_last_logits, mask_slot_state
+from repro_torch.models.slot_state import (mask_slot_state, per_head_ranks, slot_serving_step,
+                                           state_first, state_layer, token_by_token)
 from repro_torch.models.transformer import layer_slice, remat_call
 
 D = PT.ParamDecl
@@ -101,23 +103,29 @@ def gla_mix(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     s0 = (state if state is not None else
           torch.zeros((b, H, P, P), dtype=torch.float32, device=x.device))
     f32 = torch.float32
-    q = linear(x, p["wq"]).reshape(b, s, H, P).to(f32)
-    k = linear(x, p["wk"]).reshape(b, s, H, P).to(f32)
-    v = linear(x, p["wv"]).reshape(b, s, H, P).to(f32)
-    a = _gate(p, x).reshape(b, s, H, P)
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
+    a = _gate(p, x)
 
-    if cfg.ssm_impl == "chunked" and s > 1:
-        y, s_new = gla_chunked(q, k, v, a, s0)
-    else:
+    # on a mesh S is `Sharded` by heads: each model rank's recurrence runs
+    # over its heads, every other op whole (see `rwkv6.time_mix`)
+    def mix(q, k, v, a, s0):
+        q, k, v, a = (t.reshape(b, s, -1, P).to(f32) for t in (q, k, v, a))
+        if cfg.ssm_impl == "chunked" and s > 1:
+            return gla_chunked(q, k, v, a, s0)
         with record_function("recurrent.scan"):
-            y, s_new = _gla_scan(q, k, v, a, s0)
+            return _gla_scan(q, k, v, a, s0)
+
+    y, s_new = per_head_ranks(mix, s0, (q, k, v, a), (-1, -1, -1, -1))
     y = rmsnorm(y.reshape(b, s, d), p["ln_out"]["scale"])
-    out = linear(y, p["wo"]).to(x.dtype)
+    out = whole(linear(y, p["wo"])).to(x.dtype)
     return out, (s_new if state is not None else None)
 
 
 def _mlp(p, x):
-    return linear(F.gelu(linear(x, p["w_up"]), approximate="tanh"), p["w_down"])
+    h = F.gelu(whole(linear(x, p["w_up"])), approximate="tanh")
+    return whole(linear(h, p["w_down"]))
 
 
 def _block(p, x, cfg: ModelConfig, s=None):
@@ -186,21 +194,12 @@ def _state_step(params, state, tok: torch.Tensor, active: torch.Tensor,
     final norm, (slots, 1, d)."""
     x = params["embed"].to(cfg.torch_dtype)[tok.long()]
     for l in range(cfg.n_layers):
-        old = state["s"][l:l + 1]
-        x, s = _block(layer_slice(params["blocks"], l), x, cfg, old[0])
-        mask_slot_state({"s": s[None]}, {"s": old}, active)
+        old = state_layer(state["s"], l)
+        x, s = _block(layer_slice(params["blocks"], l), x, cfg, state_first(old))
+        mask_slot_state({"s": on_parts(s, lambda a: a[None])}, {"s": old}, active)
     return x
 
 
-@torch.no_grad()
-def serving_step(params, caches, tokens, lengths, n_new, block_tables, cfg: ModelConfig):
-    """Engine step over a (slots, T) window, one token at a time (the exact
-    sequential recurrence); a slot's rows past its n_new keep their state.
-    Returns the logits at each slot's last valid token and `caches`, whose
-    slot state was updated in place."""
-    del lengths, block_tables
-    state = caches["slot"]
-    xs = [_state_step(params, state, tokens[:, t:t + 1], t < n_new, cfg)
-          for t in range(tokens.shape[1])]
-    x = gather_last_logits(torch.stack(xs), n_new)
-    return _head(params, x, cfg)[:, -1], caches
+# The engine step over a (slots, T) window, one token at a time (the exact
+# sequential recurrence; see `rwkv6.serving_step`).
+serving_step = slot_serving_step(token_by_token(_state_step), _head)

@@ -11,8 +11,9 @@ On a serving mesh (`launch/engine.py ServingEngine(mesh=)`) a weight or a
 pool cut over the model axis arrives as a `distributed/sharding.py Sharded`:
 `linear` / `linear_group` run each model rank's LUT projection on its column
 shard (B1-B4 on the card), `paged_attn_block` runs B5 on each rank's kv
-heads with the query heads of their groups, and the parts combine at the
-`maybe_shard` calls, where the JAX package places its sharding constraints.
+heads with the query heads of their groups, `moe_block` each rank's experts,
+and the parts combine at the `maybe_shard` calls, where the JAX package
+places its sharding constraints.
 On one device every value is a tensor and those calls return it unchanged.
 """
 from __future__ import annotations
@@ -669,6 +670,12 @@ def moe_groups(t: int) -> Tuple[int, int]:
     return t // sg, sg
 
 
+def moe_capacity(sg: int, topk: int, n_experts: int) -> int:
+    """The places per expert in a group of sg tokens:
+    ceil(sg * topk * MOE_CAPACITY_FACTOR / E / 4) * 4, at most sg."""
+    return min(int(np.ceil(sg * topk * MOE_CAPACITY_FACTOR / n_experts / 4.0) * 4), sg)
+
+
 def moe_routing(router: torch.Tensor, xt: torch.Tensor, n_experts: int,
                 topk: int) -> MoeRouting:
     """Top-k routing with per-group expert capacity, as the JAX package's
@@ -677,14 +684,14 @@ def moe_routing(router: torch.Tensor, xt: torch.Tensor, n_experts: int,
     slots the argmax of the gates not taken yet (first index on a tie),
     the token's place at its expert counted over the group in token order
     after every earlier slot's tokens, and a drop at or past the capacity
-    C = ceil(Sg * topk * MOE_CAPACITY_FACTOR / E / 4) * 4 (at most Sg).
+    C (`moe_capacity`).
 
     One-hots are comparisons with an arange, so a place past the capacity
     is a zero row (as `jax.nn.one_hot` gives) and nothing checks an index
     on the host."""
     g, sg, _ = xt.shape
     e = n_experts
-    cap = min(int(np.ceil(sg * topk * MOE_CAPACITY_FACTOR / e / 4.0) * 4), sg)
+    cap = moe_capacity(sg, topk, e)
     dev = xt.device
     experts_r = torch.arange(e, device=dev)
     places_r = torch.arange(cap, device=dev)
@@ -729,7 +736,14 @@ def moe_block(p: Dict[str, Any], x: torch.Tensor,
     `resolve_weight` one at a time, and the combine product sums each
     token's kept experts' outputs weighted by their gates. Every f32 product,
     forward and backward, runs in full f32 whatever the caller's TF32
-    setting (`_FullF32Einsum`)."""
+    setting (`_FullF32Einsum`).
+
+    On a mesh the stacked weights may arrive cut on their experts
+    (`Sharded`, E/m a model rank): each rank runs its experts' SwiGLU on
+    their slice of the dispatched tokens, and their outputs are gathered in
+    rank order, so the one combine product sums every (expert, place) term
+    in its one-device order. The routing, the dispatch and the combine run
+    whole, once."""
     b, s, d = x.shape
     g, sg = moe_groups(b * s)
     xt = x.reshape(g, sg, d)
@@ -738,14 +752,26 @@ def moe_block(p: Dict[str, Any], x: torch.Tensor,
     with record_function("moe.dispatch_combine"):
         xe = _einsum("gsec,gsd->egcd", r.dispatch,
                      xt.to(torch.float32)).to(x.dtype)                  # (E, G, C, d)
-    # per-expert SwiGLU: weights (E, d, f) / (E, f, d), possibly clustered,
-    # resolved one weight at a time
-    h = F.silu(_expert_product("egcd,edf->egcf", xe, p["w_gate"]))
-    h = h * _expert_product("egcd,edf->egcf", xe, p["w_up"])
-    ye = _expert_product("egcf,efd->egcd", h, p["w_down"])
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    if isinstance(ws[0], Sharded):
+        parts = list(zip(*(w.parts for w in ws)))
+        per = xe.shape[0] // len(parts)
+        ye = gather([_expert_swiglu(_on(xe[m * per:(m + 1) * per], rank[0]), *rank)
+                     for m, rank in enumerate(parts)], 0)
+    else:
+        ye = _expert_swiglu(xe, *ws)
     with record_function("moe.dispatch_combine"):
-        out = _einsum("gsec,egcd->gsd", r.combine.to(x.dtype), ye)
+        out = _einsum("gsec,egcd->gsd", r.combine.to(x.dtype), ye.to(xe.device))
     return out.reshape(b, s, d), r.aux
+
+
+def _expert_swiglu(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The experts' SwiGLU over their dispatched tokens xe (E, G, C, d):
+    weights (E, d, f) / (E, f, d), possibly clustered, resolved one weight
+    at a time."""
+    h = F.silu(_expert_product("egcd,edf->egcf", xe, w_gate))
+    h = h * _expert_product("egcd,edf->egcf", xe, w_up)
+    return _expert_product("egcf,efd->egcd", h, w_down)
 
 
 def _expert_product(eq: str, a: torch.Tensor, w) -> torch.Tensor:

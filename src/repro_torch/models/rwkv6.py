@@ -28,11 +28,13 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
+from repro_torch.distributed.sharding import on_parts, whole
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import linear, rmsnorm, row_stable_matmul
 from repro_torch.models.linear_attn import wkv6_chunked
-from repro_torch.models.slot_state import gather_last_logits, mask_slot_state
+from repro_torch.models.slot_state import (mask_slot_state, per_head_ranks, slot_serving_step,
+                                           state_first, state_layer, token_by_token)
 from repro_torch.models.transformer import layer_slice, remat_call
 
 D = PT.ParamDecl
@@ -109,7 +111,11 @@ def _wkv_scan(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def time_mix(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     """state = (S (B,H,P,P) f32, x_prev (B,d)), or None (the full sequence
-    from a zero state). Returns (out, (S_new, x_last) or None)."""
+    from a zero state). Returns (out, (S_new, x_last) or None).
+
+    On a mesh S is `Sharded` by heads: each model rank runs the WKV
+    recurrence over its heads (r, k, v, the decay and u in that rank's head
+    slices); every other op runs whole, on gathered values."""
     b, s, d = x.shape
     H, P = cfg.rwkv_heads, cfg.rwkv_head_dim
     s0 = (state[0] if state is not None else
@@ -117,32 +123,35 @@ def time_mix(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     z = _shift(x, state[1] if state is not None else None)
 
     f32 = torch.float32
-    r = linear(_lerp(x, z, p["mu_r"]), p["wr"]).reshape(b, s, H, P).to(f32)
-    k = linear(_lerp(x, z, p["mu_k"]), p["wk"]).reshape(b, s, H, P).to(f32)
-    v = linear(_lerp(x, z, p["mu_v"]), p["wv"]).reshape(b, s, H, P).to(f32)
-    g = F.silu(linear(_lerp(x, z, p["mu_g"]), p["wg"]))
+    r = linear(_lerp(x, z, p["mu_r"]), p["wr"])
+    k = linear(_lerp(x, z, p["mu_k"]), p["wk"])
+    v = linear(_lerp(x, z, p["mu_v"]), p["wv"])
+    g = F.silu(whole(linear(_lerp(x, z, p["mu_g"]), p["wg"])))
 
     xw = _lerp(x, z, p["mu_w"]).to(f32)
     dlog = p["w0"] + row_stable_matmul(torch.tanh(row_stable_matmul(xw, p["decay_A"])),
                                        p["decay_B"])                   # (B,S,d)
-    w = torch.exp(-torch.exp(dlog)).reshape(b, s, H, P)              # data-dependent decay
+    w = torch.exp(-torch.exp(dlog))                                  # data-dependent decay
 
-    if cfg.ssm_impl == "chunked" and s > 1:
-        y, s_new = wkv6_chunked(r, k, v, w, p["u"], s0)
-    else:
+    def wkv(r, k, v, w, u, s0):
+        r, k, v, w = (a.reshape(b, s, -1, P).to(f32) for a in (r, k, v, w))
+        if cfg.ssm_impl == "chunked" and s > 1:
+            return wkv6_chunked(r, k, v, w, u, s0)
         with record_function("recurrent.scan"):
-            y, s_new = _wkv_scan(r, k, v, w, p["u"], s0)
+            return _wkv_scan(r, k, v, w, u, s0)
+
+    y, s_new = per_head_ranks(wkv, s0, (r, k, v, w, p["u"]), (-1, -1, -1, -1, 0))
     # per-head group norm (an rms norm over the flattened head outputs)
     y = rmsnorm(y.reshape(b, s, d), p["ln_out"]["scale"])
-    out = linear(y * g.to(y.dtype), p["wo"]).to(x.dtype)
+    out = whole(linear(y * g.to(y.dtype), p["wo"])).to(x.dtype)
     return out, ((s_new, x[:, -1]) if state is not None else None)
 
 
 def channel_mix(p, x, cfg: ModelConfig, x_prev) -> Tuple[torch.Tensor, Any]:
     z = _shift(x, x_prev)
-    k = torch.square(F.relu(linear(_lerp(x, z, p["mu_k"]), p["wk"])))
-    kv = linear(k, p["wv"])
-    rgate = torch.sigmoid(linear(_lerp(x, z, p["mu_r"]), p["wr"]))
+    k = torch.square(F.relu(whole(linear(_lerp(x, z, p["mu_k"]), p["wk"]))))
+    kv = whole(linear(k, p["wv"]))
+    rgate = torch.sigmoid(whole(linear(_lerp(x, z, p["mu_r"]), p["wr"])))
     return rgate * kv, (x[:, -1] if x_prev is not None else None)
 
 
@@ -228,26 +237,16 @@ def _state_step(params, state, tok: torch.Tensor, active: torch.Tensor,
     the final norm, (slots, 1, d)."""
     x = params["embed"].to(cfg.torch_dtype)[tok.long()]
     for l in range(cfg.n_layers):
-        old = {name: state[name][l:l + 1] for name in SLOT_STATE_NAMES}
-        x, new = _block(layer_slice(params["blocks"], l), x, cfg,
-                        old["wkv"][0], old["x_tm"][0], old["x_cm"][0])
-        mask_slot_state({name: t[None] for name, t in zip(SLOT_STATE_NAMES, new)},
-                        old, active)
+        old = {name: state_layer(state[name], l) for name in SLOT_STATE_NAMES}
+        x, new = _block(layer_slice(params["blocks"], l), x, cfg, state_first(old["wkv"]),
+                        whole(old["x_tm"])[0], whole(old["x_cm"])[0])
+        mask_slot_state({name: on_parts(t, lambda a: a[None])
+                         for name, t in zip(SLOT_STATE_NAMES, new)}, old, active)
     return x
 
 
-@torch.no_grad()
-def serving_step(params, caches, tokens, lengths, n_new, block_tables, cfg: ModelConfig):
-    """Engine step over a (slots, T) window, one token at a time so that the
-    exact sequential WKV recurrence runs (the chunked form needs more than
-    one token and never runs here); a slot's rows past its n_new keep their
-    state unchanged. Returns the logits at each slot's last valid token
-    (slots, padded_vocab) and `caches`, whose slot state was updated in
-    place. `lengths` and `block_tables` are unused: the recurrence has no
-    positions and no pages."""
-    del lengths, block_tables
-    state = caches["slot"]
-    xs = [_state_step(params, state, tokens[:, t:t + 1], t < n_new, cfg)
-          for t in range(tokens.shape[1])]
-    x = gather_last_logits(torch.stack(xs), n_new)                # (slots, 1, d)
-    return _head(params, x, cfg)[:, -1], caches
+# The engine step over a (slots, T) window, one token at a time so that the
+# exact sequential WKV recurrence runs (the chunked form needs more than one
+# token and never runs here): (the logits at each slot's last valid token
+# (slots, padded_vocab), `caches`, whose slot state was updated in place).
+serving_step = slot_serving_step(token_by_token(_state_step), _head)

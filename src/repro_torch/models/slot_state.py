@@ -12,13 +12,28 @@ engine's tokens are those of solo token-by-token decoding by construction.
 UNLIKE the JAX package, which returns new state arrays, the state is updated
 IN PLACE: the engine's CUDA graphs read the state tensors they were captured
 over, so no step may replace one.
+
+A family's engine step is its trunk (the token passes: each slot's hidden
+row at its last valid token) and its head (the final norm and the vocab
+product), joined by `slot_serving_step`.
+
+On a serving mesh (`launch/engine.py ServingEngine(mesh=)`) a state leaf is
+a `distributed/sharding.py Sharded`, cut by heads (or by inner channels)
+over the model axis, or whole: each model rank runs the recurrence over its
+heads (`per_head_ranks`), every other op of the step runs whole on
+gathered values, as on one device, and `mesh_state_step` runs each data
+rank over its slots' rows of the shared state tensors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 from torch.autograd.profiler import record_function
+
+from repro_torch.distributed.placement import MeshTree, data_rows
+from repro_torch.distributed.sharding import (Sharded, like, maybe_shard, on_parts, parts_on,
+                                              rank_parts, use_rules)
 
 
 def mask_slot_state(new: Dict[str, torch.Tensor], old: Dict[str, torch.Tensor],
@@ -26,11 +41,107 @@ def mask_slot_state(new: Dict[str, torch.Tensor], old: Dict[str, torch.Tensor],
     """old[name] = where(active, new[name], old[name]) in place, per slot:
     leaves are (layers, slots, ...) and `active` is (slots,) bool. A slot
     past its request's token count keeps its rows bit for bit, and the
-    tensors keep their identity."""
+    tensors keep their identity. A `Sharded` old leaf is written part by
+    part (a whole one once), from new's parts of the same cut (or a whole
+    new)."""
     with record_function("recurrent.mask_state"):
         for name, o in old.items():
-            m = active.view((1, -1) + (1,) * (o.ndim - 2))
-            torch.where(m, new[name].to(o.dtype), o, out=o)
+            olds = rank_parts(o)
+            news = rank_parts(new[name]) if isinstance(new[name], Sharded) else [new[name]]
+            for nw, op in zip(news, olds):
+                m = active.view((1, -1) + (1,) * (op.ndim - 2))
+                torch.where(m, nw.to(op.dtype), op, out=op)
+
+
+def state_layer(leaf, l: int):
+    """Layer l of a stacked state leaf, kept as (1, slots, ...) views."""
+    return on_parts(leaf, lambda t: t[l:l + 1])
+
+
+def state_first(leaf):
+    """The (slots, ...) rows of a (1, slots, ...) `state_layer` view."""
+    return on_parts(leaf, lambda t: t[0], dims_dropped=1)
+
+
+def per_head_ranks(fn: Callable, state, inputs: Sequence, dims: Sequence, out_dim: int = 2):
+    """A mixer over each model rank's heads: `state` is a state leaf (or a
+    tuple of leaves) cut by heads (`Sharded`) or whole (a tensor, or None),
+    whose `rank_parts` give the ranks; each of `inputs` is cut into as many
+    parts on its dim in `dims` (`parts_on`: a value already cut there keeps
+    its parts, a whole one is narrowed). fn(*rank's inputs, *rank's state
+    parts) -> (y, new state part or None) runs once a rank, in rank order.
+    Returns (the ys concatenated on `out_dim`, the new parts wrapped as
+    `state` is, or None). On one device it is fn once."""
+    states = state if isinstance(state, tuple) else (state,)
+    sparts = [rank_parts(t) for t in states]
+    n = len(sparts[0])
+    ins = [parts_on(x, n, dim) for x, dim in zip(inputs, dims)]
+    ys, news = [], []
+    for m in range(n):
+        y, new = fn(*(x[m] for x in ins), *(t[m] for t in sparts))
+        ys.append(y)
+        news.append(new)
+    y = ys[0] if n == 1 else torch.cat(ys, dim=out_dim)
+    return y, (None if news[0] is None else like(states[0], news))
+
+
+def token_by_token(state_step: Callable) -> Callable:
+    """A recurrent family's trunk from its one-token step `state_step(params,
+    state, tok (slots, 1), active (slots,), cfg)` -> hidden rows (slots, 1,
+    d): the (slots, T) window one token at a time, so that every token runs
+    the exact sequential recurrence and a slot's rows past its n_new keep
+    their state. Returns each slot's hidden row (before the final norm) at
+    its last valid token, (slots, d). `lengths` and `block_tables` are
+    unused: the recurrence has no positions and no pages."""
+    def trunk(params, caches, tokens, lengths, n_new, block_tables, cfg):
+        del lengths, block_tables
+        xs = [state_step(params, caches["slot"], tokens[:, t:t + 1], t < n_new, cfg)[:, 0]
+              for t in range(tokens.shape[1])]
+        return gather_last_logits(torch.stack(xs), n_new)
+    return trunk
+
+
+def slot_serving_step(trunk: Callable, head: Callable) -> Callable:
+    """A slot-state family's engine step from its `trunk(params, caches,
+    tokens, lengths, n_new, block_tables, cfg)` -> (slots, d) and its
+    `head(params, x, cfg)` -> (slots, padded_vocab): head(trunk(...)) on one
+    device, `mesh_state_step` on a mesh. Returns (the logits at each slot's
+    last valid token, `caches`), whose state was updated in place."""
+    @torch.no_grad()
+    def step(params, caches, tokens, lengths, n_new, block_tables, cfg):
+        args = (params, caches, tokens, lengths, n_new, block_tables, cfg)
+        if isinstance(params, MeshTree):
+            return mesh_state_step(trunk, head, *args), caches
+        return head(params, trunk(*args), cfg), caches
+    return step
+
+
+def mesh_state_step(trunk, head, params: MeshTree, caches, tokens, lengths, n_new,
+                    block_tables, cfg) -> torch.Tensor:
+    """A slot-state family's step on a (data, model) mesh, from one process:
+    each data rank runs `trunk(params, caches, tokens, lengths, n_new,
+    block_tables, cfg)` over its slots (`data_rows`) on its tree of shards
+    and its slots' rows of the slot state (the data ranks share the state's
+    tensors, and a pool's); the rows it returns are gathered in rank order
+    and `head(params, rows, cfg)` runs ONCE over every slot's row, as on one
+    device. Where the slots do not divide over the data axis, data rank 0
+    runs every slot alone: a recurrent state must advance once a token."""
+    mesh = params.mesh
+    rows_all = data_rows(mesh, tokens.shape[0])
+    if rows_all[0] == slice(None):
+        rows_all = rows_all[:1]
+    outs = []
+    with use_rules(mesh, fsdp=False):
+        for d, rows in enumerate(rows_all):
+            dev = mesh.device_at(data=d)
+            view = {kind: ({name: on_parts(leaf, lambda t: t[:, rows])
+                            for name, leaf in c.views[d].items()} if kind == "slot"
+                           else c.views[d]) for kind, c in caches.items()}
+            args = [a[rows].to(dev) for a in (tokens, lengths, n_new, block_tables)]
+            outs.append(trunk(params.views[d], view, *args, cfg))
+        x = outs[0] if len(outs) == 1 else maybe_shard(
+            Sharded(tuple(outs), 0, axis="data"), *[None] * outs[0].ndim)
+    return head(params.views[0], x, cfg)
 
 
 def gather_last_logits(x_tsv: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:

@@ -355,25 +355,27 @@ def _paged_trunk(
     tokens of the step together, the idle slots' and the padding's too, as
     the JAX package's does; its aux loss is dropped."""
     x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (S, T, d)
-    windows = layer_windows(cfg)
-    int8_kv = cache["k"].dtype == torch.int8
-    blocks = params["blocks"]
-
     for l in range(cfg.n_layers):
-        p = layer_slice(blocks, l)
-        kv_kw = dict(kc=layer_slice(cache["k"], l), vc=layer_slice(cache["v"], l))
-        if int8_kv:
-            kv_kw.update({kw: layer_slice(cache[name], l) for kw, name in (
-                ("kc_scale", "k_scale"), ("vc_scale", "v_scale"), ("k_smooth", "k_smooth"),
-                ("v_smooth", "v_smooth"))})
-        h = norm(x, p["ln_attn"], cfg.norm)
-        x = x + paged_attn_block(
-            p["attn"], h, cfg, layer_window=int(windows[l]),
-            block_tables=block_tables, lengths=lengths, n_new=n_new, **kv_kw)
+        p = layer_slice(params["blocks"], l)
+        x = _paged_attn_half(p, x, cache, l, block_tables, lengths, n_new, cfg)
         h = norm(x, p["ln_mlp"], cfg.norm)
         x = x + _mlp(cfg, p["mlp"], h)[0]
 
     return norm(x, params["ln_final"], cfg.norm)
+
+
+def _paged_attn_half(p, x, cache, l: int, block_tables, lengths, n_new,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Layer l's attention half over the paged pool: x + attn(norm(x))."""
+    kv_kw = dict(kc=layer_slice(cache["k"], l), vc=layer_slice(cache["v"], l))
+    if cache["k"].dtype == torch.int8:
+        kv_kw.update({kw: layer_slice(cache[name], l) for kw, name in (
+            ("kc_scale", "k_scale"), ("vc_scale", "v_scale"), ("k_smooth", "k_smooth"),
+            ("v_smooth", "v_smooth"))})
+    h = norm(x, p["ln_attn"], cfg.norm)
+    return x + paged_attn_block(
+        p["attn"], h, cfg, layer_window=int(layer_windows(cfg)[l]),
+        block_tables=block_tables, lengths=lengths, n_new=n_new, **kv_kw)
 
 
 @torch.no_grad()
@@ -414,31 +416,56 @@ def _mesh_step(params: MeshTree, cache: MeshTree, tokens, lengths, n_new, block_
     """The paged step on a (data, model) mesh, from one process: each data
     rank runs the trunk over its slots (`data_rows`) on its tree of shards
     (`_paged_trunk`: each model rank's LUT projections on its column shard,
-    B5 on its kv heads, the parts combined at `maybe_shard`); the data
-    ranks' hidden rows are gathered in rank order and the head runs ONCE over
-    every row, whole, as on one device: cuBLAS picks the head's kernel by
-    its (rows, columns), and a row's bits must not depend on the mesh
-    (ROADMAP C). `rows_of(x, n_new)` picks the rows the head needs (the
-    last valid token's, or every position for the verify). Returns the
-    logits on the mesh's first device; the pools were written in place."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"family '{cfg.family}' ({cfg.arch_id}): the MoE layer does not serve on a "
-            f"mesh yet (its experts' axis is the next slice)")
+    B5 on its kv heads, the parts combined at `maybe_shard`; an MoE model
+    layer by layer, `_moe_mesh_trunk`); the data ranks' hidden rows are
+    gathered in rank order and the head runs ONCE over every row, whole, as
+    on one device: cuBLAS picks the head's kernel by its (rows, columns),
+    and a row's bits must not depend on the mesh (ROADMAP C). `rows_of(x,
+    n_new)` picks the rows the head needs (the last valid token's, or every
+    position for the verify). Returns the logits on the mesh's first
+    device; the pools were written in place."""
     mesh = params.mesh
-    outs = []
     rows_all = data_rows(mesh, tokens.shape[0])
     with use_rules(mesh, fsdp=False):
+        ranks = []
         for d, rows in enumerate(rows_all):
             dev = mesh.device_at(data=d)
-            args = [a[rows].to(dev) for a in (tokens, lengths, n_new, block_tables)]
-            x = _paged_trunk(params.views[d], cache.views[d], *args, cfg)
-            outs.append(x if rows_of is None else rows_of(x, args[2]))
+            ranks.append([a[rows].to(dev) for a in (tokens, lengths, n_new, block_tables)])
+        if cfg.n_experts:
+            xs = _moe_mesh_trunk(params, cache, ranks, rows_all, cfg)
+        else:
+            xs = [_paged_trunk(params.views[d], cache.views[d], *args, cfg)
+                  for d, args in enumerate(ranks)]
+        outs = [x if rows_of is None else rows_of(x, args[2]) for x, args in zip(xs, ranks)]
         if rows_all[0] == slice(None):     # every data rank ran every slot
             x = outs[0]
         else:                              # the head's rows: every data rank's
             x = maybe_shard(Sharded(tuple(outs), 0, axis="data"), *[None] * outs[0].ndim)
     return lm_head_logits(params.views[0], x, cfg)
+
+
+def _moe_mesh_trunk(params: MeshTree, cache: MeshTree, ranks, rows_all, cfg: ModelConfig):
+    """`_paged_trunk` of an MoE model on a mesh, layer by layer over the
+    data ranks: each data rank's attention half over its slots, then its
+    normed rows gathered in rank order (slot order: `data_rows` are
+    contiguous) so that `moe_block` routes the step's whole token set ONCE,
+    the idle slots' pad tokens included, as on one device (routing per data
+    rank would form other groups with other capacities and drops); its
+    output is split back to the data ranks. Each model rank runs its
+    experts (`layers.moe_block`). Returns each data rank's final-norm
+    hidden rows."""
+    views, split = params.views, rows_all[0] != slice(None)
+    xs = [views[d]["embed"].to(cfg.torch_dtype)[args[0].long()] for d, args in enumerate(ranks)]
+    for l in range(cfg.n_layers):
+        ps = [layer_slice(v["blocks"], l) for v in views]
+        xs = [_paged_attn_half(ps[d], x, cache.views[d], l, args[3], args[1], args[2], cfg)
+              for d, (x, args) in enumerate(zip(xs, ranks))]
+        hs = [norm(x, p["ln_mlp"], cfg.norm) for x, p in zip(xs, ps)]
+        h = maybe_shard(Sharded(tuple(hs), 0, axis="data"), None, None, None) if split else hs[0]
+        out = _mlp(cfg, ps[0]["mlp"], h)[0]
+        outs = out.split([x.shape[0] for x in xs]) if split else [out] * len(xs)
+        xs = [x + o.to(x.device) for x, o in zip(xs, outs)]
+    return [norm(x, v["ln_final"], cfg.norm) for x, v in zip(xs, views)]
 
 
 @torch.no_grad()

@@ -32,10 +32,13 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
+from repro_torch.distributed.placement import MeshTree
+from repro_torch.distributed.sharding import rank_parts, whole
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_absmax_int8, _scatter_rows, attention,
                                        layernorm, linear, ragged_attention)
+from repro_torch.models.slot_state import per_head_ranks, slot_serving_step
 from repro_torch.models.transformer import layer_slice, remat_call
 
 D = PT.ParamDecl
@@ -120,10 +123,10 @@ def _mha(p, x, cfg: ModelConfig, *, kv_src=None, causal: bool,
     b, s, _ = x.shape
     nh, hd = cfg.n_heads_eff, cfg.hd
     src = x if kv_src is None else kv_src
-    q = linear(x, p["wq"]).reshape(b, s, nh, hd)
+    q = whole(linear(x, p["wq"])).reshape(b, s, nh, hd)
     if cache is not None and "k" in cache and kv_src is None:
-        k = linear(x, p["wk"]).reshape(b, s, nh, hd)
-        v = linear(x, p["wv"]).reshape(b, s, nh, hd)
+        k = whole(linear(x, p["wk"])).reshape(b, s, nh, hd)
+        v = whole(linear(x, p["wv"])).reshape(b, s, nh, hd)
         kc, vc = cache["k"], cache["v"]
         pos = cache["pos"] + torch.arange(s, device=x.device)
         if kc.dtype == torch.int8:
@@ -140,22 +143,24 @@ def _mha(p, x, cfg: ModelConfig, *, kv_src=None, causal: bool,
             vc.index_copy_(1, pos, v.to(vc.dtype))
             kd, vd = kc, vc
         o = attention(q, kd, vd, causal=True, q_offset=cache["pos"])
-        return linear(o.reshape(b, s, nh * hd), p["wo"]), cache
+        return whole(linear(o.reshape(b, s, nh * hd), p["wo"])), cache
     if cache is not None and kv_src is None and "k" not in cache:
         raise ValueError("bad cache")
     if cache is not None and kv_src is not None:
         # cross-attention over the precomputed encoder K/V
         o = attention(q, cache["ck"], cache["cv"], causal=False)
-        return linear(o.reshape(b, s, nh * hd), p["wo"]), None
-    k = linear(src, p["wk"]).reshape(b, src.shape[1], nh, hd)
-    v = linear(src, p["wv"]).reshape(b, src.shape[1], nh, hd)
+        return whole(linear(o.reshape(b, s, nh * hd), p["wo"])), None
+    k = whole(linear(src, p["wk"])).reshape(b, src.shape[1], nh, hd)
+    v = whole(linear(src, p["wv"])).reshape(b, src.shape[1], nh, hd)
     o = attention(q, k, v, causal=causal)
-    return linear(o.reshape(b, s, nh * hd), p["wo"]), None
+    return whole(linear(o.reshape(b, s, nh * hd), p["wo"])), None
 
 
 def _gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    h = F.gelu(linear(x, p["w_up"], p["b_up"]), approximate="tanh")
-    return linear(h, p["w_down"], p["b_down"])
+    """The gelu MLP; on a mesh each projection on its rank's columns, the
+    activation on the gathered hidden."""
+    h = F.gelu(whole(linear(x, p["w_up"], p["b_up"])), approximate="tanh")
+    return whole(linear(h, p["w_down"], p["b_down"]))
 
 
 def _enc_block(p, x, cfg: ModelConfig):
@@ -262,8 +267,8 @@ def build_cross_cache(params, enc_out: torch.Tensor, cfg: ModelConfig
     ks, vs = [], []
     for l in range(cfg.n_layers):
         p = layer_slice(cross, l)
-        ks.append(linear(enc_out, p["wk"]).reshape(b, se, nh, hd))
-        vs.append(linear(enc_out, p["wv"]).reshape(b, se, nh, hd))
+        ks.append(whole(linear(enc_out, p["wk"])).reshape(b, se, nh, hd))
+        vs.append(whole(linear(enc_out, p["wv"])).reshape(b, se, nh, hd))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -320,30 +325,36 @@ def encode_prefill(params, frames: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One request's encoder pass: frames (1, enc_seq, d) -> its cross K/V,
     each (L, enc_seq, H, D). Run once at admission (profiler range
-    "audio.encode")."""
+    "audio.encode"). On a mesh the encoder runs once on data rank 0's tree,
+    each projection on its model ranks' columns, and the engine writes each
+    model rank's kv heads into its part of the slot's cross K/V."""
+    if isinstance(params, MeshTree):
+        params = params.views[0]
     with record_function("audio.encode"):
         ks, vs = build_cross_cache(params, encode(params, frames, cfg), cfg)
     return ks[:, 0], vs[:, 0]
 
 
-@torch.no_grad()
-def serving_step(params, caches, tokens, lengths, n_new, block_tables,
-                 cfg: ModelConfig):
-    """Engine step over a (slots, T) decoder window: one ragged attention
+def _serving_trunk(params, caches, tokens, lengths, n_new, block_tables,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The engine step's decoder window (slots, T): one ragged attention
     pass (`layers.ragged_attention`: a row's bits the same at every width
     and slot count), per-slot positions indexing the learned position table
-    and the self K/V write sites. A token past its slot's n_new writes nothing
-    (`layers._scatter_rows`); keys at or past a slot's lengths + n_new are
-    masked. Returns the logits at each slot's last valid token (slots,
-    padded_vocab) — an idle slot's at position 0 — and `caches`, whose slot
-    state was updated IN PLACE (the engine's graphs read those tensors).
-    `block_tables` is unused: slot state has no pages."""
+    and the self K/V write sites. A token past its slot's n_new writes
+    nothing (`layers._scatter_rows`); keys at or past a slot's lengths +
+    n_new are masked. The self K/V are written IN PLACE (the engine's graphs
+    read those tensors). On a mesh the self and cross K/V are `Sharded` by
+    heads: each model rank writes and attends over its heads (its columns of
+    wq, wk and wv are exactly those heads), the outputs gathered for `wo`;
+    everything else runs whole. Returns each slot's hidden row (before the
+    final norm) at its last valid token, (slots, d) — an idle slot's at
+    position 0. `block_tables` is unused: slot state has no pages."""
     del block_tables
     state = caches["slot"]
     dec = params["dec"]
     s_slots, t = tokens.shape
     nh, hd = cfg.n_heads_eff, cfg.hd
-    max_seq = state["k"].shape[2]
+    max_seq = rank_parts(state["k"])[0].shape[2]
     dev = tokens.device
 
     steps = torch.arange(t, dtype=lengths.dtype, device=dev)
@@ -355,31 +366,46 @@ def serving_step(params, caches, tokens, lengths, n_new, block_tables,
     slot_ix = torch.arange(s_slots, device=dev)[:, None]
     idx = (slot_ix * max_seq + torch.clamp(pos, max=max_seq - 1)).reshape(-1).long()
     k_pos = torch.arange(max_seq, device=dev)
-    e_pos = torch.arange(state["ck"].shape[2], device=dev)
+    e_pos = torch.arange(rank_parts(state["ck"])[0].shape[2], device=dev)
     k_len = lengths + n_new
     scale = 1.0 / math.sqrt(hd)
+
+    def self_attn(q, k, v, kc, vc):
+        k, v = (a.reshape(s_slots * t, -1, hd) for a in (k, v))
+        _scatter_rows(kc, idx, k.to(kc.dtype), wvalid)
+        _scatter_rows(vc, idx, v.to(vc.dtype), wvalid)
+        with record_function("audio.self_attn"):
+            return ragged_attention(q.reshape(s_slots, t, -1, hd), kc, vc, pos, k_pos,
+                                    causal=True, scale=scale, k_len=k_len), None
+
+    def cross_attn(q, ck, cv):
+        with record_function("audio.cross_attn"):
+            return ragged_attention(q.reshape(s_slots, t, -1, hd), ck, cv, pos, e_pos,
+                                    causal=False, scale=scale), None
 
     x = dec["embed"].to(cfg.torch_dtype)[tokens.long()]
     x = x + dec["pos_embed"][torch.where(valid, pos, 0).long()].to(x.dtype)
     for l in range(cfg.n_layers):
         p = layer_slice(dec["blocks"], l)
-        kc, vc = state["k"][l], state["v"][l]             # (S, max_seq, H, D)
+        at = p["self_attn"]
         h = _norm(x, p["ln_self"])
-        q = linear(h, p["self_attn"]["wq"]).reshape(s_slots, t, nh, hd)
-        k = linear(h, p["self_attn"]["wk"]).reshape(s_slots * t, nh, hd)
-        v = linear(h, p["self_attn"]["wv"]).reshape(s_slots * t, nh, hd)
-        _scatter_rows(kc, idx, k.to(kc.dtype), wvalid)
-        _scatter_rows(vc, idx, v.to(vc.dtype), wvalid)
-        with record_function("audio.self_attn"):
-            o = ragged_attention(q, kc, vc, pos, k_pos, causal=True, scale=scale,
-                                 k_len=k_len)
-        x = x + linear(o.reshape(s_slots, t, nh * hd), p["self_attn"]["wo"])
+        o, _ = per_head_ranks(self_attn, (layer_slice(state["k"], l), layer_slice(state["v"], l)),
+                              [linear(h, at[w]) for w in ("wq", "wk", "wv")], (-1, -1, -1))
+        x = x + whole(linear(o.reshape(s_slots, t, nh * hd), at["wo"]))
+        at = p["cross_attn"]
         h = _norm(x, p["ln_cross"])
-        q = linear(h, p["cross_attn"]["wq"]).reshape(s_slots, t, nh, hd)
-        with record_function("audio.cross_attn"):
-            o = ragged_attention(q, state["ck"][l], state["cv"][l], pos, e_pos,
-                                 causal=False, scale=scale)
-        x = x + linear(o.reshape(s_slots, t, nh * hd), p["cross_attn"]["wo"])
+        o, _ = per_head_ranks(cross_attn, (layer_slice(state["ck"], l),
+                                           layer_slice(state["cv"], l)),
+                              [linear(h, at["wq"])], (-1,))
+        x = x + whole(linear(o.reshape(s_slots, t, nh * hd), at["wo"]))
         x = x + _gelu_mlp(p["mlp"], _norm(x, p["ln_mlp"]))
-    last = x[torch.arange(s_slots, device=dev), torch.clamp(n_new - 1, min=0).long()]
-    return _head(dec, last), caches
+    return x[torch.arange(s_slots, device=dev), torch.clamp(n_new - 1, min=0).long()]
+
+
+def _serving_head(params, x, cfg: ModelConfig) -> torch.Tensor:
+    return _head(params["dec"], x)
+
+
+# The engine step: (the logits at each slot's last valid token (slots,
+# padded_vocab), `caches`, whose slot state was updated in place).
+serving_step = slot_serving_step(_serving_trunk, _serving_head)

@@ -30,12 +30,15 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
+from repro_torch.distributed.sharding import on_parts, whole
+from repro_torch.kernels.ref import lane_stable
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attn_block, linear, mlp_block, paged_attn_block,
                                        rmsnorm)
 from repro_torch.models.linear_attn import ssd_chunked
-from repro_torch.models.slot_state import gather_last_logits, mask_slot_state
+from repro_torch.models.slot_state import (gather_last_logits, mask_slot_state, per_head_ranks,
+                                           slot_serving_step, state_first, state_layer)
 from repro_torch.models.transformer import (_attn_table, _mlp_table, layer_slice,
                                             remat_call)
 
@@ -110,7 +113,7 @@ def _ssd_scan(xh, Bt, Ct, dt, a_log, d_skip, s0) -> Tuple[torch.Tensor, torch.Te
     (B,S,N); dt: (B,S,H); s0: (B,H,P,N). The output's sum over n is an
     elementwise product and a sum, whose bits for a slot do not depend on
     the slot count (a batched product's do not hold that, H100)."""
-    decay = torch.exp(-dt * torch.exp(a_log)[None, None, :])      # (B,S,H)
+    decay = lane_stable(torch.exp, -dt * lane_stable(torch.exp, a_log)[None, None, :])
     s, ys = s0, []
     for t in range(xh.shape[1]):
         x_t, b_t, c_t = xh[:, t], Bt[:, t], Ct[:, t]
@@ -126,23 +129,31 @@ def mamba_block(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     sequence from a zero state). Returns (out, (ssm_new, conv_new) or None)."""
     b, s, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcd = linear(x, p["w_in"])
+    zxbcd = whole(linear(x, p["w_in"]))
     z, xc, Bt, Ct, dt = torch.split(zxbcd, [di, di, N, N, H], dim=-1)
-    xc, conv_state = _causal_conv(xc, p["conv"], state[1] if state is not None else None)
+    # on a mesh the conv state is `Sharded` by inner channels and the ssm
+    # state by heads: each model rank runs the conv over its channels and
+    # the recurrence over its heads, every other op whole
+    xc, conv_state = per_head_ranks(_causal_conv, state[1] if state is not None else None,
+                                    (xc, p["conv"]), (-1, -1), out_dim=-1)
     xc = F.silu(xc)
     f32 = torch.float32
-    xh = xc.reshape(b, s, H, P).to(f32)
-    dtf = F.softplus(dt.to(f32) + p["dt_bias"][None, None])
+    dtf = lane_stable(F.softplus, dt.to(f32) + whole(p["dt_bias"])[None, None])
     s0 = (state[0] if state is not None else
           torch.zeros((b, H, P, N), dtype=f32, device=x.device))
-    if cfg.ssm_impl == "chunked" and s > 1:
-        # block-parallel SSD: the state is materialised once per chunk
-        y, s_new = ssd_chunked(xh, Bt.to(f32), Ct.to(f32), dtf, p["a_log"], p["d_skip"], s0)
-    else:
+    Bt, Ct = Bt.to(f32), Ct.to(f32)
+
+    def ssd(xh, dt, a_log, d_skip, s0):
+        xh = xh.reshape(b, s, -1, P).to(f32)
+        if cfg.ssm_impl == "chunked" and s > 1:
+            # block-parallel SSD: the state is materialised once per chunk
+            return ssd_chunked(xh, Bt, Ct, dt, a_log, d_skip, s0)
         with record_function("recurrent.scan"):
-            y, s_new = _ssd_scan(xh, Bt.to(f32), Ct.to(f32), dtf, p["a_log"], p["d_skip"], s0)
+            return _ssd_scan(xh, Bt, Ct, dt, a_log, d_skip, s0)
+
+    y, s_new = per_head_ranks(ssd, s0, (xc, dtf, p["a_log"], p["d_skip"]), (-1,) * 4)
     y = y.reshape(b, s, di).to(x.dtype) * F.silu(z)
-    out = linear(y, p["w_out"])
+    out = whole(linear(y, p["w_out"]))
     return out, ((s_new, conv_state) if state is not None else None)
 
 
@@ -250,15 +261,15 @@ SLOT_STATE_NAMES = {"ssm": "layers,slots,ssm_heads,.,.",
                     "conv": "layers,slots,.,ssm_inner"}
 
 
-@torch.no_grad()
-def serving_step(params, caches, tokens, lengths, n_new, block_tables, cfg: ModelConfig):
-    """Engine step over a (slots, T) window, one token at a time: the mamba
-    layers run the exact sequential SSD recurrence on the slot state (each
-    layer's rows masked in place where the token is valid), and the shared
-    sites read and write their paged pools through the block tables at
-    width 1 (the t-th valid token lands at lengths + t; a token past a
-    slot's n_new writes nothing). Returns the logits at each slot's last
-    valid token and `caches`, updated in place."""
+def _serving_trunk(params, caches, tokens, lengths, n_new, block_tables, cfg: ModelConfig):
+    """The engine step's token passes over a (slots, T) window, one token at
+    a time: the mamba layers run the exact sequential SSD recurrence on the
+    slot state (each layer's rows masked in place where the token is valid),
+    and the shared sites read and write their paged pools through the block
+    tables at width 1 (the t-th valid token lands at lengths + t; a token
+    past a slot's n_new writes nothing); on a mesh the sites' pools are cut
+    on kv heads, B5 on each rank's. Returns each slot's hidden row (before
+    the final norm) at its last valid token, (slots, d)."""
     state, pool = caches["slot"], caches["paged"]
     shared = params["shared"]
     xs = []
@@ -267,19 +278,24 @@ def serving_step(params, caches, tokens, lengths, n_new, block_tables, cfg: Mode
         x = params["embed"].to(cfg.torch_dtype)[tokens[:, t:t + 1].long()]
         for layers, site in _segments(cfg):
             for l in layers:
-                old = {"ssm": state["ssm"][l:l + 1], "conv": state["conv"][l:l + 1]}
+                old = {"ssm": state_layer(state["ssm"], l), "conv": state_layer(state["conv"], l)}
                 x, (ssm, conv) = _mamba_layer(layer_slice(params["blocks"], l), x, cfg,
-                                              (old["ssm"][0], old["conv"][0]))
-                mask_slot_state({"ssm": ssm[None], "conv": conv[None]}, old, active)
+                                              (state_first(old["ssm"]), state_first(old["conv"])))
+                mask_slot_state({"ssm": on_parts(ssm, lambda a: a[None]),
+                                 "conv": on_parts(conv, lambda a: a[None])}, old, active)
             if site is None:
                 continue
             h = rmsnorm(x, shared["ln_attn"]["scale"])
             x = x + paged_attn_block(
-                shared["attn"], h, cfg, layer_window=0, kc=pool["k"][site],
-                vc=pool["v"][site], block_tables=block_tables, lengths=lengths + t,
-                n_new=active.to(lengths.dtype))
+                shared["attn"], h, cfg, layer_window=0, kc=layer_slice(pool["k"], site),
+                vc=layer_slice(pool["v"], site), block_tables=block_tables,
+                lengths=lengths + t, n_new=active.to(lengths.dtype))
             h = rmsnorm(x, shared["ln_mlp"]["scale"])
             x = x + mlp_block(shared["mlp"], h, cfg)
-        xs.append(x)
-    x = gather_last_logits(torch.stack(xs), n_new)
-    return _head(params, x, cfg)[:, -1], caches
+        xs.append(x[:, 0])
+    return gather_last_logits(torch.stack(xs), n_new)
+
+
+# The engine step: (the logits at each slot's last valid token, `caches`,
+# updated in place).
+serving_step = slot_serving_step(_serving_trunk, _head)

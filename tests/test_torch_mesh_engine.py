@@ -12,8 +12,10 @@ llama2-7b with LCD weights, float and quantized Eq. 11 transform, its QKV
 and gate+up fused. Then engine = solo on each mesh, int8 pools on 2 x 4,
 speculative = plain greedy on 1 x 2, the packed bytes a rank holds on 1 x 8,
 every write reaching the pool parts the data ranks share, a mesh of
-distinct devices refused, the pinned ValueErrors, the layout search through `build_engine`, the refused
-families and the CLI flags."""
+distinct devices refused, the pinned ValueErrors, the layout search through
+`build_engine` and the CLI flags (a dense, an MoE and a recurrent arch). The
+other families on a mesh: tests/test_torch_mesh_moe.py and
+tests/test_torch_mesh_slot_state.py."""
 import dataclasses
 
 import jax
@@ -298,21 +300,12 @@ def test_build_engine_pins_or_searches_the_layout(models):
     assert eng.mesh.size == 1 and eng.layout_report is None
 
 
-@pytest.mark.parametrize("arch,family", [("phi3.5-moe-42b-a6.6b", "moe"), ("rwkv6-1.6b", "rwkv"),
-                                         ("zamba2-1.2b", "hybrid")])
-def test_other_families_refuse_a_mesh_naming_the_family(arch, family):
-    model = port_model(arch)
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"family '{family}'.*mesh"):
-        port_engine.ServingEngine(model, params, mesh=_mesh(1, 2), device="cpu")
-    one = port_engine.ServingEngine(model, params, mesh=_mesh(1, 1), device="cpu")
-    assert one.mesh.size == 1
-
-
-def test_cli_mesh_flags(capsys):
-    """--data-parallel / --model-parallel: continuous mode only (the
-    reference's ap.error), a non-factoring request raises, 1 x 1 serves."""
-    argv = ["--arch", "llama2-7b", "--reduced", "--requests", "2", "--tokens", "3"]
+@pytest.mark.parametrize("arch", ["llama2-7b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b"])
+def test_cli_mesh_flags(capsys, arch):
+    """--data-parallel / --model-parallel with a dense, an MoE and a
+    recurrent arch: continuous mode only (the reference's ap.error), a
+    non-factoring request raises, 1 x 1 serves."""
+    argv = ["--arch", arch, "--reduced", "--requests", "2", "--tokens", "3"]
     for flag in ("--model-parallel", "--data-parallel"):
         with pytest.raises(SystemExit):
             port_serve.main(argv + [flag, "2"], device="cpu")

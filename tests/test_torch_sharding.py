@@ -359,3 +359,174 @@ def test_maybe_shard_gathers_in_rank_order_where_the_names_leave_a_dim_whole():
     assert placement.data_rows(port_mesh.make_mesh((4, 1), ("data", "model"), [CPU] * 4),
                                6) == [slice(None)] * 4
     assert np.prod(list(mesh.shape.values())) == mesh.size == 4
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_names_cut_every_projection_by_its_columns(arch):
+    """The port's serving names (ROADMAP C): no projection is cut along K
+    (a `q_dim`, `ff` or `ssm_inner` input into `embed` becomes a cut of its
+    output columns), a stacked expert weight is cut on its experts or whole,
+    and the vocab tables stay whole; every other leaf keeps the reference's
+    names."""
+    model = _port_model(arch)
+    for path, orig, names in _pairs(model.names(), layout.serving_names(model)):
+        nm, onm = names.split(","), orig.split(",")
+        if "experts" in onm:
+            assert nm == [n if n in ("layers", "experts") else "." for n in onm], path
+        elif "vocab" in onm:
+            assert set(nm) == {"."}, path
+        elif onm[-1] == "embed" and len(onm) > 1 and onm[-2] in ("q_dim", "ff", "ssm_inner"):
+            assert nm == onm[:-2] + [".", "embed_out"], path
+        else:
+            assert names == orig, path
+
+
+@pytest.mark.parametrize("n_model", [2, 4, 8])
+def test_stacked_experts_follow_their_cut_on_every_field(n_model):
+    """phi3.5-moe's (L, E, ...) expert stacks, clustered and with the
+    quantized transform's scales, on 2 x n_model: every field carrying the
+    experts dim (codes, codebook, smoothing vectors, scales) is cut there,
+    E / n_model experts a rank; at model 8 the 4 experts fall back to whole,
+    and no rank cuts them on `ff`."""
+    model = _port_model("phi3.5-moe-42b-a6.6b")
+    params = materialize_clustered(model, torch.Generator().manual_seed(0), device="cpu")
+    mlp = params["blocks"]["mlp"]
+    for k in ("w_gate", "w_up", "w_down"):
+        ct = mlp[k]
+        mlp[k] = ct._replace(inv_scale=1.0 / ct.smooth,
+                             act_scale=torch.full(ct.smooth.shape[:-1], 0.05))
+    mesh = port_mesh.make_mesh((2, n_model), ("data", "model"), [CPU] * (2 * n_model))
+    with sharding.use_rules(mesh, layout.SERVE_RULES, fsdp=False):
+        tree = placement.place(params, sharding.auto_shard(
+            params, layout.serving_names(model)), mesh)
+    n_exp = model.cfg.n_experts
+    for k in ("w_gate", "w_up", "w_down"):
+        leaf, whole = tree.views[0]["blocks"]["mlp"][k], mlp[k]
+        if n_exp % n_model:
+            assert not isinstance(leaf, sharding.Sharded) and leaf.codes is whole.codes
+            continue
+        assert isinstance(leaf, sharding.Sharded) and leaf.dim == 1
+        per = n_exp // n_model
+        for r, part in enumerate(leaf.parts):
+            for f in ("codes", "codebook", "smooth", "inv_scale", "act_scale"):
+                assert torch.equal(getattr(part, f), getattr(whole, f)[:, r * per:(r + 1) * per])
+            assert part.codes is tree.views[1]["blocks"]["mlp"][k].parts[r].codes
+
+
+@pytest.mark.parametrize("arch,cut", [
+    ("rwkv6-1.6b", {"wkv": 2}), ("gla-1.3b", {"s": 2}),
+    ("zamba2-1.2b", {"ssm": 2, "conv": 3, "k": 3, "v": 3}),
+    ("whisper-large-v3", {"k": 3, "v": 3, "ck": 3, "cv": 3})])
+def test_slot_state_cut_on_heads_and_shared_by_the_data_ranks(arch, cut):
+    """Every serving cache of a slot-state family on 2 x 2: cut by heads (by
+    inner channels for zamba2's conv state, by kv heads for its sites'
+    pools), never on the slots: both data ranks hold the same tensors and
+    each writes its own slots' rows. whisper's self K/V keep their key
+    positions whole (the reference's rules would give them the model axis)."""
+    model = _port_model(arch)
+    caches = model.init_seq_caches(num_blocks=8, block_size=4, num_slots=4, max_seq=16,
+                                   device="cpu")
+    mesh = port_mesh.make_mesh((2, 2), ("data", "model"), [CPU] * 4)
+    with sharding.use_rules(mesh, fsdp=False):
+        shard = layout.cache_shardings(model, caches)
+        trees = {kind: placement.place(c, shard[kind], mesh, writable=True)
+                 for kind, c in caches.items()}
+    for kind, tree in trees.items():
+        for name, leaf in tree.views[0].items():
+            assert leaf.dim == cut.get(name), (kind, name)
+            assert all(a is b for a, b in zip(leaf.parts, tree.views[1][name].parts))
+            if leaf.dim is not None:
+                whole = caches[kind][name]
+                assert leaf.parts[0].shape[leaf.dim] * 2 == whole.shape[leaf.dim]
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "paligemma-3b", "phi3.5-moe-42b-a6.6b",
+                                  "rwkv6-1.6b", "gla-1.3b", "zamba2-1.2b",
+                                  "whisper-large-v3"])
+def test_choose_layout_scores_every_factorization_of_every_family(arch):
+    """One arch of each family (gla dense, as its LCD gate LoRA cannot
+    run): every factorization of 4 devices scored, positive, the model
+    axis's gathers counted once a layer or more, the chosen mesh among
+    them."""
+    from repro_torch.launch.engine import EngineConfig
+    model = _port_model(arch)
+    gen = torch.Generator().manual_seed(0)
+    params = (model.init(gen, device="cpu") if arch == "gla-1.3b"
+              else materialize_clustered(model, gen, device="cpu"))
+    ecfg = EngineConfig(num_slots=8, block_size=4, num_blocks=32, max_blocks_per_slot=8)
+    mesh, report = layout.choose_layout(model, params, ecfg, devices=[CPU] * 4)
+    rows = report["candidates"]
+    assert set(rows) == {"4x1", "2x2", "1x4"} and report["chosen"] in rows
+    for row in rows.values():
+        assert row["t_model_s"] > 0 and row["flops"] > 0 and row["bytes"] > 0
+    assert rows["1x4"]["coll_counts"]["all-gather"] >= model.cfg.n_layers
+    assert rows["1x4"]["bytes"] < rows["4x1"]["bytes"]
+    assert mesh.shape == dict(zip(("data", "model"),
+                                  (int(x) for x in report["chosen"].split("x"))))
+
+
+# The dense family's rows before the scorer covered every family (reduced
+# llama2-7b and starcoder2-15b, LCD 4-bit, 8 slots, float pools): flops,
+# bytes, gathered bytes and gather counts per mesh. The scorer now counts
+# each gather the step makes, so llama2-7b's SwiGLU gathers its gate and its
+# up hidden (one more d_ff gather a layer than these rows), and a pool left
+# whole (1x8: 4 kv heads) gathers q, k and v as three gathers (two more
+# counts a layer, the same bytes); starcoder2-15b's gelu MLP gathers one.
+DENSE_ROWS = {
+    ("llama2-7b", 4): {"4x1": (11141120.0, 2926080.0, 3072.0, 1),
+                       "2x2": (11141120.0, 2796032.0, 22528.0, 17),
+                       "1x4": (11141120.0, 2781696.0, 61440.0, 16)},
+    ("llama2-7b", 8): {"8x1": (9764864.0, 2759680.0, 3584.0, 1),
+                       "2x4": (9764864.0, 2564608.0, 32768.0, 17),
+                       "1x8": (10223616.0, 3508736.0, 100352.0, 16)},
+    ("starcoder2-15b", 4): {"4x1": (10616832.0, 2861056.0, 3072.0, 1),
+                            "2x2": (10616832.0, 2754560.0, 22528.0, 17),
+                            "1x4": (10616832.0, 2745856.0, 61440.0, 16)},
+}
+
+
+@pytest.mark.parametrize("arch,n", sorted(DENSE_ROWS))
+def test_dense_scores_keep_their_values(arch, n):
+    """A dense arch's rows: flops and bytes exactly DENSE_ROWS', gathers the
+    same plus the ones named above DENSE_ROWS."""
+    from repro_torch.launch.engine import EngineConfig
+    model = _port_model(arch)
+    params = materialize_clustered(model, torch.Generator().manual_seed(0), device="cpu")
+    ecfg = EngineConfig(num_slots=8, block_size=4, num_blocks=32, max_blocks_per_slot=8)
+    _, report = layout.choose_layout(model, params, ecfg, devices=[CPU] * n)
+    cfg, elt = model.cfg, 4
+    for key, (flops, nbytes, coll, count) in DENSE_ROWS[(arch, n)].items():
+        row = report["candidates"][key]
+        data, m = (int(x) for x in key.split("x"))
+        s_rank = 8 // data
+        gated = cfg.mlp == "swiglu" and m > 1
+        whole_pool = m > 1 and cfg.n_kv_heads % m
+        assert row["flops"] == flops and row["bytes"] == nbytes, key
+        assert row["coll_bytes"] == coll + gated * cfg.n_layers * s_rank * cfg.d_ff * elt * (
+            m - 1) / m, key
+        assert row["coll_counts"]["all-gather"] == count + gated * cfg.n_layers + (
+            2 * cfg.n_layers if whole_pool else 0), key
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_expert_flops_are_e_over_m_experts_a_rank(arch, m):
+    """An MoE row's expert operations (the row's flops less those of the
+    same params without the expert stacks) are L · (E/m) · g · C · 2 · K · N
+    summed over w_gate, w_up and w_down, C the routing's capacity
+    (`layers.moe_capacity`) over the step's 8 tokens in g groups, on 1 x m."""
+    from repro_torch.launch.engine import EngineConfig
+    from repro_torch.models import layers
+    model = _port_model(arch)
+    params = materialize_clustered(model, torch.Generator().manual_seed(0), device="cpu")
+    ecfg = EngineConfig(num_slots=8, block_size=4, num_blocks=32, max_blocks_per_slot=8)
+    mesh = port_mesh.make_mesh((1, m), ("data", "model"), [CPU] * m)
+    bare = {**params, "blocks": {**params["blocks"], "mlp": {"router": params["blocks"]["mlp"][
+        "router"]}}}
+    got = (layout.score_layout(model, params, ecfg, mesh)["flops"]
+           - layout.score_layout(model, bare, ecfg, mesh)["flops"])
+    cfg = model.cfg
+    g, sg = layers.moe_groups(8)
+    cap = layers.moe_capacity(sg, cfg.moe_topk, cfg.n_experts)
+    kn = 3 * cfg.d_model * cfg.d_ff
+    assert got == cfg.n_layers * (cfg.n_experts // m) * g * cap * 2 * kn

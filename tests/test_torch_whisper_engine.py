@@ -274,8 +274,9 @@ def test_engine_config_refuses_what_the_family_lacks():
     """Speculation, the prefix cache and the int8 pool need capabilities the
     audio family lacks (the reference's `tests/test_cache_protocols.py`):
     `EngineConfig(arch=...)` refuses each, naming it, and so does the engine
-    for the int8 pool; a mesh is refused as not ported for the family, the
-    family named."""
+    for the int8 pool; a mesh knob the engine's mesh does not match is
+    refused, as for every family (whisper serves on a mesh:
+    tests/test_torch_mesh_slot_state.py)."""
     for kw, cap in ((dict(speculative_k=2), "'speculative'"),
                     (dict(prefix_cache=True), "'prefix_cache'"),
                     (dict(kv_dtype="int8"), "'int8_kv'")):
@@ -285,7 +286,8 @@ def test_engine_config_refuses_what_the_family_lacks():
     with pytest.raises(ValueError, match="int8_kv"):
         port_engine.ServingEngine(pmodel, pparams, port_engine.EngineConfig(kv_dtype="int8"),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="family 'audio'.*mesh"):
+    with pytest.raises(ValueError, match="data_parallel=2 does not match the engine "
+                                         "mesh's 'data' axis"):
         port_engine.ServingEngine(pmodel, pparams, port_engine.EngineConfig(data_parallel=2),
                                   device="cpu")
     eng = _engine(pmodel, pparams)
