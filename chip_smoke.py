@@ -54,7 +54,7 @@ decode step's time goes, graph and eager body in turns; serves the
 mixture-of-experts family (`moe_parity`: a 2-layer full-width phi3.5-moe
 with its stacked experts clustered, kernels against their plain versions,
 the MoE block alone against its f32 run, B1-B5 at both MoE archs' shapes;
-`serve_moe`: phi3.5-moe cut to 8 of its 32 layers and llama4-scout to 4 at
+`serve_moe`: phi3.5-moe cut to 4 of its 32 layers and llama4-scout to 4 at
 full width, every replay equal to its eager body, where a step's time goes,
 then phi3.5-moe's first 2 layers over an int8 pool and speculatively);
 serves the recurrent and hybrid families (`recurrent_parity`: rwkv6-1.6b,
@@ -76,7 +76,11 @@ MoE archs at 2 layers, their experts cut over the model axis and a step's
 rows routed once; rwkv6 and gla at 4, zamba2 at 6, whisper at 4 + 4, their
 slot state cut by heads; the next decode step's logits, the pools and the
 slot state and a drive's tokens torch.equal to 1 x 1, every replay equal to
-its eager body, the ops on a rank's part equal to the whole). Every phase prints
+its eager body, the ops on a rank's part equal to the whole); trains on
+(data, model) meshes of the card (`train_mesh`: the `train` cell's
+llama2-7b, 3 steps on (2, 1), (1, 2) and (2, 2) against the same steps at
+1 x 1, the placed state's bytes, then the elastic restart of a reduced
+llama2-7b re-sharded through its checkpoint). Every phase prints
 one JSON line; any failed phase ends the process with a non-zero exit
 code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
@@ -3917,6 +3921,7 @@ def phase_serve_sched(seed: int, params) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 30
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS)
 # model_parity's standard for f32 logits with the float transform
 STUDENT_TOL_MAX, STUDENT_TOL_MEAN = 1e-3, 1e-4
 # the leaf whose Fisher is held on the card against a plain computation
@@ -4123,7 +4128,9 @@ def phase_train(seed: int):
     of that student (`_fine_tune`); (5) an engine on the fine-tuned
     student: 4 staggered requests, tokens = each served alone. Returns the
     launch counts of (4)'s student evaluation, (4b)'s fine-tune and (5)'s
-    drive, and the `train_kernels` cases."""
+    drive, the `train_kernels` cases, and (2)'s first TRAIN_MESH_STEPS steps
+    (losses, gradient norms, seconds, a host copy of the params after them) for
+    `train_mesh`'s 1 x 1 run."""
     import dataclasses
     import shutil
     import tempfile
@@ -4132,9 +4139,11 @@ def phase_train(seed: int):
     from repro_torch.core import api
     from repro_torch.core.api import _flatten_with_paths, compress_model
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, calibration_batches
+    from repro_torch.distributed.sharding import use_rules
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_train_step
-    from repro_torch.models.config import get_config, reduced
+    from repro_torch.models.config import ShapeConfig, get_config, reduced
     from repro_torch.models.registry import get_model, lm_loss
     from repro_torch.optim.compress import EFState
     from repro_torch.optim.optimizer import OptConfig, init_adam
@@ -4168,12 +4177,15 @@ def phase_train(seed: int):
     # (2) training
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
                                   seed=seed))
-    opt_cfg = OptConfig(lr=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS)
-    step_fn = build_train_step(model, opt_cfg)
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    with use_rules(make_host_mesh([torch.device("cuda", 0)])):
+        step_fn = build_train_step(model, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                   opt_cfg)
     opt, ef = init_adam(params), EFState(None)
     losses, gnorms, step_s = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    state_bytes = torch.cuda.memory_allocated()
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         params, opt, ef, metrics = step_fn(params, opt, ef, _on_card(data.batch(step)))
@@ -4181,6 +4193,15 @@ def phase_train(seed: int):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
+        if step == TRAIN_MESH_STEPS - 1:
+            # train_mesh's 1 x 1 run: the same seed, data and OptConfig; its
+            # params kept as a host copy, so the later steps' peak is what
+            # it was without it
+            one_by_one = dict(losses=list(losses), grad_norms=list(gnorms),
+                              s_per_step=list(step_s),
+                              params=[t.cpu() for t in leaves(params)],
+                              peak_over_state_gib=round((torch.cuda.max_memory_allocated()
+                                                         - state_bytes) / 2**30, 2))
     steady = float(np.mean(step_s[1:]))
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     row["training"] = dict(
@@ -4199,7 +4220,9 @@ def phase_train(seed: int):
     # (3) checkpoint on the card, reduced llama2-7b
     rcfg = reduced(get_config("llama2-7b"), dtype="float32")
     rmodel = get_model(rcfg)
-    rstep = build_train_step(rmodel, OptConfig(lr=1e-3, warmup_steps=1, total_steps=5))
+    with use_rules(make_host_mesh([torch.device("cuda", 0)])):
+        rstep = build_train_step(rmodel, ShapeConfig("train", 64, 4, "train"),
+                                 OptConfig(lr=1e-3, warmup_steps=1, total_steps=5))
     rdata = SyntheticLM(DataConfig(vocab=rcfg.vocab, seq_len=64, batch_size=4, seed=seed))
     rp = rmodel.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     state = {"params": rp, "opt": init_adam(rp)}
@@ -4353,7 +4376,203 @@ def phase_train(seed: int):
         raise SystemExit(f"train: a kernel of the path was never launched: {counts}")
     del student
     torch.cuda.empty_cache()
-    return counts, _check_train_kernels(gen)
+    return counts, _check_train_kernels(gen), one_by_one
+
+
+# ---------------------------------------------------------------------------
+# training on (data, model) meshes of the card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_STEPS = 3
+# (data, model): the mesh shapes the train steps run on, each over [cuda:0] x n
+TRAIN_MESHES = ((2, 1), (1, 2), (2, 2))
+# per step, loss and gradient norm against 1 x 1; the params after the last
+# step (the reference's own microbatch test, tests/test_steps_system.py)
+TRAIN_MESH_REL, TRAIN_MESH_RTOL, TRAIN_MESH_ATOL = 1e-4, 1e-3, 1e-5
+# the elastic restarts: (model_parallel, devices) -> (n/mp, mp) then (n/2/mp, mp)
+ELASTIC_RUNS = ((1, 4), (2, 4))
+
+
+def _train_one_by_one(model, opt_cfg, batches, seed):
+    """`TRAIN_MESH_STEPS` steps of the plain one-device train step from the
+    seed's params (what `phase_train` records when it runs first)."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.compress import EFState
+    from repro_torch.optim.optimizer import init_adam
+    from repro_torch.tree import leaves
+
+    with use_rules(make_host_mesh([torch.device("cuda", 0)])):
+        step_fn = build_train_step(model, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                   opt_cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    opt, ef = init_adam(params), EFState(None)
+    out = dict(losses=[], grad_norms=[], s_per_step=[])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_bytes = torch.cuda.memory_allocated()
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, ef, m = step_fn(params, opt, ef, b)
+        torch.cuda.synchronize()
+        out["s_per_step"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["peak_over_state_gib"] = round(
+        (torch.cuda.max_memory_allocated() - state_bytes) / 2**30, 2)
+    out["params"] = [t.cpu() for t in leaves(params)]
+    return out
+
+
+def _rank_bytes(tree):
+    """{"d<i>m<j>": bytes} of the tensors data rank i's model rank j holds."""
+    from repro_torch.tree import leaves
+    n_data, n_model = len(tree.views), tree.mesh.shape.get("model", 1)
+    return {f"d{d}m{m}": sum(t.numel() * t.element_size()
+                             for t in leaves(tree.rank_tree(model_rank=m, data_rank=d)))
+            for d in range(n_data) for m in range(n_model)}
+
+
+def _elastic_run(seed, mp, n, fails) -> dict:
+    """`simulate_failure_and_resume` of a reduced llama2-7b (f32) over
+    [cuda:0] x n at model_parallel mp, its checkpoint under build/ (removed
+    after)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.elastic import simulate_failure_and_resume
+    from repro_torch.models.config import get_config, reduced
+    from repro_torch.models.registry import get_model
+
+    model = get_model(reduced(get_config("llama2-7b"), dtype="float32"))
+    data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=64, batch_size=8, seed=seed))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        rep = simulate_failure_and_resume(model, ckdir, data_fn=lambda s: _on_card(data.batch(s)),
+                                          steps_each=5, devices=[torch.device("cuda", 0)] * n,
+                                          model_parallel=mp)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    row = dict(arch=model.cfg.arch_id, mesh_before=rep.mesh_before, mesh_after=rep.mesh_after,
+               resumed_step=rep.resumed_step, loss_before=rep.loss_before,
+               loss_after=rep.loss_after, restored_equal=rep.restored_equal,
+               seconds=round(time.perf_counter() - t0, 2),
+               dir_removed=not os.path.exists(ckdir))
+    if not (rep.resumed_step == 5 and rep.restored_equal and np.isfinite(rep.loss_after)
+            and rep.loss_after < rep.loss_before + 0.5 and row["dir_removed"]):
+        fails.append(f"elastic resume {rep.mesh_before} -> {rep.mesh_after}: {row}")
+    return row
+
+
+def phase_train_mesh(seed: int, one_by_one=None) -> dict:
+    """Training on (data, model) meshes of the card, through the entry points
+    a user calls (`build_train_step` under `use_rules(mesh)`,
+    `place_train_state`, the bundle, `MeshTree.whole`): llama2-7b at full
+    width cut to TRAIN_LAYERS in f32, `train`'s batches (8 x 512 from
+    `SyntheticLM(seed)`) and OptConfig, TRAIN_MESH_STEPS steps on each of
+    TRAIN_MESHES from the seed's params, against the same steps at 1 x 1
+    (`one_by_one`, the first steps of `phase_train`, or run here): per step
+    loss and gradient norm within 1e-4 relative, the params after the last
+    step within rtol 1e-3 / atol 1e-5, the distinct tensors of the placed
+    state holding exactly the whole state's bytes. Prints seconds per step
+    (host clock after a synchronize), peak device memory over the state
+    beside 1 x 1's and the bytes each rank holds. Then the elastic restart
+    (`launch/elastic.py simulate_failure_and_resume`) of a reduced llama2-7b
+    over [cuda:0] x 4 at (4, 1) -> (2, 1) and (2, 2) -> (1, 2): resumed at
+    the checkpoint's step, every restored leaf torch.equal to the saved
+    one, the loss after within 0.5 of the loss before. The dense training
+    step launches none of the hand-written kernels (its weights are dense
+    and neither package's forward calls B9); the count is printed."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step, place_train_state
+    from repro_torch.models.config import ShapeConfig, get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.compress import EFState
+    from repro_torch.optim.optimizer import OptConfig, init_adam
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=TRAIN_LAYERS, dtype="float32")
+    model = get_model(cfg)
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                                  seed=seed))
+    batches = [_on_card(data.batch(s)) for s in range(TRAIN_MESH_STEPS)]
+    ran_one_by_one = one_by_one is None
+    if ran_one_by_one:
+        one_by_one = _train_one_by_one(model, opt_cfg, batches, seed)
+    want_params = [t.cuda() for t in one_by_one.pop("params")]
+    shape = ShapeConfig("train_mesh", TRAIN_SEQ, TRAIN_BATCH, "train")
+    fails, meshes = [], {}
+    reset_launch_counts()
+    for ms in TRAIN_MESHES:
+        mesh = _mesh_of(ms)
+        with use_rules(mesh):
+            bundle = build_train_step(model, shape, opt_cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+        opt = init_adam(params)
+        whole_bytes = sum(t.numel() * t.element_size() for t in leaves(params) + leaves(opt))
+        p, o, e = place_train_state(bundle, mesh, params, opt)
+        del params, opt
+        distinct_bytes = sum(t.numel() * t.element_size() for t in p.parts() + o.parts())
+        rank_bytes = _rank_bytes(p)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state_bytes = torch.cuda.memory_allocated()
+        losses, gnorms, secs = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            p, o, e, m = bundle(p, o, e, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated() - state_bytes
+        worst = 0.0
+        params_close = True
+        for got, want in zip(leaves(p.whole()), want_params):
+            params_close &= bool(torch.allclose(got, want, rtol=TRAIN_MESH_RTOL,
+                                                atol=TRAIN_MESH_ATOL))
+            worst = max(worst, float(((got - want).abs()
+                                      / (TRAIN_MESH_ATOL + TRAIN_MESH_RTOL * want.abs())).max()))
+        rel = [max(abs(a / b - 1), abs(c / d - 1)) for a, b, c, d in zip(
+            losses, one_by_one["losses"], gnorms, one_by_one["grad_norms"])]
+        name = f"{ms[0]}x{ms[1]}"
+        meshes[name] = dict(
+            losses=losses, grad_norms=gnorms, max_rel_err_loss_gnorm=max(rel),
+            params_worst_err_over_tol=worst, params_close=params_close,
+            s_per_step=[round(x, 4) for x in secs],
+            s_per_step_steady=round(float(np.mean(secs[1:])), 4),
+            peak_over_state_gib=round(peak / 2**30, 2),
+            state_bytes_whole=whole_bytes, state_bytes_distinct=distinct_bytes,
+            param_bytes_per_rank=rank_bytes)
+        if not (max(rel) <= TRAIN_MESH_REL and params_close and distinct_bytes == whole_bytes
+                and all(np.isfinite(losses))):
+            fails.append(f"{name}: {meshes[name]}")
+        del p, o, e, m
+        torch.cuda.empty_cache()
+    counts = {n: c for n, c in launch_counts().items() if c}
+    del want_params
+    torch.cuda.empty_cache()
+    elastic = [_elastic_run(seed, mp, n, fails) for mp, n in ELASTIC_RUNS]
+    emit("train_mesh", arch="llama2-7b", layers=TRAIN_LAYERS, dtype=cfg.dtype,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_MESH_STEPS,
+         one_by_one=dict(**one_by_one, from_phase_train=not ran_one_by_one,
+                         s_per_step_steady=round(float(np.mean(
+                             one_by_one["s_per_step"][1:])), 4)),
+         meshes=meshes, elastic=elastic, kernel_launches=counts,
+         tol=dict(loss_gnorm_rel=TRAIN_MESH_REL, params_rtol=TRAIN_MESH_RTOL,
+                  params_atol=TRAIN_MESH_ATOL))
+    if fails:
+        raise SystemExit(f"train_mesh: {'; '.join(fails)}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4679,20 +4898,20 @@ def _serve_spec_moe(arch, seed, params, n_layers=2, k=SPEC_K, new_tokens=16):
     return counts
 
 
-# the MoE family at full width: phi3.5-moe cut to 8 of its 32 layers (32 -> 16
-# when the audio phases came, 16 -> 8 for serve_mesh: the cut the script's
-# time limit asks for first), llama4-scout cut to 4 (its 48 would need ~54 GB of packed
+# the MoE family at full width: phi3.5-moe cut to 4 of its 32 layers (32 -> 16
+# when the audio phases came, 16 -> 8 for serve_mesh, 8 -> 4 for train_mesh:
+# the cut the script's time limit asks for first), llama4-scout cut to 4 (its 48 would need ~54 GB of packed
 # experts; at 8 layers the script ran 771 s, run 24b, and a decode step
 # resolves 2 B expert weights a layer)
-MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 8), ("llama4-scout-17b-a16e", 4))
+MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 4), ("llama4-scout-17b-a16e", 4))
 
 
 def phase_serve_moe(seed: int) -> dict:
     """The MoE family served like `serve`: LCD 4-bit weights from the seed
     with the stacked experts clustered too (`materialize_clustered`) and the
     quantized transform armed, fused projections, the `serve` engine's
-    geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b cut
-    to 8 layers and llama4-scout-17b-a16e to 4 (`MOE_DEPTHS`), at full width. Launch
+    geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b and
+    llama4-scout-17b-a16e cut to 4 layers (`MOE_DEPTHS`), at full width. Launch
     counts per model step (an MoE layer's LUT launches are its attention's),
     bounded shapes, every replay equal to its eager body in tokens and pools
     (`_graph_check`), tokens/s, and the step times with 8 slots busy and
@@ -5423,7 +5642,7 @@ ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve", "serv
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
               "serve_moe", "recurrent_parity", "serve_recurrent", "audio_parity",
-              "serve_audio", "serve_mesh_family", "train")
+              "serve_audio", "serve_mesh_family", "train", "train_mesh")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
 ON_SERVE_WEIGHTS = {"serve", "serve_mesh", "serve_unfused", "serve_static", "profile",
@@ -5556,9 +5775,14 @@ def main() -> int:
     # the trainer and the paper's pipeline: the student's forward (B2 / B4 at
     # 4096 rows) and its engine (B1-B5), counted on their own; B2 / B4 at
     # those rows against their plain versions, timed
-    train_counts, train_cases = ({}, {})
+    train_counts, train_cases, one_by_one = ({}, {}, None)
     if "train" in phases:
-        train_counts, train_cases = timed("train", phase_train, args.seed)
+        train_counts, train_cases, one_by_one = timed("train", phase_train, args.seed)
+    # training on (data, model) meshes of the card: the dense step, which
+    # launches no hand-written kernel; its count is printed, not required
+    train_mesh_counts = (timed("train_mesh", phase_train_mesh, args.seed, one_by_one)
+                         if "train_mesh" in phases else {})
+    one_by_one = None
     emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1),
          peak_device_memory_gib=peak_gib)
 
@@ -5635,6 +5859,8 @@ def main() -> int:
             "launches_serve_audio": audio_counts.get(name, 0),
             # the trainer's pipeline: the student's evaluation and its engine
             "launches_train": train_counts.get(name, 0),
+            # training on meshes of the card (dense weights: none expected)
+            "launches_train_mesh": train_mesh_counts.get(name, 0),
             "train_shapes": [{k: c.get(k) for k in (
                 "group", "m", "k", "n", "widths", "dtype", "ms", "plain_ms", "bound_ms",
                 "bound_by", "f32_core_bound_ms", "max_abs_err", "solo_sum_ms", "yardstick_ms",

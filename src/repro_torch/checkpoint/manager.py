@@ -18,11 +18,18 @@ back with torch, with no numpy extension dtype.
 Fault-tolerance contract:
   * a checkpoint without COMMITTED is ignored (crash mid-write);
   * `latest_step` is the newest committed step;
+  * `restore` re-shards on load: with `shardings` the whole leaves are
+    placed on the new mesh (`distributed/placement.py place(fsdp=True)`),
+    which may differ from the mesh at save time (an elastic restart
+    re-shards through host memory, as the reference's docstring says);
   * rolling retention keeps the newest `keep` checkpoints.
 
-One process writes the whole tree, so there is one shard, `shard_0.npz`
-(the name the reference gives host 0's): a checkpoint per host waits for a
-mesh (ROADMAP A7).
+`save` takes a tree placed on a training mesh (`MeshTree`s anywhere in it)
+and writes each leaf whole (`MeshTree.whole`), so the file is the one the
+reference writes for the same state. One process writes the whole tree,
+so there is one shard, `shard_0.npz` (the name the reference gives host
+0's): a checkpoint per host waits for the multi-process backend (ROADMAP
+A7).
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten_with_paths, unflatten
+from repro_torch.distributed.placement import MeshTree, place
+from repro_torch.tree import flatten_with_paths, leaves, unflatten
 from repro_torch.utils import logger
 
 _SHARD = "shard_0.npz"
@@ -47,6 +55,17 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
+
+
+def _whole(tree: Any) -> Any:
+    """`tree` with every placed subtree (`MeshTree`) gathered whole."""
+    if isinstance(tree, MeshTree):
+        return tree.whole()
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_whole(getattr(tree, f)) for f in tree._fields))
+    return tree
 
 
 def _from_numpy(arr: np.ndarray, logical: str) -> torch.Tensor:
@@ -72,7 +91,7 @@ class CheckpointManager:
         os.makedirs(tmp)
         arrays = {}
         manifest = {"step": step, "leaves": [], "extra": extra or {}}
-        for i, (name, leaf) in enumerate(flatten_with_paths(tree)):
+        for i, (name, leaf) in enumerate(flatten_with_paths(_whole(tree))):
             arr, logical = _to_numpy(torch.as_tensor(leaf))
             key = f"leaf_{i}"
             arrays[key] = arr
@@ -111,11 +130,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, *, device=None) -> Any:
-        """Load into the structure of `like` (a tree of tensors): each leaf
-        in its stored dtype, on `device`, or, when None, on the device of
-        `like`'s leaf at the same path. A stored shape that differs from
-        `like`'s raises ValueError."""
+    def restore(self, step: int, like: Any, *, shardings: Any = None, device=None) -> Any:
+        """Load into the structure of `like` (a tree of tensors, real or on
+        "meta"): each leaf in its stored dtype. With `shardings` (a tree of
+        NamedShardings matching `like`, e.g. {"params": ps, "opt": opt_sh}
+        of a train bundle built under `use_rules(mesh)`) the whole leaves
+        are read into host memory and placed on the shardings' mesh by
+        `place(fsdp=True)`: a `MeshTree`, whose subtrees `state["params"]`
+        gives; the mesh may differ from the one the state was saved from.
+        Otherwise each leaf goes on `device`, or, when None, on the device
+        of `like`'s leaf at the same path (the host for a "meta" leaf). A
+        stored shape that differs from `like`'s raises ValueError."""
+        if shardings is not None:
+            whole = self.restore(step, like, device="cpu")
+            return place(whole, shardings, leaves(shardings)[0].mesh, fsdp=True)
         path = os.path.join(self.dir, f"step_{step:08d}")
         if not os.path.exists(os.path.join(path, "COMMITTED")):
             raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -130,11 +158,14 @@ class CheckpointManager:
             if tuple(arr.shape) != want:
                 raise ValueError(f"shape mismatch for {p}: {arr.shape} vs {want}")
             dev = device if device is not None else getattr(leaf, "device", "cpu")
+            if torch.device(dev).type == "meta":
+                dev = "cpu"
             out.append(_from_numpy(arr, logical).to(dev))
         return unflatten(like, out)
 
-    def restore_latest(self, like: Any, *, device=None) -> Tuple[Optional[int], Any]:
+    def restore_latest(self, like: Any, *, shardings: Any = None,
+                       device=None) -> Tuple[Optional[int], Any]:
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like, device=device)
+        return step, self.restore(step, like, shardings=shardings, device=device)

@@ -21,10 +21,10 @@ decorates whole parameter trees, a ClusteredTensor's six fields included.
 A spec is a `PartitionSpec`: one entry per dim, None, an axis name or a
 tuple of names.
 
-The port serves a mesh from one process (`launch/mesh.py`): every model
-rank's shard is a tensor of its own on its rank's device (`Sharded`), and
-its step runs each rank's part and combines the parts where the layout
-says. `maybe_shard` is that point: the JAX package's sharding constraint,
+The port serves and trains on a mesh from one process (`launch/mesh.py`):
+every model rank's shard is a tensor of its own on its rank's device
+(`Sharded`), and its step runs each rank's part and combines the parts
+where the layout says. `maybe_shard` is that point: the JAX package's sharding constraint,
 which here gathers a cut activation (the parts concatenated in rank order)
 where the names leave its dim whole.
 """

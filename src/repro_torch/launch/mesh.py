@@ -6,11 +6,15 @@ a shape, and a grid of devices. The port serves a mesh from one process, so
 the grid holds `torch.device`s and a device may repeat: `[cpu] x n` for the
 tests, `[cuda:0] x n` on the card, where every rank's shard, gather and step
 runs for real on one device. A mesh of distinct devices can be built (the
-layout search scores one) but is not served (`require_one_device`).
-Nothing is built when this module is imported.
+layout search scores one) but is not served or trained on
+(`require_one_device`). Meshes serve (`launch/engine.py
+ServingEngine(mesh=)`) and train (`launch/train.py train(mesh=)`, the
+elastic restart of `launch/elastic.py` over `make_elastic_mesh`). Nothing
+is built when this module is imported.
 
-`make_production_mesh` (256 / 512 TPU chips) waits with the dry-run
-(ROADMAP A7).
+`make_production_mesh` (256 / 512 TPU chips) still waits: it belongs to the
+dry-run, which comes after training on a mesh for every family (ROADMAP
+A7).
 """
 from __future__ import annotations
 

@@ -12,11 +12,13 @@ runs on the card; add `--device cpu` for a rehearsal on the CPU.
     `torch.cuda.synchronize()` on the card) against its EMA; steps slower
     than `straggler_factor` x EMA are logged and counted;
   * optional int8 gradient compression (error feedback);
-  * optional microbatch accumulation.
-
-One device: the port's meshes serve (`launch/engine.py ServingEngine(mesh=)`);
-training on a mesh, with the reference's FSDP `embed` rule and its elastic
-restarts, is still to come (ROADMAP A7).
+  * optional microbatch accumulation;
+  * a (data, model) mesh: `train(mesh=)`, by default `make_host_mesh([device])`,
+    the 1 x 1 mesh the reference's `make_host_mesh()` gives on one device.
+    On a larger mesh of a repeated device ([cuda:0] x n) the state is placed
+    by the train bundle's FSDP specs (`launch/steps.py place_train_state`),
+    and auto-resume restores onto the run's mesh. The CLI has no mesh flag,
+    as the reference's has none.
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.steps import build_train_step
-from repro_torch.models.config import get_config, reduced
+from repro_torch.distributed.sharding import use_rules
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_train_step, place_train_state
+from repro_torch.models.config import ShapeConfig, get_config, reduced
 from repro_torch.models.registry import get_model
 from repro_torch.optim.compress import EFState, init_ef
 from repro_torch.optim.optimizer import OptConfig, init_adam
@@ -51,30 +55,43 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
           ckpt_every: int = 50, grad_compress: bool = False,
           microbatch: int = 0, lr: float = 1e-3,
           straggler_factor: float = 3.0, seed: int = 0,
-          log_every: int = 10, device="cuda") -> TrainLoopReport:
+          log_every: int = 10, device="cuda", mesh=None) -> TrainLoopReport:
     """Train `arch` (its `reduced()` form in f32 with `use_reduced`) on the
     synthetic stream from `seed`, on `device` ("cuda" unless the caller asks
-    for the CPU; asking for a card that is not there raises)."""
-    dev = resolve_device(device)
+    for the CPU; asking for a card that is not there raises), or on `mesh`
+    (default: `make_host_mesh([device])`, 1 x 1): a mesh of more than one
+    coordinate trains the placed state (`launch/steps.py`)."""
+    dev = resolve_device(device) if mesh is None else mesh.lead_device
+    mesh = make_host_mesh([dev]) if mesh is None else mesh
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg, dtype="float32")
     model = get_model(cfg)
     opt_cfg = OptConfig(lr=lr, warmup_steps=min(20, steps // 5), total_steps=steps)
-    step_fn = build_train_step(model, opt_cfg, grad_compress=grad_compress,
-                               microbatch=microbatch)
+    with use_rules(mesh):
+        bundle = build_train_step(model, ShapeConfig("train", seq, batch, "train"), opt_cfg,
+                                  grad_compress=grad_compress, microbatch=microbatch)
+    placed = mesh.size > 1
 
     params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
     opt_state = init_adam(params)
     ef = init_ef(params) if grad_compress else EFState(None)
-    logger.info(f"{arch}: {model.param_count():,} params on {dev}")
+    if placed:
+        params, opt_state, ef = place_train_state(bundle, mesh, params, opt_state, ef)
+    logger.info(f"{arch}: {model.param_count():,} params on {mesh!r}")
 
     cm = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start, resumed = 0, None
     if cm is not None:
         latest = cm.latest_step()
         if latest is not None:
-            state = cm.restore(latest, {"params": params, "opt": opt_state})
+            if placed:
+                state = cm.restore(latest, {"params": bundle.abstract_inputs[0],
+                                            "opt": bundle.abstract_inputs[1]},
+                                   shardings={"params": bundle.in_shardings[0],
+                                              "opt": bundle.in_shardings[1]})
+            else:
+                state = cm.restore(latest, {"params": params, "opt": opt_state})
             params, opt_state = state["params"], state["opt"]
             start = resumed = latest
             logger.info(f"auto-resumed from step {latest}")
@@ -87,7 +104,7 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     for step in range(start, steps):
         t0 = time.perf_counter()
         b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(step).items()}
-        params, opt_state, ef, metrics = step_fn(params, opt_state, ef, b)
+        params, opt_state, ef, metrics = bundle(params, opt_state, ef, b)
         loss = float(metrics["loss"])
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

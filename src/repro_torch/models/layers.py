@@ -13,7 +13,10 @@ pool cut over the model axis arrives as a `distributed/sharding.py Sharded`:
 shard (B1-B4 on the card), `paged_attn_block` runs B5 on each rank's kv
 heads with the query heads of their groups, `moe_block` each rank's experts,
 and the parts combine at the `maybe_shard` calls, where the JAX package
-places its sharding constraints.
+places its sharding constraints. On a training mesh (`launch/steps.py
+build_train_step` on a placed state) the full-sequence `attn_block` does
+the same under autograd: each model rank's projections on its column
+shard and the attention of its own heads (`_mesh_attention`).
 On one device every value is a tensor and those calls return it unchanged.
 """
 from __future__ import annotations
@@ -29,7 +32,7 @@ from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import _unpack_codes, is_clustered
-from repro_torch.distributed.sharding import Sharded, device_of, gather, maybe_shard
+from repro_torch.distributed.sharding import Sharded, device_of, gather, maybe_shard, whole
 from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
 from repro_torch.kernels.paged_attention import paged_pool_attention
 from repro_torch.models.config import ModelConfig
@@ -359,13 +362,24 @@ def attn_block(
     JAX package, which returns a new cache, the cache tensors (one layer's
     views of the stacked cache) are UPDATED IN PLACE; the caller advances
     `pos`. An int8 cache stores absmax codes with per-(token, kv-head)
-    scales and is dequantized in the activation dtype on read."""
+    scales and is dequantized in the activation dtype on read.
+
+    On a training mesh the weights arrive cut over the model axis
+    (`Sharded`, no cache): each model rank attends with its own heads
+    (`_mesh_attention`), and the heads' outputs are gathered for `wo`,
+    whose output columns are cut, and gathered again for the residual."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads_eff, cfg.n_kv_heads
     base = cache["pos"] if cache is not None else pos_offset
     q, k, v = linear_group(
         x, (p["wq"], p["wk"], p["wv"]),
         (p.get("bq"), p.get("bk"), p.get("bv")), cfg)
+    if any(isinstance(a, Sharded) for a in (q, k, v)):
+        if cache is not None:
+            raise NotImplementedError("attn_block: weights cut on a mesh with a contiguous "
+                                      "cache; a mesh serves through the paged step")
+        o = maybe_shard(_mesh_attention(q, k, v, cfg, layer_window, base), "batch", None, None)
+        return maybe_shard(linear(o, p["wo"]), "batch", None, "embed")
     pos = base + torch.arange(s, device=x.device)
     q = rope(q.reshape(b, s, nh, hd), pos, cfg.rope_theta)
     k = rope(k.reshape(b, s, nkv, hd), pos, cfg.rope_theta)
@@ -389,7 +403,42 @@ def attn_block(
 
     o = attention(q, k, v, causal=True, window=int(layer_window),
                   softcap=cfg.attn_softcap, q_offset=base)
-    return linear(o.reshape(b, s, nh * hd), p["wo"])
+    return maybe_shard(linear(o.reshape(b, s, nh * hd), p["wo"]), "batch", None, "embed")
+
+
+def _mesh_attention(q, k, v, cfg: ModelConfig, layer_window: int, base):
+    """The full-sequence attention of projections cut over the model axis:
+    where q, k and v are all cut by their columns into m parts on whole
+    heads (m divides the kv heads, and so the query heads), each model rank
+    runs RoPE and the attention of its own query heads over its kv heads
+    (its columns of wq, wk and wv are exactly those heads, GQA groups
+    included), a `Sharded` (B, S, H/m · D) result; otherwise (the
+    divisibility fallback: kv heads the model axis does not divide) q, k and
+    v are gathered and attended once, whole."""
+    b, s = q.parts[0].shape[:2] if isinstance(q, Sharded) else q.shape[:2]
+    nh, nkv = cfg.n_heads_eff, cfg.n_kv_heads
+    n = len(q.parts) if isinstance(q, Sharded) else 1
+    by_heads = (all(isinstance(a, Sharded) and a.dim == 2 and len(a.parts) == n
+                    for a in (q, k, v)) and nkv % n == 0)
+    if not by_heads:
+        return _heads_attention(whole(q), whole(k), whole(v), cfg, b, s, nh, nkv,
+                                layer_window, base)
+    return Sharded(tuple(_heads_attention(q.parts[i], k.parts[i], v.parts[i], cfg, b, s,
+                                          nh // n, nkv // n, layer_window, base)
+                         for i in range(n)), 2)
+
+
+def _heads_attention(q, k, v, cfg: ModelConfig, b: int, s: int, nh: int, nkv: int,
+                     layer_window: int, base) -> torch.Tensor:
+    """RoPE and causal attention of `nh` query heads over `nkv` kv heads:
+    q (B, S, nh·D), k / v (B, S, nkv·D) -> (B, S, nh·D)."""
+    hd = cfg.hd
+    pos = base + torch.arange(s, device=q.device)
+    q = rope(q.reshape(b, s, nh, hd), pos, cfg.rope_theta)
+    k = rope(k.reshape(b, s, nkv, hd), pos, cfg.rope_theta)
+    o = attention(q, k, v.reshape(b, s, nkv, hd), causal=True, window=int(layer_window),
+                  softcap=cfg.attn_softcap, q_offset=base)
+    return o.reshape(b, s, nh * hd)
 
 
 # ---------------------------------------------------------------------------

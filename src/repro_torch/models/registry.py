@@ -307,6 +307,15 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
             vocab: int) -> torch.Tensor:
     """Masked next-token cross-entropy in f32; padded-vocab logits are
     excluded (set to -1e30)."""
+    total, count = lm_nll(logits, targets, mask, vocab)
+    return total / torch.clamp(count, min=1.0)
+
+
+def lm_nll(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+           vocab: int):
+    """(the masked NLL summed over the rows, the mask's sum), both f32: the
+    two sums `lm_loss` divides, which a data rank of a training mesh
+    computes over its own rows (the step divides by the global count)."""
     lf = logits.to(torch.float32)
     if lf.shape[-1] != vocab:
         valid = torch.arange(lf.shape[-1], device=lf.device) < vocab
@@ -315,4 +324,4 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
     mask = mask.to(torch.float32)
     nll = (logz - gold) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll), torch.sum(mask)

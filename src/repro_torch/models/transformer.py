@@ -212,7 +212,9 @@ def remat_call(cfg: ModelConfig, fn, *args):
     `cfg.remat_policy` "nothing" only the inputs are kept and the rest is
     recomputed in the backward; "dots" also keeps the projections' outputs.
     The counterpart of the JAX package's `jax.checkpoint` around its scanned
-    body, shared by every family's forward."""
+    body, shared by every family's forward. The args may hold a training
+    mesh's `Sharded` weights (the non-reentrant checkpoint records the
+    graph to every part and recomputes only what it did not save)."""
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
     kw = {}
@@ -248,7 +250,10 @@ def forward(
     `torch.utils.checkpoint` (`cfg.remat_policy`), as the JAX package wraps
     its scanned body in `jax.checkpoint`. Clustered weights go through
     `kernels.ops.clustered_linear` / `clustered_linear_multi`: on the card
-    the LUT GEMMs at B * S rows."""
+    the LUT GEMMs at B * S rows. On a training mesh (`launch/steps.py
+    _mesh_train_step`) the projections arrive cut over the model axis
+    (`Sharded`) and `layers.attn_block` / `mlp_block` run each rank's part;
+    the embedding, norms and head are whole."""
     x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (B, S, d)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)

@@ -85,11 +85,25 @@ def init_ef(params) -> EFState:
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params))
 
 
+def abstract_ef(aparams) -> EFState:
+    """The EF state of an abstract parameter tree: f32 residuals on "meta"."""
+    return EFState(tree_map(
+        lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), aparams))
+
+
 def compress_decompress(g: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize (g + residual) to int8 with one absmax scale, return
     (dequantized in g's dtype, new f32 residual)."""
+    return round_trip(g, r, torch.amax(torch.abs(g.to(torch.float32) + r)))
+
+
+def round_trip(g: torch.Tensor, r: torch.Tensor, amax: torch.Tensor):
+    """The int8 round trip of g + residual r under the scale amax / 127:
+    (dequantized in g's dtype, new f32 residual). The train step on a mesh
+    passes each part of a leaf the whole leaf's amax, so every element gets
+    the bits the whole leaf's round trip gives it."""
     gf = g.to(torch.float32) + r
-    scale = torch.clamp(torch.amax(torch.abs(gf)), min=1e-30) / 127.0
+    scale = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127)
     deq = q * scale
     return deq.to(g.dtype), gf - deq

@@ -6,6 +6,12 @@ with ClusteredTensor leaves), not a `torch.optim` class: the tree, the state
 (`AdamState`, a NamedTuple with the reference's fields) and so the
 checkpoint's leaf paths stay the reference's. The moments live in f32; the
 update is computed in f32 and cast back to each parameter's dtype.
+
+`update_tensors` is the update over aligned lists of tensors: the train
+step on a mesh (`launch/steps.py`) passes it every rank's distinct parts,
+so the clip scale comes from the global norm of the whole gradient tree
+and every other operation, elementwise, gives each part its slice of the
+whole update.
 """
 from __future__ import annotations
 
@@ -58,6 +64,15 @@ def init_adam(params) -> AdamState:
                      tree_map(zeros, params), tree_map(zeros, params))
 
 
+def abstract_adam(aparams) -> AdamState:
+    """The Adam state of an abstract parameter tree (tensors on "meta"): f32
+    moments shaped like every leaf and an int32 step, on "meta"."""
+    def z(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamState(torch.empty((), dtype=torch.int32, device="meta"),
+                     tree_map(z, aparams), tree_map(z, aparams))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every floating leaf, in f32 (integer
     leaves are skipped)."""
@@ -75,9 +90,21 @@ def adam_update(cfg: OptConfig, params, grads, state: AdamState):
     the gradients' global norm before clipping). Integer leaves (an LCD
     tensor's codes) are frozen; weight decay is decoupled and applies to
     leaves with ndim >= 2 only."""
-    gnorm = global_norm(grads)
+    step, new, gnorm = update_tensors(
+        cfg, [leaves(t) for t in (params, grads, state.m, state.v)], state.step)
+    return (unflatten(params, [n[0] for n in new]),
+            AdamState(step, unflatten(state.m, [n[1] for n in new]),
+                      unflatten(state.v, [n[2] for n in new])), gnorm)
+
+
+@torch.no_grad()
+def update_tensors(cfg: OptConfig, flat, step):
+    """`adam_update` over aligned lists `flat` = [params, grads, m, v] of
+    tensors and the step count: (step + 1, [(p', m', v')] a tensor, the
+    gradients' global norm, their squares summed in list order)."""
+    gnorm = global_norm(flat[1])
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    step = state.step + 1
+    step = step + 1
     lr = lr_at(cfg, step)
     sf = step.to(torch.float32)
     b1c = 1 - torch.pow(torch.tensor(cfg.beta1, dtype=torch.float32, device=sf.device), sf)
@@ -94,10 +121,6 @@ def adam_update(cfg: OptConfig, params, grads, state: AdamState):
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
 
-    flat = [leaves(t) for t in (params, grads, state.m, state.v)]
     if len({len(f) for f in flat}) != 1:
         raise ValueError("adam_update: params, grads and moments differ in structure")
-    new = [upd(*leaf) for leaf in zip(*flat)]
-    return (unflatten(params, [n[0] for n in new]),
-            AdamState(step, unflatten(state.m, [n[1] for n in new]),
-                      unflatten(state.v, [n[2] for n in new])), gnorm)
+    return step, [upd(*leaf) for leaf in zip(*flat)], gnorm

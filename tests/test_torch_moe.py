@@ -598,7 +598,11 @@ def test_one_train_step_with_the_aux_loss_equals_the_reference():
                           ref_compress.EFState(None), jb)
     pp = _port_tree(params)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    step = port_steps.build_train_step(pmodel, port_opt.OptConfig(**dataclasses.asdict(opt)))
+    from repro_torch.distributed.sharding import use_rules as port_use_rules
+    from repro_torch.launch.mesh import make_host_mesh as port_make_host_mesh
+    with port_use_rules(port_make_host_mesh([torch.device("cpu")])):
+        step = port_steps.build_train_step(pmodel, port_config.ShapeConfig("t", 16, 4, "train"),
+                                           port_opt.OptConfig(**dataclasses.asdict(opt)))
     _, got_o, _, got_m = step(pp, port_opt.init_adam(pp), port_compress.EFState(None), tb)
     assert float(got_m["aux"]) > 0 and int(got_o.step) == 1
     for key in ("loss", "aux", "grad_norm"):

@@ -531,7 +531,11 @@ def test_one_train_step_of_rwkv6_equals_the_reference():
         from repro.optim import compress as ref_compress
         _, _, _, want_m = fn(params, ref_opt.init_adam(params), ref_compress.EFState(None), jb)
     pp = _port_tree(params)
-    step = port_steps.build_train_step(pmodel, port_opt.OptConfig(**dataclasses.asdict(opt)))
+    from repro_torch.distributed.sharding import use_rules as port_use_rules
+    from repro_torch.launch.mesh import make_host_mesh as port_make_host_mesh
+    with port_use_rules(port_make_host_mesh([torch.device("cpu")])):
+        step = port_steps.build_train_step(pmodel, port_config.ShapeConfig("t", 16, 2, "train"),
+                                           port_opt.OptConfig(**dataclasses.asdict(opt)))
     from repro_torch.optim import compress as port_compress
     _, got_o, _, got_m = step(pp, port_opt.init_adam(pp), port_compress.EFState(None), tb)
     assert float(got_m["loss"]) == pytest.approx(float(want_m["loss"]), rel=1e-5)

@@ -239,8 +239,10 @@ def test_one_train_step_equals_the_reference(grad_compress):
         want_p, want_o, want_ef, want_m = fn(params, ref_opt.init_adam(params), ef,
                                              _jbatch(batch))
     pp = _port(params)
-    step = port_steps.build_train_step(pmodel, port_opt.OptConfig(**dataclasses.asdict(opt)),
-                                       grad_compress=grad_compress)
+    with port_use_rules(port_make_host_mesh([torch.device("cpu")])):
+        step = port_steps.build_train_step(
+            pmodel, port_config.ShapeConfig("t", 32, 4, "train"),
+            port_opt.OptConfig(**dataclasses.asdict(opt)), grad_compress=grad_compress)
     pef = port_compress.init_ef(pp) if grad_compress else port_compress.EFState(None)
     got_p, got_o, got_ef, got_m = step(pp, port_opt.init_adam(pp), pef, _tbatch(batch))
     assert float(got_m["loss"]) == pytest.approx(float(want_m["loss"]), rel=1e-5)
@@ -309,7 +311,9 @@ def test_microbatch_matches_full_batch():
     batch = _tbatch(SyntheticLM(DataConfig(vocab=256, seq_len=32, batch_size=8)).batch(0))
     outs = {}
     for mb in (0, 4):
-        step = port_steps.build_train_step(model, port_opt.OptConfig(lr=1e-3), microbatch=mb)
+        with port_use_rules(port_make_host_mesh([torch.device("cpu")])):
+            step = port_steps.build_train_step(model, port_config.ShapeConfig("t", 32, 8, "train"),
+                                               port_opt.OptConfig(lr=1e-3), microbatch=mb)
         p2, _, _, metrics = step(pp, port_opt.init_adam(pp), port_compress.EFState(None), batch)
         outs[mb] = (float(metrics["loss"]), np_of(leaves(p2)[0]))
     assert outs[0][0] == pytest.approx(outs[4][0], rel=1e-4)
