@@ -1112,7 +1112,8 @@ def check_plain_kernels(gen):
                 cases.append(case)
                 if (m, k, n) == (256, 4096, 11008):
                     headline[name] = case
-    for (m, c) in ((8, 4096), (256, 4096), (8, 11008), (256, 11008)):
+    # 4096 x 4096: where a launch no longer costs about what the bytes do
+    for (m, c) in ((8, 4096), (256, 4096), (8, 11008), (256, 11008), (4096, 4096)):
         rows = max(m, math.ceil(64e6 / (c * 4)) // m * m)     # > L2: cold activations
         x = torch.randn((rows, c), generator=gen, device=dev)
         inv = 0.5 + torch.rand(c, generator=gen, device=dev)
@@ -2033,8 +2034,8 @@ def _layernorm_scales_near_one(params, gen):
 # the §4 layer's kernels, the attention kernels B8, B9 and the projection's
 # backward kernels: never launched by a serving step
 NOT_SERVING = {"lut_matmul_f32": 0, "lut_matmul_int8": 0, "smooth_quant": 0,
-               "paged_dequant_attention": 0, "flash_attention": 0, "lut_matmul_t": 0,
-               "lut_codebook_grad": 0}
+               "paged_dequant_attention": 0, "flash_attention": 0, "split_bf16": 0,
+               "lut_matmul_t": 0, "lut_codebook_grad": 0}
 
 
 def _mlp_kind(cfg):
@@ -3931,8 +3932,15 @@ FISHER_PATH, FISHER_TOL = "['blocks']['attn']['wq']", 1e-4
 # the codebook fine-tune (examples/distill_llm.py ft_step): KD steps of the
 # student against the teacher, at the example's OptConfig
 FT_STEPS = 6
-# the kernels of the projection's backward (they replace no TPU kernel)
-BACKWARD_KERNELS = ("lut_matmul_t", "lut_codebook_grad")
+# the kernels of the projection's backward (they replace no TPU kernel): the
+# pre-pass splitting an f32 operand into two bf16 parts, and the two products
+# on the tensor cores over those parts
+BACKWARD_KERNELS = ("split_bf16", "lut_matmul_t", "lut_codebook_grad")
+# the backward kernels' shapes beyond llama's three at 4096 rows: (M, K, N,
+# nbits) at 2 and 3 bits, whisper's width at a row count no tile divides, and
+# a small case with N not a multiple of 8 (the element-by-element staging)
+BACKWARD_EXTRA = ((512, 4096, 4096, 2), (512, 4096, 4096, 3), (4000, 1280, 5120, 4),
+                  (130, 200, 100, 3))
 # each backward kernel against its plain version's autograd on the card, to
 # these fractions of the largest |gradient| of the leaf: dx and dsmooth are
 # f32 sums of 4096-11008 terms in another order; dcodebook sums ~1e11
@@ -3957,25 +3965,40 @@ def _rel_errs(compressed, dense, paths):
             for p in paths}
 
 
+def _split_tc_ms(m, k, n):
+    """3 * 2*M*K*N operations at the bf16 tensor-core peak: the least time of
+    the backward kernels, which take a product as three bf16 products."""
+    return 3 * 2.0 * m * k * n / PEAK_OPS[torch.bfloat16] * 1e3
+
+
 def _backward_case(gen, m, k, n, nbits=4) -> dict:
-    """`lut_matmul_t` and `lut_codebook_grad` on one (M, K, N) projection:
-    each called twice (torch.equal), held against the plain version's
-    autograd of y = (x / smooth) @ codebook[codes] on the same card (to
-    BACKWARD_TOL of the largest |gradient|), then timed beside their bound,
-    their plain versions (kernels/ref.py) and a yardstick: torch.matmul over
-    the dequantised f32 weight (dY Wᵀ; Xsᵀ dY). Fails the run on a miss.
-    Returns {kernel: case}."""
+    """The backward kernels on one (M, K, N) projection: `split_bf16` on dY
+    and on x / smooth torch.equal to its plain version; `lut_matmul_t` and
+    `lut_codebook_grad` each called twice (torch.equal), held against the
+    plain version's autograd of y = (x / smooth) @ codebook[codes] on the
+    same card (to BACKWARD_TOL of the largest |gradient|), then timed
+    beside their bound (the split's three products on the tensor cores; the
+    f32 CUDA-core bound beside it), their plain versions (kernels/ref.py)
+    and a yardstick: torch.matmul over the dequantised f32 weight (dY Wᵀ;
+    Xsᵀ dY). A kernel's `ms` includes the splits it makes from f32 operands;
+    `ms_given_split` takes dY's parts given, as the fine-tune's backward
+    shares them between the two. Fails the run on a miss. Returns {kernel:
+    case}."""
     from repro_torch.core.lut import unpack_codes
-    from repro_torch.kernels.lut_matmul import lut_codebook_grad, lut_matmul_t
-    from repro_torch.kernels.ref import lut_codebook_grad_ref, lut_matmul_t_ref
+    from repro_torch.kernels.lut_matmul import lut_codebook_grad, lut_matmul_t, split_bf16
+    from repro_torch.kernels.ref import (lut_codebook_grad_ref, lut_matmul_t_ref,
+                                         split_bf16_ref)
     x, smooth, packed, cb = _lut_operands(gen, m, k, n, nbits, torch.float32, 1)
     smooth, packed, cb = smooth[0], packed[0], cb[0]
     dy = torch.randn((m, n), generator=gen, device=gen.device)
     xs = x / smooth
+    dys = split_bf16(dy)
+    split_same = all(torch.equal(a, b) for a, b in (
+        *zip(dys, split_bf16_ref(dy)), *zip(split_bf16(x, smooth), split_bf16_ref(x, smooth))))
     dxs = lut_matmul_t(dy, packed, cb, nbits=nbits)
-    dcb, dsm = lut_codebook_grad(xs, dy, packed, cb, smooth, nbits=nbits)
-    again = (lut_matmul_t(dy, packed, cb, nbits=nbits),
-             *lut_codebook_grad(xs, dy, packed, cb, smooth, nbits=nbits))
+    dcb, dsm = lut_codebook_grad(x, dy, packed, cb, smooth, nbits=nbits)
+    again = (lut_matmul_t(dy, packed, cb, nbits=nbits, dy_split=dys),
+             *lut_codebook_grad(x, dy, packed, cb, smooth, nbits=nbits, dy_split=dys))
     torch.cuda.synchronize()
     xg, sg, cg = (t.clone().requires_grad_(True) for t in (x, smooth, cb))
     xsg = xg / sg
@@ -3990,28 +4013,43 @@ def _backward_case(gen, m, k, n, nbits=4) -> dict:
     del want, got
     same = {"lut_matmul_t": torch.equal(dxs, again[0]),
             "lut_codebook_grad": torch.equal(dcb, again[1]) and torch.equal(dsm, again[2])}
-    elt = m * k * n
+    tc_ms, f32_ms = _split_tc_ms(m, k, n), _f32_core_ms(m, k, n)
     cases = {}
-    for name, keys, run, plain, yard, nbytes in (
+    # the pre-pass on dY: 4 bytes read, 2 + 2 written an element
+    t_bytes = m * n * 8 / HBM_BYTES_PER_S
+    cases["split_bf16"] = dict(
+        kernel="split_bf16", m=m, k=k, n=n, nbits=nbits, dtype="float32", shape="dy (M, N)",
+        equal=split_same, max_abs_err=0.0,
+        ms=time_ms(lambda i: split_bf16(dy), 3),
+        plain_ms=time_ms(lambda i: split_bf16_ref(dy), 3), library_ms=None,
+        bound_ms=t_bytes * 1e3, bound_by="bytes")
+    if not split_same:
+        emit("train_kernels", failed=cases["split_bf16"])
+        raise SystemExit(f"split_bf16 differs from its plain version: {cases['split_bf16']}")
+    for name, keys, run, given, plain, yard, nbytes in (
             ("lut_matmul_t", ("dxs", "dx"),
              lambda i: lut_matmul_t(dy, packed, cb, nbits=nbits),
+             lambda i: lut_matmul_t(dy, packed, cb, nbits=nbits, dy_split=dys),
              lambda i: lut_matmul_t_ref(dy, packed, cb, nbits=nbits),
              lambda i: torch.matmul(dy, w.T),
              m * n * 4 + k * n * nbits // 8 + 16 * 4 + m * k * 4),
             ("lut_codebook_grad", ("dcodebook", "dsmooth"),
-             lambda i: lut_codebook_grad(xs, dy, packed, cb, smooth, nbits=nbits),
+             lambda i: lut_codebook_grad(x, dy, packed, cb, smooth, nbits=nbits),
+             lambda i: lut_codebook_grad(x, dy, packed, cb, smooth, nbits=nbits, dy_split=dys),
              lambda i: lut_codebook_grad_ref(xs, dy, packed, cb, smooth, nbits=nbits),
              lambda i: torch.matmul(xs.T, dy),
              m * k * 4 + m * n * 4 + k * n * nbits // 8 + 16 * 4 + k * 4 + (16 + k) * 4)):
-        t_ops, t_bytes = 2.0 * elt / PEAK_OPS[torch.float32], nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = tc_ms * 1e-3, nbytes / HBM_BYTES_PER_S
         case = dict(kernel=name, m=m, k=k, n=n, nbits=nbits, dtype="float32",
                     errs={g: errs[g] for g in keys}, tols={g: tols[g] for g in keys},
                     max_abs_err=max(errs[g] for g in keys),
                     same_bits_twice=same[name],
-                    ms=time_ms(run, 3), plain_ms=time_ms(plain, 2, warmup=1),
+                    ms=time_ms(run, 3), ms_given_split=time_ms(given, 3),
+                    plain_ms=time_ms(plain, 2, warmup=1),
                     yardstick_ms=time_ms(yard, 3), library_ms=None,
                     bound_ms=max(t_ops, t_bytes) * 1e3,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    f32_core_bound_ms=f32_ms)
         if not (case["same_bits_twice"] and all(errs[g] <= tols[g] for g in keys)):
             emit("train_kernels", failed=case)
             raise SystemExit(f"backward kernel disagrees with its plain version: {case}")
@@ -4024,13 +4062,16 @@ def _check_train_kernels(gen) -> dict:
     rows, f32 activations, 4-bit, float transform) against their plain
     versions (`_lut_check`, `_multi_check`), then timed (`_time_lut`,
     `_time_multi`) beside their bounds; the backward kernels at llama's
-    projection shapes (`_backward_case`). Returns {kernel: [case, ...]}."""
+    projection shapes and BACKWARD_EXTRA's (`_backward_case`). Returns
+    {kernel: [case, ...]}."""
     m = TRAIN_BATCH * TRAIN_SEQ
     out = {"lut_matmul_fused": [], "lut_matmul_fused_multi": [],
            **{name: [] for name in BACKWARD_KERNELS}}
-    for k, n in LLAMA_KN:
-        for name, case in _backward_case(gen, m, k, n).items():
+    t0 = time.perf_counter()
+    for mm, k, n, nbits in tuple((m, k, n, 4) for k, n in LLAMA_KN) + BACKWARD_EXTRA:
+        for name, case in _backward_case(gen, mm, k, n, nbits).items():
             out[name].append(case)
+    backward_s = time.perf_counter() - t0
     for k, n in LLAMA_KN:
         case, kern = _lut_check(gen, m, k, n, 4, torch.float32, False)
         case.update(_time_lut(gen, kern, m, k, n, 4, torch.float32, False))
@@ -4043,7 +4084,9 @@ def _check_train_kernels(gen) -> dict:
         case.update(_time_multi(gen, multi, solo, m, k, widths, (4,) * p, (False,) * p,
                                 torch.float32))
         out["lut_matmul_fused_multi"].append(case)
-    emit("train_kernels", cases=out)
+    # seconds of the backward kernels' cases, and of the whole check
+    emit("train_kernels", cases=out, backward_s=round(backward_s, 2),
+         seconds=round(time.perf_counter() - t0, 2))
     return out
 
 
@@ -5808,6 +5851,9 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:108"),
         # no TPU kernel: the reference leaves the projection's backward to XLA
+        "split_bf16": ("src/repro_torch/kernels/csrc/lut_backward.cu",
+                       "none (the backward kernels' pre-pass; XLA's backward of "
+                       "src/repro/core/api.py:119 clustered_matmul)"),
         "lut_matmul_t": ("src/repro_torch/kernels/csrc/lut_backward.cu",
                          "none (XLA's backward of src/repro/core/api.py:119 clustered_matmul)"),
         "lut_codebook_grad": ("src/repro_torch/kernels/csrc/lut_backward.cu",
@@ -5864,7 +5910,8 @@ def main() -> int:
             "train_shapes": [{k: c.get(k) for k in (
                 "group", "m", "k", "n", "widths", "dtype", "ms", "plain_ms", "bound_ms",
                 "bound_by", "f32_core_bound_ms", "max_abs_err", "solo_sum_ms", "yardstick_ms",
-                "errs", "tols", "same_bits_twice") if k in c}
+                "errs", "tols", "same_bits_twice", "nbits", "ms_given_split", "equal")
+                if k in c}
                 for c in train_cases.get(name, [])],
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
@@ -5875,6 +5922,7 @@ def main() -> int:
             # the backward kernels' yardstick: torch.matmul over the
             # dequantised f32 weight
             "yardstick_ms": head.get("yardstick_ms"),
+            "ms_given_split": head.get("ms_given_split"),
             "dense_bf16_matmul_ms": head.get("dense_bf16_matmul_ms"),
             "sdpa_dense_bf16_ms": head.get("sdpa_dense_bf16_ms"),
             "solo_sum_ms": head.get("solo_sum_ms"),

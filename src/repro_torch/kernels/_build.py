@@ -135,18 +135,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     # q, packed, cb, s_q, y, M, K, N, packed_rows, nbits, xt, stream
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
     fn.restype = i
+    fn = lib.split_bf16_launch
+    # x, smooth (or null), hi, lo, rows, cols, stream
+    fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
+    fn.restype = i
     fn = lib.lut_matmul_t_launch
-    # dy, packed, cb, dxs, M, K, N, packed_rows, nbits, stream
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    # dy_hi, dy_lo, packed, cb, dxs, M, K, N, packed_rows, nbits, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.lut_codebook_grad_scratch_floats
     # K, N -> floats of lut_codebook_grad_launch's scratch
     fn.argtypes = [i, i]
     fn.restype = ctypes.c_longlong
     fn = lib.lut_codebook_grad_launch
-    # xs, dy, packed, cb, smooth, dcb, dsmooth, scratch, M, K, N, packed_rows,
-    # nbits, stream
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    # xs_hi, xs_lo, dy_hi, dy_lo, packed, cb, smooth, dcb, dsmooth, scratch,
+    # M, K, N, packed_rows, nbits, stream
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.smooth_quant_launch
     # x, x_is_bf16, inv, q, M, C, bits, stream

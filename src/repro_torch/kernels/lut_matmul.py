@@ -15,12 +15,14 @@ the same names:
                                 outputs concatenated along N, in one launch;
   lut_matmul_fused_multi_gemv — the same for decode, M < 128.
 
-and the two kernels of the projection's backward, which replace no Pallas
+and the kernels of the projection's backward, which replace no Pallas
 kernel (the JAX package leaves that backward to XLA):
 
+  split_bf16                  — the pre-pass: an f32 operand as two bf16
+                                parts, hi + lo, for the tensor cores;
   lut_matmul_t                — dXs = dY @ codebook[codes]^T;
   lut_codebook_grad           — the codebook's and the smoothing vector's
-                                gradients, from Xs = x / smooth and dY.
+                                gradients, from x, smooth and dY.
 
 T is the Eq. 11 input transform: x · inv_scale, and when `quantize`
 clip(round(·), ±127) with round-half-to-even. The caller applies the trailing
@@ -51,7 +53,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (lut_codebook_grad_ref, lut_matmul_f32_ref,
                                      lut_matmul_fused_multi_ref,
                                      lut_matmul_fused_ref, lut_matmul_int8_ref,
-                                     lut_matmul_t_ref)
+                                     lut_matmul_t_ref, split_bf16_ref)
 
 # Codebook capacity the kernels are specialized for: <= 4-bit codes. Codebooks
 # are always padded to KC entries; an nbits-wide tensor references the first
@@ -62,7 +64,7 @@ KC = 16
 LAUNCHES = {"lut_matmul_fused_gemv": 0, "lut_matmul_fused": 0,
             "lut_matmul_fused_multi_gemv": 0, "lut_matmul_fused_multi": 0,
             "lut_matmul_f32": 0, "lut_matmul_int8": 0,
-            "lut_matmul_t": 0, "lut_codebook_grad": 0}
+            "split_bf16": 0, "lut_matmul_t": 0, "lut_codebook_grad": 0}
 
 # projections one multi launch takes (the kernels' descriptor capacity,
 # csrc/lut_common.cuh MAX_PROJ)
@@ -477,59 +479,123 @@ def _check_backward(caller, nbits, packed_codes, codebook, named):
     return size["M"], size["K"], size["N"]
 
 
+def _planes(caller, name, split, shape, device):
+    """A given split_bf16 result: two contiguous bf16 tensors of `shape` on
+    `device`."""
+    if len(split) != 2:
+        raise ValueError(f"{caller}: {name} must be (hi, lo); got {len(split)} tensors")
+    for t in split:
+        if (tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16 or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{caller}: {name} must be two contiguous bfloat16 {tuple(shape)} "
+                             f"tensors on {device}; got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    return split
+
+
+def split_bf16(
+    x: torch.Tensor,            # (M, C) f32
+    smooth=None,                # (C,) f32, or None
+):
+    """(hi, lo), bf16 (M, C) each: the two parts of v = x (or x / smooth, per
+    column), hi = bf16(v) and lo = bf16(v - hi), rounded to nearest even. The
+    backward kernels take their f32 operands as these parts on the tensor
+    cores (three bf16 products, lo*hi + hi*lo + hi*hi, f32 sums)."""
+    named = [("x", x, ("M", "C"))]
+    if x.ndim != 2:
+        raise ValueError(f"split_bf16: x must be 2-D; got {tuple(x.shape)}")
+    if smooth is not None:
+        named.append(("smooth", smooth, ("C",)))
+    size = {"M": x.shape[0], "C": x.shape[1]}
+    for name, t, dims in named:
+        want = tuple(size[d] for d in dims)
+        if tuple(t.shape) != want:
+            raise ValueError(f"split_bf16: {name} must be {dims} = {want}; got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"split_bf16: {name} must be float32; got {t.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"split_bf16: {name} must be contiguous on {x.device}; got "
+                             f"strides {t.stride()} on {t.device}")
+    if x.device.type != "cuda":
+        return split_bf16_ref(x, smooth)
+    hi = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    lo = torch.empty_like(hi)
+    with torch.cuda.device(x.device):
+        err = _build.library().split_bf16_launch(
+            x.data_ptr(), None if smooth is None else smooth.data_ptr(), hi.data_ptr(),
+            lo.data_ptr(), x.shape[0], x.shape[1], torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "split_bf16")
+    LAUNCHES["split_bf16"] += 1
+    return hi, lo
+
+
 def lut_matmul_t(
     dy: torch.Tensor,           # (M, N) f32 — the output's gradient
     packed_codes: torch.Tensor, # (K*nbits//8, N) uint8
     codebook: torch.Tensor,     # (KC,) f32
     *,
     nbits: int = 4,
+    dy_split=None,              # split_bf16(dy), shared with lut_codebook_grad
 ) -> torch.Tensor:
     """dXs = dY @ codebook[codes]^T, (M, K) f32 over the packed rows' K (the
     packing-group-padded d_in): a LUT GEMM contracting over N that decodes
-    the codes from their bytes; each output one fmaf chain in n order."""
+    the codes from their bytes, on the tensor cores over dY's split_bf16
+    parts (made here unless `dy_split` gives them). The plain version on a
+    CPU tensor reads dy."""
     m, k, n = _check_backward("lut_matmul_t", nbits, packed_codes, codebook,
                               [("dy", dy, ("M", "N"))])
     if dy.device.type != "cuda":
         return lut_matmul_t_ref(dy, packed_codes, codebook, nbits=nbits)
+    hi, lo = (split_bf16(dy) if dy_split is None
+              else _planes("lut_matmul_t", "dy_split", dy_split, (m, n), dy.device))
     dxs = torch.empty((m, k), dtype=torch.float32, device=dy.device)
     with torch.cuda.device(dy.device):
         err = _build.library().lut_matmul_t_launch(
-            dy.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(), dxs.data_ptr(),
-            m, k, n, packed_codes.shape[0], nbits, torch.cuda.current_stream().cuda_stream)
+            hi.data_ptr(), lo.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(),
+            dxs.data_ptr(), m, k, n, packed_codes.shape[0], nbits,
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "lut_matmul_t")
     LAUNCHES["lut_matmul_t"] += 1
     return dxs
 
 
 def lut_codebook_grad(
-    xs: torch.Tensor,           # (M, K) f32 — x / smooth, K padded as the codes
+    x: torch.Tensor,            # (M, K) f32 — the raw input, K padded as the codes
     dy: torch.Tensor,           # (M, N) f32
     packed_codes: torch.Tensor, # (K*nbits//8, N) uint8
     codebook: torch.Tensor,     # (KC,) f32
     smooth: torch.Tensor,       # (K,) f32 (ones on the padding)
     *,
     nbits: int = 4,
+    dy_split=None,              # split_bf16(dy), shared with lut_matmul_t
 ):
-    """(dcodebook (KC,), dsmooth (K,)), f32: with G = Xsᵀ dY, dcodebook[c]
-    sums G over the (k, n) of code c, dsmooth[k] = -(1/smooth[k]) Σ_n
-    G[k, n] W[k, n]. The kernel forms G a 128 x 128 tile at a time inside
-    its blocks and never writes it; the blocks' partial sums go to a scratch
-    allocated here and are folded in a fixed order (no atomics)."""
+    """(dcodebook (KC,), dsmooth (K,)), f32: with Xs = x / smooth and G =
+    Xsᵀ dY, dcodebook[c] sums G over the (k, n) of code c, dsmooth[k] =
+    -(1/smooth[k]) Σ_n G[k, n] W[k, n]. On the card the kernel forms G a 128
+    x 128 tile at a time on the tensor cores, over split_bf16(x, smooth) and
+    dY's parts (made here unless `dy_split` gives them), and never writes
+    it; the blocks' partial sums go to a scratch allocated here and are
+    folded in a fixed order (no atomics)."""
     m, k, n = _check_backward("lut_codebook_grad", nbits, packed_codes, codebook,
-                              [("xs", xs, ("M", "K")), ("dy", dy, ("M", "N")),
+                              [("x", x, ("M", "K")), ("dy", dy, ("M", "N")),
                                ("smooth", smooth, ("K",))])
-    if xs.device.type != "cuda":
-        return lut_codebook_grad_ref(xs, dy, packed_codes, codebook, smooth, nbits=nbits)
-    dcb = torch.empty((KC,), dtype=torch.float32, device=xs.device)
-    dsmooth = torch.empty((k,), dtype=torch.float32, device=xs.device)
+    if x.device.type != "cuda":
+        return lut_codebook_grad_ref(x / smooth, dy, packed_codes, codebook, smooth,
+                                     nbits=nbits)
+    dh, dl = (split_bf16(dy) if dy_split is None
+              else _planes("lut_codebook_grad", "dy_split", dy_split, (m, n), dy.device))
+    xh, xl = split_bf16(x, smooth)
+    dcb = torch.empty((KC,), dtype=torch.float32, device=x.device)
+    dsmooth = torch.empty((k,), dtype=torch.float32, device=x.device)
     lib = _build.library()
     scratch = torch.empty((lib.lut_codebook_grad_scratch_floats(k, n),), dtype=torch.float32,
-                          device=xs.device)
-    with torch.cuda.device(xs.device):
+                          device=x.device)
+    with torch.cuda.device(x.device):
         err = lib.lut_codebook_grad_launch(
-            xs.data_ptr(), dy.data_ptr(), packed_codes.data_ptr(), codebook.data_ptr(),
-            smooth.data_ptr(), dcb.data_ptr(), dsmooth.data_ptr(), scratch.data_ptr(),
-            m, k, n, packed_codes.shape[0], nbits, torch.cuda.current_stream().cuda_stream)
+            xh.data_ptr(), xl.data_ptr(), dh.data_ptr(), dl.data_ptr(), packed_codes.data_ptr(),
+            codebook.data_ptr(), smooth.data_ptr(), dcb.data_ptr(), dsmooth.data_ptr(),
+            scratch.data_ptr(), m, k, n, packed_codes.shape[0], nbits,
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "lut_codebook_grad")
     LAUNCHES["lut_codebook_grad"] += 1
     return dcb, dsmooth

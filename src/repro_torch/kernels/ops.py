@@ -10,9 +10,10 @@ wrappers, and nowhere else). A call that autograd would differentiate
 computes what the reference differentiates, `(x / smooth) @
 codebook[codes]` in float: on the CPU the plain `core/api.py
 clustered_matmul`, on the card `_LutProjections`, whose forward runs B1-B4
-with the float transform and whose backward runs `lut_matmul_t` and
-`lut_codebook_grad`. `lut_gemm` and `lut_gemm_int8` serve the paper's §4
-layer: already-smoothed float activations, and int8 Eq. 11 codes.
+with the float transform and whose backward runs `split_bf16`,
+`lut_matmul_t` and `lut_codebook_grad`. `lut_gemm` and `lut_gemm_int8`
+serve the paper's §4 layer: already-smoothed float activations, and int8
+Eq. 11 codes.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from repro_torch.kernels.lut_matmul import (KC, lut_codebook_grad, lut_matmul_f3
                                             lut_matmul_fused_gemv,
                                             lut_matmul_fused_multi,
                                             lut_matmul_fused_multi_gemv,
-                                            lut_matmul_int8, lut_matmul_t)
+                                            lut_matmul_int8, lut_matmul_t,
+                                            split_bf16)
 
 GEMV_MAX_M = 128   # M < 128 goes to the GEMV kernel, else to the GEMM kernel
 
@@ -221,10 +223,11 @@ class _LutProjections(torch.autograd.Function):
     codebook_p[codes_p], in float. `inv_scale` and `act_scale` are not read.
 
     Forward: B1 / B2 (P = 1) or B3 / B4 with the float transform and inv =
-    1 / smooth_p. Backward, per projection in order: dXs_p by `lut_matmul_t`,
-    dx += dXs_p / smooth_p; the codebook's and smooth's gradients by
-    `lut_codebook_grad` on Xs_p = x / smooth_p. Gradients are f32 inside and
-    leave in their tensor's dtype."""
+    1 / smooth_p. Backward, per projection in order: dY_p's `split_bf16`
+    parts, which both kernels read; dXs_p by `lut_matmul_t`, dx += dXs_p /
+    smooth_p; the codebook's and smooth's gradients by `lut_codebook_grad`
+    on x and smooth_p (it splits Xs_p = x / smooth_p itself). Gradients are
+    f32 inside and leave in their tensor's dtype."""
 
     @staticmethod
     def forward(ctx, x, packed, nbits, *fields):
@@ -250,16 +253,21 @@ class _LutProjections(torch.autograd.Function):
         dx, grads = None, []
         for p, (dy, pk, nb) in enumerate(zip(dys, ctx.packed, ctx.nbits)):
             cb, s = fields[2 * p], fields[2 * p + 1]
+            need_x = ctx.needs_input_grad[0]
+            need_fields = ctx.needs_input_grad[3 + 2 * p] or ctx.needs_input_grad[4 + 2 * p]
+            if not (need_x or need_fields):
+                grads += [None, None]
+                continue
             s32, dy = s.to(torch.float32), dy.to(torch.float32).contiguous()
-            cb16 = pad_codebook(cb)
-            if ctx.needs_input_grad[0]:
-                part = lut_matmul_t(dy, pk, cb16, nbits=nb)[:, :k] / s32
+            cb16, dy_split = pad_codebook(cb), split_bf16(dy)
+            if need_x:
+                part = lut_matmul_t(dy, pk, cb16, nbits=nb, dy_split=dy_split)[:, :k] / s32
                 dx = part if dx is None else dx + part
-            if ctx.needs_input_grad[3 + 2 * p] or ctx.needs_input_grad[4 + 2 * p]:
+            if need_fields:
                 kc = padded_d_in(k, nb)
                 dcb, dsm = lut_codebook_grad(
-                    _pad_k(xf / s32, nb), dy, pk, cb16,
-                    F.pad(s32, (0, kc - k), value=1.0), nbits=nb)
+                    _pad_k(xf, nb), dy, pk, cb16, F.pad(s32, (0, kc - k), value=1.0),
+                    nbits=nb, dy_split=dy_split)
                 grads += [dcb[:cb.shape[0]].to(cb.dtype), dsm[:k].to(s.dtype)]
             else:
                 grads += [None, None]

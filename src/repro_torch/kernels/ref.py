@@ -138,6 +138,18 @@ def lut_codebook_grad_ref(xs: torch.Tensor, dy: torch.Tensor, packed_codes: torc
     return dcb, dsmooth
 
 
+def split_bf16_ref(x: torch.Tensor, smooth=None):
+    """(hi, lo), the two bf16 parts of v = x (or x / smooth, per column),
+    f32 (M, C): hi = bf16(v), lo = bf16(v - hi), each rounded to nearest
+    even; hi + lo is exact in f32 and carries v to 2^-16 relative. The
+    backward kernels' tensor-core operands."""
+    v = x.to(torch.float32)
+    if smooth is not None:
+        v = v / smooth
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.to(torch.float32)).to(torch.bfloat16)
+
+
 def smooth_quant_ref(x: torch.Tensor, inv_scale: torch.Tensor,
                      bits: int = 8) -> torch.Tensor:
     """int8(clip(round(x * inv_scale), -2^(b-1), 2^(b-1)-1)): the standalone

@@ -170,9 +170,10 @@ def test_clustered_linear_multi_grads_equal_the_reference(m, act_scale, route, m
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_backward_plain_versions_equal_the_reference_vjp(nbits):
     """lut_matmul_t_ref (and the wrapper on CPU tensors) = the vjp of the
-    reference's `xs @ codebook[codes]` in xs; lut_codebook_grad_ref = its vjp
-    in the codebook, and in smooth through x / smooth. K is padded to the
-    packing group as the card route pads it (zero x columns, unit smooth)."""
+    reference's `xs @ codebook[codes]` in xs; lut_codebook_grad_ref on Xs
+    (and the wrapper on x) = its vjp in the codebook, and in smooth through
+    x / smooth. K is padded to the packing group as the card route pads it
+    (zero x columns, unit smooth)."""
     rng = np.random.default_rng(nbits)
     op = _operands(rng, K, 40, nbits, None)
     kc = op["packed"].shape[0] * 8 // nbits
@@ -191,16 +192,18 @@ def test_backward_plain_versions_equal_the_reference_vjp(nbits):
     cb16[:len(op["codebook"])] = torch.from_numpy(op["codebook"])
     s_pad = torch.ones(kc)
     s_pad[:K] = torch.from_numpy(op["smooth"])
-    xs = torch.zeros(9, kc)
-    xs[:, :K] = torch.from_numpy(x) / s_pad[:K]
+    xp = torch.zeros(9, kc)
+    xp[:, :K] = torch.from_numpy(x)
+    xs = xp / s_pad
     dyt = torch.from_numpy(dy)
     for fn in (lut_matmul_t_ref, port_lm.lut_matmul_t):
         dxs = fn(dyt, pk, cb16, nbits=nbits)
         assert tuple(dxs.shape) == (9, kc)
         assert_close(np_of(dxs[:, :K] / s_pad[:K]), gx,
                      atol=GRAD_TOL * float(np.abs(gx).max()), what=f"{fn.__name__} dx")
-    for fn in (lut_codebook_grad_ref, port_lm.lut_codebook_grad):
-        dcb, dsm = fn(xs, dyt, pk, cb16, s_pad, nbits=nbits)
+    # the plain version takes Xs, the wrapper x (it divides by smooth itself)
+    for fn, first in ((lut_codebook_grad_ref, xs), (port_lm.lut_codebook_grad, xp)):
+        dcb, dsm = fn(first, dyt, pk, cb16, s_pad, nbits=nbits)
         assert not dcb[len(op["codebook"]):].any()
         assert_close(np_of(dcb[:len(op["codebook"])]), gcb,
                      atol=GRAD_TOL * float(np.abs(gcb).max()), what=f"{fn.__name__} dcodebook")

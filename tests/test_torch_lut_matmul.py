@@ -227,6 +227,7 @@ def test_cpu_tensors_launch_no_kernel():
                                   torch.from_numpy(packed), quantize=(False,), nbits=(4,))
     cb16 = torch.from_numpy(np.pad(cb, (0, 16 - cb.size)))
     dy = torch.ones(x.shape[0], packed.shape[1])
+    port_ops.split_bf16(dy)
     port_ops.lut_matmul_t(dy, torch.from_numpy(packed), cb16, nbits=4)
     port_ops.lut_codebook_grad(torch.from_numpy(np.pad(x, ((0, 0), (0, 1)))), dy,
                                torch.from_numpy(packed), cb16,
@@ -238,4 +239,5 @@ def test_cpu_tensors_launch_no_kernel():
                                         "paged_pool_attention": 0, "lut_matmul_f32": 0,
                                         "lut_matmul_int8": 0, "smooth_quant": 0,
                                         "paged_dequant_attention": 0, "flash_attention": 0,
-                                        "lut_matmul_t": 0, "lut_codebook_grad": 0}
+                                        "split_bf16": 0, "lut_matmul_t": 0,
+                                        "lut_codebook_grad": 0}

@@ -393,16 +393,21 @@ def test_grad_requiring_calls_on_the_card_take_the_backward_kernels(monkeypatch,
         calls.append(("forward", len(pks), quantize, inv_stack))
         return tuple(torch.zeros(x2.shape[0], pk.shape[1]) for pk in pks)
 
-    def t_kernel(dy, pk, cb, *, nbits):
-        calls.append(("lut_matmul_t",))
+    def split(t, smooth=None):
+        calls.append(("split_bf16",))
+        return t.to(torch.bfloat16), t.to(torch.bfloat16)
+
+    def t_kernel(dy, pk, cb, *, nbits, dy_split):
+        calls.append(("lut_matmul_t", dy_split))
         return torch.zeros(dy.shape[0], pk.shape[0] * 8 // nbits)
 
-    def grad_kernel(xs, dy, pk, cb, smooth, *, nbits):
-        calls.append(("lut_codebook_grad",))
-        return torch.zeros(16), torch.zeros(xs.shape[1])
+    def grad_kernel(x, dy, pk, cb, smooth, *, nbits, dy_split):
+        calls.append(("lut_codebook_grad", dy_split))
+        return torch.zeros(16), torch.zeros(x.shape[1])
     monkeypatch.setattr(ops, "_reaches_kernel", lambda t: True)
     for name, fn in (("lut_gemm_fused", solo), ("lut_gemm_fused_multi", group),
-                     ("lut_matmul_t", t_kernel), ("lut_codebook_grad", grad_kernel)):
+                     ("split_bf16", split), ("lut_matmul_t", t_kernel),
+                     ("lut_codebook_grad", grad_kernel)):
         monkeypatch.setattr(ops, name, fn)
 
     def call(x, cts):
@@ -420,7 +425,12 @@ def test_grad_requiring_calls_on_the_card_take_the_backward_kernels(monkeypatch,
                    for p, ct in enumerate(cts))
     grads = torch.autograd.grad(sum(y.sum() for y in ys),
                                 [xg, *[f for ct in trainable for f in (ct.codebook, ct.smooth)]])
-    assert [c[0] for c in calls[1:]] == ["lut_matmul_t", "lut_codebook_grad"] * len(cts)
+    assert [c[0] for c in calls[1:]] == (["split_bf16", "lut_matmul_t", "lut_codebook_grad"]
+                                         * len(cts))
+    # one split of dY a projection, read by both kernels
+    for p in range(len(cts)):
+        t_call, grad_call = calls[2 + 3 * p], calls[3 + 3 * p]
+        assert t_call[1] is grad_call[1] and t_call[1] is not None
     assert all(g is not None for g in grads)
     calls.clear()
     with torch.no_grad():
