@@ -14,11 +14,13 @@ dim over the data axes, Adam's moments and the EF residuals cut alike.
 One body serves both: each data rank gathers the params whole, runs the
 forward and backward of its batch rows on the compute layout of the model
 axis (each model rank's projections on its column shard, its own heads'
-attention: `distributed/layout.py serving_names`), the gradients are
-summed over the data ranks in rank order and cut back to each rank's part,
-and Adam runs on every part; plain tensors are the case of one data rank
-holding everything, with nothing to gather or cut (`_mesh_layout`). The
-dense and vlm families train on a mesh; the others wait (ROADMAP A7).
+attention, a recurrent mixer's heads: `distributed/layout.py
+serving_names`), the gradients are summed over the data ranks in rank
+order and cut back to each rank's part, and Adam runs on every part; an
+MoE model runs every data rank's rows as one, so that a step's tokens are
+routed once; plain tensors are the case of one data rank
+holding everything, with nothing to gather or cut (`_mesh_layout`). Every
+family trains on a mesh.
 `build_distill_step` is the port of the codebook fine-tune's step,
 `ft_step` of `examples/distill_llm.py`, on one device.
 """
@@ -42,9 +44,6 @@ from repro_torch.optim.compress import EFState, abstract_ef, round_trip
 from repro_torch.optim.optimizer import (AdamState, OptConfig, abstract_adam, adam_update,
                                          update_tensors)
 from repro_torch.tree import leaves, unflatten
-
-# the families whose forward trains on a mesh (`models/transformer.py forward`)
-MESH_TRAIN_FAMILIES = ("dense", "vlm")
 
 
 def _value_and_grads(loss_of, params):
@@ -102,8 +101,12 @@ def build_train_step(
     projection by its output columns, the vocab tables whole; a weight
     stored cut along K is so gathered and re-cut) and differentiates its
     masked NLL sum over the split's GLOBAL mask count (so uneven masks give
-    the one-device loss), plus its share of the aux loss. The f32 gradients
-    are summed over the ranks in rank order, cut back to each rank's part
+    the one-device loss), plus `aux_weight` times its aux; the f32
+    gradients are summed over the ranks in rank order. An MoE model's split
+    is one range of every data rank's rows (its routing groups the whole
+    token set, as the reference's one program does), so its aux is the
+    whole set's, reported (zero with `microbatch` > 1, as the reference's).
+    The gradients are cut back to each rank's part
     (`cut_like`, the reduce-scatter's cut), and EF and Adam run on the
     parts (`update_tensors`: clipped by the global norm of every part).
     Plain tensors are the case of one rank: the same body, the same
@@ -125,13 +128,13 @@ def build_train_step(
                 def loss_of(p, b=b):
                     logits, a = model.apply(compute(p), b)
                     part = lm_nll(logits, b["targets"], b["loss_mask"], cfg.vocab)[0] / denom
-                    return part + aux_weight * a / len(ranks), (part.detach(), a.detach())
+                    return part + aux_weight * a, (part.detach(), a.detach())
 
                 _, (ls, ax), g = _value_and_grads(loss_of, whole)
                 g = [x.to(torch.float32) for x in g]
                 acc = g if acc is None else [s + x for s, x in zip(acc, g)]
                 loss = ls if loss is None else loss + ls
-                aux = ax / len(ranks) if aux is None else aux + ax / len(ranks)
+                aux = ax if aux is None else aux + ax
         if n_mb > 1:
             grads = [a / n_mb for a in acc]
             loss = loss / n_mb
@@ -202,20 +205,19 @@ def _mesh_layout(model: Model, params):
     n, compute(p): the params as the model ranks run them) of the train
     step. Plain tensors: themselves, one rank of every row, as they are. A
     placed state: `MeshTree.whole` (the FSDP all-gather), `train_rows`, and
-    `cut_model` by the compute layout (`serving_names` under SERVE_RULES);
-    a family that does not train on a mesh raises."""
+    `cut_model` by the compute layout (`serving_names` under SERVE_RULES).
+    An MoE model's split is one range, its rows in data-rank order: its
+    routing groups the split's whole token set (capacities, drops and the
+    aux are the whole set's, as in the reference's one program)."""
     if not isinstance(params, MeshTree):
         return params, (lambda n: [(0, n)]), (lambda p: p)
-    mesh, cfg = params.mesh, model.cfg
-    if mesh.size > 1 and cfg.family not in MESH_TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"build_train_step: the {cfg.family} family does not train on a mesh yet "
-            f"(ROADMAP A7; families {MESH_TRAIN_FAMILIES}); {mesh!r}")
+    mesh = params.mesh
     n_model = mesh.shape.get("model", 1)
     with use_rules(mesh, SERVE_RULES, fsdp=False):
         layout = tree_shardings(model.abstract(), serving_names(model))
-    return (params.whole(), (lambda n: train_rows(mesh, n)),
-            (lambda p: cut_model(p, layout, n_model)))
+    rows = ((lambda n: [(0, n)]) if model.cfg.n_experts else
+            (lambda n: train_rows(mesh, n)))
+    return params.whole(), rows, (lambda p: cut_model(p, layout, n_model))
 
 
 def _leaf_parts(tree) -> List[List[torch.Tensor]]:

@@ -108,8 +108,9 @@ def gla_mix(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     v = linear(x, p["wv"])
     a = _gate(p, x)
 
-    # on a mesh S is `Sharded` by heads: each model rank's recurrence runs
-    # over its heads, every other op whole (see `rwkv6.time_mix`)
+    # on a mesh each model rank's recurrence runs over its heads, from its
+    # part of S or its slice of the zero state, every other op whole (see
+    # `rwkv6.time_mix`)
     def mix(q, k, v, a, s0):
         q, k, v, a = (t.reshape(b, s, -1, P).to(f32) for t in (q, k, v, a))
         if cfg.ssm_impl == "chunked" and s > 1:

@@ -113,9 +113,11 @@ def time_mix(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     """state = (S (B,H,P,P) f32, x_prev (B,d)), or None (the full sequence
     from a zero state). Returns (out, (S_new, x_last) or None).
 
-    On a mesh S is `Sharded` by heads: each model rank runs the WKV
-    recurrence over its heads (r, k, v, the decay and u in that rank's head
-    slices); every other op runs whole, on gathered values."""
+    On a mesh each model rank runs the WKV recurrence over its heads (r, k,
+    v, the decay and u in that rank's head slices), from its part of S
+    (`Sharded` by heads, a serving mesh's) or its slice of the zero state
+    (the full sequence on a training mesh's projections, cut by columns);
+    every other op runs whole, on gathered values (`per_head_ranks`)."""
     b, s, d = x.shape
     H, P = cfg.rwkv_heads, cfg.rwkv_head_dim
     s0 = (state[0] if state is not None else

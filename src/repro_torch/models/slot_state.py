@@ -22,11 +22,14 @@ a `distributed/sharding.py Sharded`, cut by heads (or by inner channels)
 over the model axis, or whole: each model rank runs the recurrence over its
 heads (`per_head_ranks`), every other op of the step runs whole on
 gathered values, as on one device, and `mesh_state_step` runs each data
-rank over its slots' rows of the shared state tensors.
+rank over its slots' rows of the shared state tensors. On a training mesh
+(`launch/steps.py build_train_step` on a placed state) the full-sequence
+forward's mixers run the same way from a whole zero state: each model rank
+over its heads (`per_head_ranks`) from its slice of the state.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch.autograd.profiler import record_function
@@ -63,18 +66,35 @@ def state_first(leaf):
     return on_parts(leaf, lambda t: t[0], dims_dropped=1)
 
 
-def per_head_ranks(fn: Callable, state, inputs: Sequence, dims: Sequence, out_dim: int = 2):
+def per_head_ranks(fn: Callable, state, inputs: Sequence, dims: Sequence, out_dim: int = 2,
+                   *, state_dim: int = 1, heads: Optional[int] = None):
     """A mixer over each model rank's heads: `state` is a state leaf (or a
-    tuple of leaves) cut by heads (`Sharded`) or whole (a tensor, or None),
-    whose `rank_parts` give the ranks; each of `inputs` is cut into as many
-    parts on its dim in `dims` (`parts_on`: a value already cut there keeps
-    its parts, a whole one is narrowed). fn(*rank's inputs, *rank's state
-    parts) -> (y, new state part or None) runs once a rank, in rank order.
-    Returns (the ys concatenated on `out_dim`, the new parts wrapped as
-    `state` is, or None). On one device it is fn once."""
+    tuple of leaves) cut by heads (`Sharded`: a serving mesh's slot state),
+    whose `rank_parts` give the ranks, or whole (a tensor, or None: the
+    full-sequence forward's zero state), which runs over the ranks of the
+    first of `inputs` cut over the model axis (a projection's output, which
+    `linear` cuts by columns, or a param cut by heads) where they divide the
+    heads (`heads`, else the state's size on `state_dim`; with neither, the
+    cut input's parts are the units) and else once, whole; each rank starts
+    from its slice of a whole state on `state_dim` (None stays None). Each
+    of `inputs` is cut into as many parts on its dim in `dims` (`parts_on`:
+    a value already cut there keeps its parts; a whole one is narrowed).
+    fn(*rank's inputs, *rank's state parts) -> (y, new state part or None)
+    runs once a rank, in rank order. Returns (the ys concatenated on
+    `out_dim`, the new parts wrapped as `state` is, or concatenated on
+    `state_dim` for a whole state, or None). On one device it is fn once."""
     states = state if isinstance(state, tuple) else (state,)
-    sparts = [rank_parts(t) for t in states]
-    n = len(sparts[0])
+    if isinstance(states[0], Sharded):
+        sparts = [rank_parts(t) for t in states]
+        n = len(sparts[0])
+    else:
+        n = next((len(x.parts) for x in inputs
+                  if isinstance(x, Sharded) and x.dim is not None), 1)
+        if heads is None and states[0] is not None:
+            heads = states[0].shape[state_dim]
+        if heads is not None and heads % n:
+            n = 1
+        sparts = [[None] * n if t is None else parts_on(t, n, state_dim) for t in states]
     ins = [parts_on(x, n, dim) for x, dim in zip(inputs, dims)]
     ys, news = [], []
     for m in range(n):
@@ -82,7 +102,11 @@ def per_head_ranks(fn: Callable, state, inputs: Sequence, dims: Sequence, out_di
         ys.append(y)
         news.append(new)
     y = ys[0] if n == 1 else torch.cat(ys, dim=out_dim)
-    return y, (None if news[0] is None else like(states[0], news))
+    if news[0] is None:
+        return y, None
+    if n > 1 and not isinstance(states[0], Sharded):
+        return y, torch.cat(news, dim=state_dim)
+    return y, like(states[0], news)
 
 
 def token_by_token(state_step: Callable) -> Callable:

@@ -251,9 +251,10 @@ def forward(
     its scanned body in `jax.checkpoint`. Clustered weights go through
     `kernels.ops.clustered_linear` / `clustered_linear_multi`: on the card
     the LUT GEMMs at B * S rows. On a training mesh (`launch/steps.py
-    _mesh_train_step`) the projections arrive cut over the model axis
-    (`Sharded`) and `layers.attn_block` / `mlp_block` run each rank's part;
-    the embedding, norms and head are whole."""
+    build_train_step` on a placed state) the projections arrive cut over
+    the model axis (`Sharded`) and `layers.attn_block` / `mlp_block` /
+    `moe_block` run each rank's part; the embedding, norms and head are
+    whole."""
     x = params["embed"].to(cfg.torch_dtype)[tokens.long()]     # (B, S, d)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)

@@ -123,7 +123,9 @@ def _mha(p, x, cfg: ModelConfig, *, kv_src=None, causal: bool,
     b, s, _ = x.shape
     nh, hd = cfg.n_heads_eff, cfg.hd
     src = x if kv_src is None else kv_src
-    q = whole(linear(x, p["wq"])).reshape(b, s, nh, hd)
+    q = linear(x, p["wq"])
+    if cache is not None:
+        q = whole(q).reshape(b, s, nh, hd)
     if cache is not None and "k" in cache and kv_src is None:
         k = whole(linear(x, p["wk"])).reshape(b, s, nh, hd)
         v = whole(linear(x, p["wv"])).reshape(b, s, nh, hd)
@@ -150,10 +152,19 @@ def _mha(p, x, cfg: ModelConfig, *, kv_src=None, causal: bool,
         # cross-attention over the precomputed encoder K/V
         o = attention(q, cache["ck"], cache["cv"], causal=False)
         return whole(linear(o.reshape(b, s, nh * hd), p["wo"])), None
-    k = whole(linear(src, p["wk"])).reshape(b, src.shape[1], nh, hd)
-    v = whole(linear(src, p["wv"])).reshape(b, src.shape[1], nh, hd)
-    o = attention(q, k, v, causal=causal)
-    return whole(linear(o.reshape(b, s, nh * hd), p["wo"])), None
+    sk = src.shape[1]
+
+    def heads(q, k, v, _):
+        h = q.shape[-1] // hd
+        o = attention(q.reshape(b, s, h, hd), k.reshape(b, sk, h, hd),
+                      v.reshape(b, sk, h, hd), causal=causal)
+        return o.reshape(b, s, h * hd), None
+
+    # on a mesh q, k and v arrive cut by their columns: each model rank
+    # attends with its own heads, padded heads included
+    o, _ = per_head_ranks(heads, None, (q, linear(src, p["wk"]), linear(src, p["wv"])),
+                          (-1, -1, -1), heads=nh)
+    return whole(linear(o, p["wo"])), None
 
 
 def _gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:

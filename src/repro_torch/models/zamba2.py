@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
-from repro_torch.distributed.sharding import on_parts, whole
+from repro_torch.distributed.sharding import Sharded, on_parts, parts_on, rank_parts, whole
 from repro_torch.kernels.ref import lane_stable
 from repro_torch.models import params as PT
 from repro_torch.models.config import ModelConfig
@@ -131,11 +131,16 @@ def mamba_block(p, x, cfg: ModelConfig, state) -> Tuple[torch.Tensor, Any]:
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcd = whole(linear(x, p["w_in"]))
     z, xc, Bt, Ct, dt = torch.split(zxbcd, [di, di, N, N, H], dim=-1)
-    # on a mesh the conv state is `Sharded` by inner channels and the ssm
-    # state by heads: each model rank runs the conv over its channels and
-    # the recurrence over its heads, every other op whole
+    # on a mesh each model rank runs the conv over its inner channels and
+    # the recurrence over its heads, from its part of the state (`Sharded`
+    # by channels / heads when serving) or its slice of the zero state (the
+    # full sequence), every other op whole; xc is cut as a_log is, so that a
+    # rank's channels are its heads'
+    ranks = rank_parts(p["a_log"])
+    if len(ranks) > 1:
+        xc = Sharded(tuple(parts_on(xc, len(ranks), -1)), -1)
     xc, conv_state = per_head_ranks(_causal_conv, state[1] if state is not None else None,
-                                    (xc, p["conv"]), (-1, -1), out_dim=-1)
+                                    (xc, p["conv"]), (-1, -1), out_dim=-1, state_dim=-1)
     xc = F.silu(xc)
     f32 = torch.float32
     dtf = lane_stable(F.softplus, dt.to(f32) + whole(p["dt_bias"])[None, None])

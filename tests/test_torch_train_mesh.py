@@ -3,9 +3,10 @@ mesh step against the JAX package's `build_train_step` and against the
 port's own one-device step.
 
 The training specs (params, Adam `m` / `v` / `count`, EF residuals, batch)
-of every dense and vlm arch's `reduced()` table equal the reference
-bundle's on the stand-in mesh shapes of `test_torch_sharding.py` (1 x 1,
-1 x 8, 2 x 4, 8 x 1, (2, 16, 16)). Then on meshes of repeated CPU devices
+of every arch's `reduced()` table equal the reference bundle's on the
+stand-in mesh shapes of `test_torch_sharding.py` (1 x 1, 1 x 8, 2 x 4,
+8 x 1, (2, 16, 16)); every arch takes a train step on (2, 1) and (1, 2)
+with 1 x 1's loss and gradient norm. Then on meshes of repeated CPU devices
 (`[cpu] x n`) 3 steps of a tiny dense model and of reduced paligemma-3b
 match 1 x 1 and the reference's jitted step: losses and gradient norms
 within 1e-4 relative, the params after the last step within rtol 1e-3 /
@@ -16,9 +17,10 @@ not divide) and a (2, 2, 1) pod mesh, with and without `grad_compress` and
 gradients show Adam's update ill-conditioned on (`_ill_conditioned`).
 Masks that differ between the data ranks give the one-device loss; a
 batch the data axis does not divide is counted once; the placement holds
-exactly the whole state's bytes; an MoE or recurrent model on a mesh
-raises; a placed 1 x 1 step is the plain step's bits; the trainer runs and
-resumes on a mesh."""
+exactly the whole state's bytes; a placed 1 x 1 step is the plain step's
+bits; the trainer runs and resumes on a mesh. The MoE, recurrent, hybrid
+and audio families' mesh steps are `test_torch_train_mesh_moe.py`'s and
+`test_torch_train_mesh_slot.py`'s."""
 import types
 
 import jax
@@ -66,8 +68,7 @@ OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 # rounding boundary: an f32 difference in such a gradient moves its update
 # by a visible part of lr (a code flip moves it by one scale)
 K_EPS, BOUNDARY = 100, 1e-3
-MESH_FAMILIES = [a for a in port_config.list_archs()
-                 if port_config.get_config(a).family in ("dense", "vlm")]
+ARCHS = port_config.list_archs()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -154,8 +155,12 @@ def _ref_run(rmodel, params, batches, grad_compress=False, microbatch=0):
             ref_opt.OptConfig(**OPT), grad_compress=grad_compress, microbatch=microbatch)
         fn = jax.jit(b.fn, in_shardings=b.in_shardings, out_shardings=b.out_shardings,
                      compiler_options={"xla_backend_optimization_level": 0})
-        p, o = params, ref_opt.init_adam(params)
-        e = ref_compress.init_ef(params) if grad_compress else ref_compress.EFState(None)
+        # the state committed to the step's shardings, as its outputs are, so
+        # that the second step does not compile the step and the gradient again
+        p, o, e = jax.device_put(
+            (params, ref_opt.init_adam(params),
+             ref_compress.init_ef(params) if grad_compress else ref_compress.EFState(None)),
+            b.in_shardings[:3])
         losses, gnorms, ill = [], [], None
         for bt in batches:
             jb = {k: jnp.asarray(np_of(v)) for k, v in bt.items()}
@@ -233,7 +238,7 @@ def ref_specs_only(monkeypatch):
 
 
 @pytest.mark.usefixtures("ref_specs_only")
-@pytest.mark.parametrize("arch", MESH_FAMILIES)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_training_specs_equal_the_reference(arch):
     """in_shardings (params, Adam count / m / v, EF residuals, batch) and
     out_shardings of the train bundle, leaf by leaf with their paths, equal
@@ -264,6 +269,32 @@ def test_training_specs_equal_the_reference(arch):
             want.abstract_inputs)]
         assert all(x.device.type == "meta" for x in leaves(got.abstract_inputs))
     assert n_leaves > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_takes_a_train_step_on_a_mesh(arch):
+    """Every registered arch at `reduced()` builds, places and runs one
+    train step on (2, 1) and (1, 2) of a repeated CPU device, its loss and
+    gradient norm within REL of 1 x 1's (frames and images from a seed
+    where `input_specs` asks for them)."""
+    model = get_model(port_config.reduced(port_config.get_config(arch)))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {}
+    for k, spec in port_config.input_specs(
+            model.cfg, port_config.ShapeConfig("t", 16, 4, "train")).items():
+        if k in ("tokens", "targets"):
+            x = rng.integers(0, model.cfg.vocab, tuple(spec.shape)).astype(np.int32)
+        elif k == "loss_mask":
+            x = np.ones(tuple(spec.shape), np.float32)
+        else:
+            x = rng.standard_normal(tuple(spec.shape)).astype(np.float32)
+        batch[k] = torch.from_numpy(x).to(spec.dtype)
+    want = _port_run(model, params, [batch], None)
+    for shape in ((2, 1), (1, 2)):
+        got = _port_run(model, params, [batch], _mesh(shape))
+        np.testing.assert_allclose(got[0], want[0], rtol=REL, err_msg=f"{arch} {shape} loss")
+        np.testing.assert_allclose(got[1], want[1], rtol=REL, err_msg=f"{arch} {shape} gnorm")
 
 
 # ---------------------------------------------------------------------------
@@ -418,19 +449,6 @@ def test_a_placed_one_by_one_step_is_the_plain_steps_bits(tiny):
             assert torch.equal(mp[k], mq[k]), k
     for a, b in zip(leaves((plain[0], plain[1])), leaves((placed[0].whole(), placed[1].whole()))):
         assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b"])
-def test_other_families_on_a_mesh_raise(arch):
-    model = get_model(port_config.reduced(port_config.get_config(arch)))
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    mesh = _mesh((2, 1))
-    bundle = _bundle(model, mesh, 2, 8)
-    state = port_steps.place_train_state(bundle, mesh, params, port_opt.init_adam(params))
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    batch = {"tokens": tokens, "targets": tokens, "loss_mask": torch.ones(2, 8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        bundle(*state, batch)
 
 
 def test_the_trainer_runs_and_resumes_on_a_mesh(tmp_path):
