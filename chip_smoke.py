@@ -31,8 +31,8 @@ with the same tokens as the plain engine, the verify's rows bit for bit
 those of width-1 steps and the identical draft accepting every round;
 serves the rest of the transformer family at full width (`serve_family`:
 gemma2-27b, starcoder2-15b and stablelm-12b cut to 4 layers, paligemma-3b at
-its 18) and each of the four speculatively at 2 layers
-(`serve_spec_family`); serves on (data, model) meshes whose every
+its 18) and each of the four speculatively, gemma2-27b at 2 layers and the
+others at 1 (`serve_spec_family`); serves on (data, model) meshes whose every
 coordinate is the one card (`serve_mesh`: the `serve` drive on (1, 2) and
 (2, 1) with `serve`'s tokens, one decode step's logits and the pools
 torch.equal to 1 x 1, B1-B5 on a rank's shard torch.equal to that part of
@@ -54,9 +54,9 @@ decode step's time goes, graph and eager body in turns; serves the
 mixture-of-experts family (`moe_parity`: a 2-layer full-width phi3.5-moe
 with its stacked experts clustered, kernels against their plain versions,
 the MoE block alone against its f32 run, B1-B5 at both MoE archs' shapes;
-`serve_moe`: phi3.5-moe cut to 2 of its 32 layers and llama4-scout to 2 at
+`serve_moe`: phi3.5-moe cut to 1 of its 32 layers and llama4-scout to 1 at
 full width, every replay equal to its eager body, where a step's time goes,
-then phi3.5-moe's first 2 layers over an int8 pool and speculatively);
+then phi3.5-moe's layer over an int8 pool and speculatively);
 serves the recurrent and hybrid families (`recurrent_parity`: rwkv6-1.6b,
 gla-1.3b and zamba2-1.2b at full width and 2 layers, serving steps and the
 forward through the kernels against their plain versions, B1 / B3 / B5 at
@@ -73,7 +73,7 @@ encoder run once at admission, the same checks as `serve_recurrent`, and
 distinct frames giving distinct tokens); serves every family but the dense
 one on the (1, 2) and (2, 1) meshes of the card (`serve_mesh_family`: the
 MoE archs at 2 layers, their experts cut over the model axis and a step's
-rows routed once; rwkv6 and gla at 2, zamba2 at 6, whisper at 4 + 4, their
+rows routed once; rwkv6, gla and zamba2 at 2, whisper at 4 + 4, their
 slot state cut by heads; the next decode step's logits, the pools and the
 slot state and a drive's tokens torch.equal to 1 x 1, every replay equal to
 its eager body, the ops on a rank's part equal to the whole); trains on
@@ -82,7 +82,12 @@ llama2-7b, 3 steps on (2, 1), (1, 2) and (2, 2) against the same steps at
 1 x 1, the placed state's bytes, then the elastic restart of a reduced
 llama2-7b re-sharded through its checkpoint, then phi3.5-moe at 1 layer,
 rwkv6 and gla at 2, zamba2 at 6 and whisper at 2 + 2, full width in f32, 3
-steps on (2, 1) and (1, 2) against their own 1 x 1). Every phase prints
+steps on (2, 1) and (1, 2) against their own 1 x 1); and runs the dry run
+(`dryrun`: every (arch x shape) cell of `--all` on the (16, 16) and
+(2, 16, 16) production meshes on "meta" tensors, then its predictions for
+the `train` step and the `profile` phase's decode step held to what those
+drives measured: argument bytes equal, peak memory and time at least the
+prediction). Every phase prints
 one JSON line; any failed phase ends the process with a non-zero exit
 code. The last line is
 `{"ok": true, "device": {...}}`. Without a CUDA card it prints no result and
@@ -116,6 +121,19 @@ LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _storage_bytes(*trees) -> int:
+    """Bytes of the distinct storages under `trees` (dicts, lists,
+    NamedTuples of tensors), each storage counted once."""
+    from repro_torch.tree import leaves
+    seen = {}
+    for tree in trees:
+        for x in leaves(tree):
+            if isinstance(x, torch.Tensor):
+                st = x.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2363,13 +2381,27 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
           and counts == expected and all(expected[n] > 0 for n in path))
 
     capture_s = {str(w): round(c, 3) for w, c in engine._graphs.capture_seconds().items()}
+    # the host's seconds of each stage after the drive
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(key):
+        nonlocal t0
+        torch.cuda.synchronize()
+        stage_s[key] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
     # every replay against the eager body, on the engine whose graphs this drive
-    # captured (a recurrent family's step is T passes of the stack: shorter prompts)
-    _graph_check(name, engine, seed, **(dict(prompt_lens=(20, 9, 36, 14))
+    # captured. A recurrent family's step is T passes of the stack, and its
+    # eager prefill-width step takes ~4 s on the host: two requests, one
+    # prefill chunk and two (the state carried from chunk to chunk), the
+    # first preempted and re-admitted (rwkv6 / gla restore its snapshot,
+    # zamba2 recomputes one chunk), both growing by a block in zamba2's pool
+    _graph_check(name, engine, seed, **(dict(prompt_lens=(14, 36))
                                         if cfg.family in RECURRENT_FAMILIES else {}))
+    stage("graph_check")
     steps_ms = _step_ms(engine, seed) if step_times else None
     tokens = [list(r.out_tokens) for r in requests]
     after = after_drive(engine, prompts, tokens) if after_drive is not None else []
+    stage("step_times_and_after_drive")
     # engine-vs-solo token identity: each request alone on the drive's engine,
     # idle by now, one after another
     solo_same = {}
@@ -2377,6 +2409,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
         r = _submit(engine, prompts[rid], new_tokens)
         engine.run()
         solo_same[rid] = r.out_tokens == tokens[rid]
+    stage("solo")
     del engine
     row = dict(arch=arch, layers=n_layers, dtype=cfg.dtype, weight_bits=4,
                kv_dtype=kv_dtype or "float", fused_projections=fused, requests=n_requests,
@@ -2387,6 +2420,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
                launches_expected=expected, solo_redecode_same_tokens=solo_same,
                preemptions=sum(r.preemptions for r in requests),
                engine_build_s=round(build_s, 3), graph_capture_s=capture_s,
+               seconds_after_drive=stage_s,
                peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
     if cfg.family == "audio":
         row["launches_by_shape"] = _audio_launches_by_shape(cfg, widths)
@@ -2745,11 +2779,12 @@ def phase_serve_mesh(seed: int, params, tokens) -> dict:
 # every other family on a (data, model) mesh of one card
 # ---------------------------------------------------------------------------
 
-# full width, LCD 4-bit, quantized transform; cut to these depths (zamba2's 6
-# layers run one shared-attention site, whisper's 4 are 4 + 4; rwkv6 and gla
-# 4 -> 2 for the 820 s mark when every family came to train on a mesh)
+# full width, LCD 4-bit, quantized transform; cut to these depths (zamba2's 2
+# layers run one shared-attention site after them, whisper's 4 are 4 + 4;
+# rwkv6 and gla 4 -> 2 for the 820 s mark when every family came to train on a
+# mesh, zamba2 6 -> 2 for the dry run)
 MESH_FAMILY_DEPTHS = (("phi3.5-moe-42b-a6.6b", 2), ("llama4-scout-17b-a16e", 2),
-                      ("rwkv6-1.6b", 2), ("gla-1.3b", 2), ("zamba2-1.2b", 6),
+                      ("rwkv6-1.6b", 2), ("gla-1.3b", 2), ("zamba2-1.2b", 2),
                       ("whisper-large-v3", 4))
 # the drive of every arch and mesh: 8 requests of 16-48 prompt tokens, 16 new,
 # submitted at once (`_lockstep_drive`)
@@ -3223,7 +3258,7 @@ def _profile_row(reads, rows, n_steps):
                      for k, ms, c in rows[:8]])
 
 
-def phase_profile(seed: int, params) -> None:
+def phase_profile(seed: int, params) -> dict:
     """Where a serving step's time goes: the 32-layer engine with all 8 slots
     busy, in the default (fused) configuration, prefill-width steps, then
     decode steps (the unfused configuration is driven by `serve_unfused`,
@@ -3235,7 +3270,9 @@ def phase_profile(seed: int, params) -> None:
     width's capture time. torch.profiler must see the kernels inside a
     replay: a graph step must show at least the eager step's calls per step;
     where it does not, its device time is the CUDA-event span around the
-    steps, and the line says so."""
+    steps, and the line says so. Returns the graph decode step's inputs and
+    measurements (its engine config, device ms, peak bytes over the decode
+    steps, the bytes of its params, pools and upload) for `dryrun`."""
     from repro_torch.launch.engine import EngineConfig, build_engine
 
     ecfg = EngineConfig(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
@@ -3271,7 +3308,15 @@ def phase_profile(seed: int, params) -> None:
     while any(r is not None and r.prefilling for r in engine.slots):
         engine.step()
     engine.step()                        # the decode width's warm-up and capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the graph decode step's inputs (params, pools, the width-1 upload); what
+    # else the process holds at the reset (earlier phases' tensors) is taken
+    # out of the peak, so that it is the decode steps' own
+    input_bytes = _storage_bytes(engine.params, engine.caches, engine._graphs._uploads[1].dev)
+    other = torch.cuda.memory_allocated() - input_bytes
     turns(engine, n_dec, "decode_width_1", out)
+    decode_peak = torch.cuda.max_memory_allocated() - other
     # an eager profile can drop a few kernel records (3,633 of 3,637 a step
     # were seen) but never adds one: a graph step that shows at least the
     # eager step's calls shows every kernel of its replay
@@ -3287,10 +3332,17 @@ def phase_profile(seed: int, params) -> None:
             row["device_time_from"] = ("CUDA events around the steps, profiler off: the "
                                        "profiler does not see every kernel of a replay")
     capture_s = {str(w): round(c, 3) for w, c in engine._graphs.capture_seconds().items()}
+    # the graph decode step's inputs and measurements, for the dry run's check
+    drive = dict(
+        ecfg=ecfg, device_ms=(out["decode_width_1"]["device_busy_ms_per_step"] if seen else
+                              out["decode_width_1"]["event_span_ms_per_step"]),
+        device_ms_from=out["decode_width_1"].get("device_time_from", "torch.profiler"),
+        peak_bytes=decode_peak, input_bytes=input_bytes)
     emit("profile", arch="llama2-7b", layers=32, slots=8, prompt_len=prompt_len,
          profiler_sees_graph_kernels=seen,
          calls_per_step_graph_and_eager={k: list(v) for k, v in calls.items()},
          graph_capture_s=capture_s, **out)
+    return drive
 
 
 # ---------------------------------------------------------------------------
@@ -3603,12 +3655,25 @@ def _serve_spec_arch(arch, seed, n_layers=2, k=SPEC_K, new_tokens=16):
     return counts
 
 
+# the family's speculative drives, one for each layer shape of FAMILY, with
+# their depths: gemma2-27b at 2 (a sliding-window and a global layer, the
+# softcaps), starcoder2-15b (the non-gated gelu MLP with biases, layernorm,
+# QKV bias), stablelm-12b (layernorm, head_dim 160) and paligemma-3b (MQA,
+# head_dim 256) at 1 layer each, cut from 2 for the chip script's time
+SPEC_FAMILY = (("gemma2-27b", 2), ("starcoder2-15b", 1), ("stablelm-12b", 1),
+               ("paligemma-3b", 1))
+
+
 def phase_serve_spec_family(seed: int) -> dict:
-    """`_serve_spec_arch` for each arch of FAMILY at full width, 2 layers."""
+    """`_serve_spec_arch` for each arch of SPEC_FAMILY at full width, at its
+    depth."""
     total = {}
-    for arch in FAMILY:
-        for n, c in _serve_spec_arch(arch, seed).items():
+    for arch, layers in SPEC_FAMILY:
+        t0 = time.perf_counter()
+        for n, c in _serve_spec_arch(arch, seed, n_layers=layers).items():
             total[n] = total.get(n, 0) + c
+        emit("serve_spec_family_arch", arch=arch, layers=layers,
+             seconds=round(time.perf_counter() - t0, 1))
     return total
 
 
@@ -3812,9 +3877,9 @@ def phase_serve_prefix(seed: int, params) -> dict:
 
 
 def phase_serve_prefix_spec(seed: int, params) -> dict:
-    """The same traffic on the first 4 layers, speculative (k = 3, the 2-bit
+    """The same traffic on the first 2 layers, speculative (k = 3, the 2-bit
     draft made on the card) with the cache on against plain with it off."""
-    return _prefix_pair("serve_prefix_spec", seed, 4, _first_layers(params, 4),
+    return _prefix_pair("serve_prefix_spec", seed, 2, _first_layers(params, 2),
                         spec_k=SPEC_K, graph_check=True)
 
 
@@ -4213,9 +4278,10 @@ def phase_train(seed: int):
     of that student (`_fine_tune`); (5) an engine on the fine-tuned
     student: 4 staggered requests, tokens = each served alone. Returns the
     launch counts of (4)'s student evaluation, (4b)'s fine-tune and (5)'s
-    drive, the `train_kernels` cases, and (2)'s first TRAIN_MESH_STEPS steps
+    drive, the `train_kernels` cases, (2)'s first TRAIN_MESH_STEPS steps
     (losses, gradient norms, seconds, a host copy of the params after them) for
-    `train_mesh`'s 1 x 1 run."""
+    `train_mesh`'s 1 x 1 run, and (2)'s inputs and measurements (the bytes
+    of a step's inputs, steady seconds a step, peak bytes) for `dryrun`."""
     import dataclasses
     import shutil
     import tempfile
@@ -4271,9 +4337,15 @@ def phase_train(seed: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state_bytes = torch.cuda.memory_allocated()
+    # what the process holds beyond the step's state (earlier phases'
+    # tensors) is taken out of the drive's peak
+    other = state_bytes - _storage_bytes(params, opt, ef)
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        params, opt, ef, metrics = step_fn(params, opt, ef, _on_card(data.batch(step)))
+        batch = _on_card(data.batch(step))
+        if step == 0:                  # the step's inputs, for the dry run's check
+            input_bytes = _storage_bytes(params, opt, ef, batch)
+        params, opt, ef, metrics = step_fn(params, opt, ef, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
@@ -4288,6 +4360,9 @@ def phase_train(seed: int):
                               peak_over_state_gib=round((torch.cuda.max_memory_allocated()
                                                          - state_bytes) / 2**30, 2))
     steady = float(np.mean(step_s[1:]))
+    drive = dict(input_bytes=input_bytes, s_per_step=steady,
+                 peak_bytes=torch.cuda.max_memory_allocated() - other)
+    del batch
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     row["training"] = dict(
         steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=opt_cfg.lr,
@@ -4461,7 +4536,7 @@ def phase_train(seed: int):
         raise SystemExit(f"train: a kernel of the path was never launched: {counts}")
     del student
     torch.cuda.empty_cache()
-    return counts, _check_train_kernels(gen), one_by_one
+    return counts, _check_train_kernels(gen), one_by_one, drive
 
 
 # ---------------------------------------------------------------------------
@@ -5154,13 +5229,14 @@ def _serve_spec_moe(arch, seed, params, n_layers=2, k=SPEC_K, new_tokens=16):
     return counts
 
 
-# the MoE family at full width: phi3.5-moe cut to 2 of its 32 layers (32 -> 16
+# the MoE family at full width: phi3.5-moe cut to 1 of its 32 layers (32 -> 16
 # when the audio phases came, 16 -> 8 for serve_mesh, 8 -> 4 for train_mesh,
-# 4 -> 2 for train_mesh's other families: the cut the script's time limit asks
-# for first), llama4-scout cut to 2 (its 48 would need ~54 GB of packed
-# experts; at 8 layers the script ran 771 s, run 24b, and a decode step
-# resolves 2 B expert weights a layer; 4 -> 2 with phi3.5-moe)
-MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 2), ("llama4-scout-17b-a16e", 2))
+# 4 -> 2 for train_mesh's other families, 2 -> 1 for the dry run: the cut the
+# script's time limit asks for first), llama4-scout cut to 1 (its 48 would
+# need ~54 GB of packed experts; at 8 layers the script ran 771 s, run 24b,
+# and a decode step resolves 2 B expert weights a layer; 4 -> 2 -> 1 with
+# phi3.5-moe)
+MOE_DEPTHS = (("phi3.5-moe-42b-a6.6b", 1), ("llama4-scout-17b-a16e", 1))
 
 
 def phase_serve_moe(seed: int) -> dict:
@@ -5168,12 +5244,12 @@ def phase_serve_moe(seed: int) -> dict:
     with the stacked experts clustered too (`materialize_clustered`) and the
     quantized transform armed, fused projections, the `serve` engine's
     geometry and 12 requests, over the float pool: phi3.5-moe-42b-a6.6b and
-    llama4-scout-17b-a16e cut to 2 layers (`MOE_DEPTHS`), at full width. Launch
+    llama4-scout-17b-a16e cut to 1 layer (`MOE_DEPTHS`), at full width. Launch
     counts per model step (an MoE layer's LUT launches are its attention's),
     bounded shapes, every replay equal to its eager body in tokens and pools
     (`_graph_check`), tokens/s, and the step times with 8 slots busy and
     where their device time goes (`_moe_step_profile`). Then on phi3.5-moe's
-    first 2 layers an int8 pool and speculation (k = 3, `_serve_spec_moe`).
+    layers an int8 pool and speculation (k = 3, `_serve_spec_moe`).
 
     Engine = solo, spec = plain greedy, verify rows = width-1 rows and
     `_row_count_ops` are not asserted here, unlike for every dense arch: an
@@ -5198,15 +5274,15 @@ def phase_serve_moe(seed: int) -> dict:
         prof = _moe_step_profile(arch, params, layers, seed)
         emit("serve_moe_profile", arch=arch, layers=layers, **prof)
         if arch == MOE_ARCHS[0]:
-            # copies of the first 2 layers, so that the full drive's storage goes
-            two = _first_layers(params, 2)
-            two["blocks"] = _cloned(two["blocks"])
+            # copies of the layers, so that the full drive's storage goes
+            kept = _first_layers(params, layers)
+            kept["blocks"] = _cloned(kept["blocks"])
             del params
             torch.cuda.empty_cache()
-            add(_serve("serve_moe_int8", arch, seed, 2, 4, 24, "int8", solo_ids=(),
-                       params=two)[0])
-            add(_serve_spec_moe(arch, seed, two))
-            del two
+            add(_serve("serve_moe_int8", arch, seed, layers, 4, 24, "int8", solo_ids=(),
+                       params=kept)[0])
+            add(_serve_spec_moe(arch, seed, kept, n_layers=layers))
+            del kept
         else:
             del params
         torch.cuda.empty_cache()
@@ -5526,6 +5602,7 @@ def phase_serve_recurrent(seed: int) -> dict:
     for arch, layers in RECURRENT_DEPTHS:
         t0 = time.perf_counter()
         _, params = _served_params(arch, seed, layers)
+        params_s = time.perf_counter() - t0
         counts, _ = _serve("serve_recurrent", arch, seed, layers, 12, 24, None,
                            solo_ids=(0, 5, 11), params=params,
                            after_drive=_recurrent_after_drive("serve_recurrent", seed))
@@ -5534,7 +5611,7 @@ def phase_serve_recurrent(seed: int) -> dict:
         del params
         torch.cuda.empty_cache()
         emit("serve_recurrent_arch", arch=arch, layers=layers,
-             seconds=round(time.perf_counter() - t0, 1),
+             seconds=round(time.perf_counter() - t0, 1), weights_s=round(params_s, 1),
              peak_device_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
     return total
 
@@ -5894,12 +5971,145 @@ def phase_serve_audio(seed: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the dry run
+# ---------------------------------------------------------------------------
+
+def _dryrun_matrix(multi_pod: bool, out_dir: str) -> dict:
+    """Every cell of `--all` on a production mesh (`dryrun.run_all`), dense
+    and, for the decode shapes, `--lcd`: the count of ok / skipped / error
+    cells, each dominant term, and the largest total_per_chip against the
+    card's memory."""
+    from collections import Counter
+
+    from repro_torch.distributed.cost import HBM_BYTES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES
+    decode = [name for name, sc in SHAPES.items() if sc.kind == "decode"]
+    cells = (dryrun.run_all(multi_pod, False, out_dir)
+             + dryrun.run_all(multi_pod, True, out_dir, shapes=decode))
+    ok = [c for c in cells if c["status"] == "ok"]
+    big = max(ok, key=lambda c: c["memory"]["total_per_chip"])
+    return dict(mesh="(2, 16, 16)" if multi_pod else "(16, 16)",
+                cells_ok=len(ok), skipped=sum(c["status"] == "skipped" for c in cells),
+                errors=[c for c in cells if c["status"] == "error"],
+                dominant=dict(Counter(c["dominant"] for c in ok)),
+                fit_80gb=sum(c["hbm_ok"] for c in ok),
+                largest_total_per_chip_gb=round(big["memory"]["total_per_chip"] / 1e9, 3),
+                largest_cell=big["cell"], card_memory_gb=HBM_BYTES / 1e9)
+
+
+# the dry run against the card: a drive's own peak within this factor of the
+# predicted total_per_chip either way, and the train step's measured time at
+# most this many times its roofline (the ratio sat at 1.57 on the H100: a lost
+# factor in the count of its FLOPs or bytes lands outside); the decode step's
+# roofline is held from below only (7.2 x: the step is launch-bound)
+DRYRUN_PEAK_FACTOR = 2.0
+DRYRUN_TRAIN_T_MAX = 3.0
+
+
+def _drive_check(name, predicted, measured_inputs, measured_peak, measured_s, extra,
+                 t_max=None) -> dict:
+    """One drive held to the dry run: argument bytes equal, the drive's own
+    peak at least the argument bytes and within DRYRUN_PEAK_FACTOR of the
+    predicted total, the step's time at least the roofline's (and at most
+    `t_max` times it, where given)."""
+    arg, total, t_step = predicted
+    ratio = measured_s / t_step
+    row = dict(drive=name, predicted_argument_bytes=arg, measured_input_bytes=measured_inputs,
+               argument_equal=arg == measured_inputs,
+               predicted_total_per_chip=total, measured_peak_bytes=measured_peak,
+               peak_over_predicted_total=round(measured_peak / total, 4),
+               peak_at_least_argument=measured_peak >= arg,
+               peak_within_factor=1 / DRYRUN_PEAK_FACTOR <= measured_peak / total
+               <= DRYRUN_PEAK_FACTOR,
+               predicted_t_step_s=t_step, measured_step_s=measured_s,
+               measured_over_predicted_t=round(ratio, 4),
+               time_at_least_roofline=ratio >= 1.0,
+               time_at_most=t_max, time_within_bound=t_max is None or ratio <= t_max, **extra)
+    row["ok"] = all(row[k] for k in ("argument_equal", "peak_at_least_argument",
+                                     "peak_within_factor", "time_at_least_roofline",
+                                     "time_within_bound"))
+    return row
+
+
+def phase_dryrun(train_drive, profile_drive) -> None:
+    """The dry run (`repro_torch.launch.dryrun`, every tensor on "meta"):
+    the `--all` matrix on (16, 16) and (2, 16, 16), dense and `--lcd` for the
+    decode shapes, the JSON of each cell in a temporary directory, one line
+    a mesh (any cell in error fails the phase); then the dry run's 1 x 1
+    predictions for two drives this script runs, held to their
+    measurements by `_drive_check`: `train`'s step (llama2-7b, 4 layers, f32, 8 x 512; its
+    steady seconds a step on the host's clock) and `profile`'s graph decode
+    step (llama2-7b, 32 layers, 4-bit LCD with the quantized transform, 8
+    slots busy; its device ms a step). A drive whose phase did not run is
+    reported as not run."""
+    import logging
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeConfig, get_config
+    from repro_torch.models.registry import get_model
+    fails = []
+    log = logging.getLogger("repro_torch")
+    level = log.level
+    log.setLevel(logging.WARNING)
+    try:
+        with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
+            for multi_pod in (False, True):
+                row = _dryrun_matrix(multi_pod, out)
+                emit("dryrun", **row)
+                if row["errors"]:
+                    fails.append(f"{row['mesh']}: {len(row['errors'])} cells in error")
+    finally:
+        log.setLevel(level)
+    one = make_mesh((1, 1), ("data", "model"), [torch.device("meta")])
+    checks = []
+    drive = train_drive
+    if drive is None:
+        checks.append(dict(drive="train", status="not run"))
+    else:
+        cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=TRAIN_LAYERS,
+                                  dtype="float32")
+        r = dryrun.analyze_cell(get_model(cfg), ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                            "train"), one)
+        checks.append(_drive_check(
+            "train", (r["memory"]["argument_size"], r["memory"]["total_per_chip"], r["t_step"]),
+            drive["input_bytes"], drive["peak_bytes"], drive["s_per_step"],
+            dict(measured_step_from="steady mean of the host's seconds a step",
+                 predicted_dominant=r["dominant"], t_compute_s=r["t_compute"],
+                 t_memory_s=r["t_memory"]), t_max=DRYRUN_TRAIN_T_MAX))
+    drive = profile_drive
+    if drive is None:
+        checks.append(dict(drive="profile", status="not run"))
+    else:
+        ecfg = drive["ecfg"]
+        model = get_model(dataclasses.replace(get_config("llama2-7b"), n_layers=32))
+        r = dryrun.analyze_cell(model, ShapeConfig("decode", ecfg.max_seq, ecfg.num_slots,
+                                                   "decode"), one, lcd=True,
+                                params=dryrun.lcd_abstract(model, calibrated=True), ecfg=ecfg)
+        e = r["engine"]
+        checks.append(_drive_check(
+            "profile decode", (e["argument_size"], e["total_per_chip"], r["t_step"]),
+            drive["input_bytes"], drive["peak_bytes"], drive["device_ms"] / 1e3,
+            dict(measured_step_from=f"device ms a graph step ({drive['device_ms_from']})",
+                 predicted_dominant=r["dominant"], t_compute_s=r["t_compute"],
+                 t_memory_s=r["t_memory"])))
+    for row in checks:
+        emit("dryrun_check", **row)
+        if row.get("ok") is False:
+            fails.append(f"{row['drive']}: the card disagrees with the dry run")
+    if fails:
+        raise SystemExit("dryrun: " + "; ".join(fails))
+
+
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve", "serve_mesh",
               "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
               "serve_moe", "recurrent_parity", "serve_recurrent", "audio_parity",
-              "serve_audio", "serve_mesh_family", "train", "train_mesh")
+              "serve_audio", "serve_mesh_family", "train", "train_mesh", "dryrun")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
 ON_SERVE_WEIGHTS = {"serve", "serve_mesh", "serve_unfused", "serve_static", "profile",
@@ -5990,8 +6200,8 @@ def main() -> int:
                           if "serve_spec_family" in phases else {})
     if "compress" in phases:
         timed("compress", phase_compress, args.seed)
-    if "profile" in phases:
-        timed("profile", phase_profile, args.seed, params)
+    profile_drive = (timed("profile", phase_profile, args.seed, params)
+                     if "profile" in phases else None)
     params = None                       # the serve weights are not needed any more
     # the MoE family: the kernels against their plain versions inside a 2-layer
     # model and at the archs' shapes, then served at full width, each path
@@ -6032,14 +6242,19 @@ def main() -> int:
     # the trainer and the paper's pipeline: the student's forward (B2 / B4 at
     # 4096 rows) and its engine (B1-B5), counted on their own; B2 / B4 at
     # those rows against their plain versions, timed
-    train_counts, train_cases, one_by_one = ({}, {}, None)
+    train_counts, train_cases, one_by_one, train_drive = ({}, {}, None, None)
     if "train" in phases:
-        train_counts, train_cases, one_by_one = timed("train", phase_train, args.seed)
+        train_counts, train_cases, one_by_one, train_drive = timed("train", phase_train,
+                                                                   args.seed)
     # training on (data, model) meshes of the card: the dense step, which
     # launches no hand-written kernel; its count is printed, not required
     train_mesh_counts = (timed("train_mesh", phase_train_mesh, args.seed, one_by_one)
                          if "train_mesh" in phases else {})
     one_by_one = None
+    # the dry run over every cell, and its predictions for the train and
+    # profile drives held to their measurements
+    if "dryrun" in phases:
+        timed("dryrun", phase_dryrun, train_drive, profile_drive)
     emit("timing", seconds=seconds, total_s=round(time.perf_counter() - t_start, 1),
          peak_device_memory_gib=peak_gib)
 

@@ -82,6 +82,26 @@ def clustered_abstract(model: Model, nbits: int = 4) -> Tuple[Any, Dict[str, int
     return PT.map_table(model.table, one), stats
 
 
+def clustered_names(model: Model) -> Any:
+    """The logical names of `clustered_abstract`'s tree, as the JAX
+    package's `clustered_abstract` returns them: the dense names at every
+    other leaf, and at an eligible weight a ClusteredTensor of per-field
+    names, the codes (and packed codes) as the weight, the codebook on the
+    weight's leading dims (a stacked expert weight's codebooks cut with its
+    experts), the smoothing vectors (and `inv_scale`) on its leading dims
+    and input dim, `act_scale` on its leading dims."""
+    def one(path: str, decl: PT.ParamDecl):
+        if not _eligible(path, decl):
+            return decl.names
+        nm = decl.names.split(",")
+        lead = nm[:-2]
+        vec = ",".join(lead + [nm[-2]])
+        return ClusteredTensor(codes=decl.names, codebook=",".join(lead + ["."]),
+                               smooth=vec, packed=decl.names, inv_scale=vec,
+                               act_scale=",".join(lead))
+    return PT.map_table(model.table, one)
+
+
 def materialize_clustered(model: Model, generator: torch.Generator,
                           nbits: int = 4, device="cuda") -> Any:
     """Random-but-valid clustered params (smoke tests of the serve path):

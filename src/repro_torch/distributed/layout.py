@@ -18,8 +18,9 @@ ranks. The busiest rank sets the time:
 
     t = ops / PEAK_OPS  +  bytes / HBM_BW  +  gather_bytes / LINK_BW
 
-The constants are one H100 SXM5 80GB (700 W) from its data sheet, not
-measurements; only their ratios drive the argmin.
+The constants are one H100 SXM5 80GB (700 W) from its data sheet
+(`distributed/cost.py`, NVLink for the links), not measurements; only their
+ratios drive the argmin.
 
 `serving_shardings` is the shared helper: the engine places its params and
 pools with it, and the scorer reads the same placements.
@@ -29,15 +30,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.api import is_clustered
+from repro_torch.distributed.cost import HBM_BW, PEAK_FLOPS, cut_dim, dict_leaves, spec_parts
+from repro_torch.distributed.cost import NVLINK_BW as LINK_BW
 from repro_torch.distributed.sharding import (auto_shard, logical_to_spec,
                                               named_sharding, parse_names, use_rules)
-
-# One H100 SXM5 80GB at 700 W (NVIDIA's data sheet): dense bf16 tensor-core
-# operations per second, HBM3 bytes per second, NVLink bytes per second in
-# one direction. Scoring constants, not measurements.
-PEAK_FLOPS = 989e12
-HBM_BW = 3.35e12
-LINK_BW = 450e9
 
 # The port's serving placements where they differ from the reference's
 # names (ROADMAP C), one rule for every family (`serving_names`): a
@@ -118,22 +114,6 @@ def serving_shardings(model, params, caches, sr=None, names=None):
         cache_shardings(model, caches, sr)
 
 
-def _cut_on_model(spec) -> Optional[int]:
-    for i, entry in enumerate(spec):
-        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        if "model" in axes:
-            return i
-    return None
-
-
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (k,))
-    else:
-        yield prefix, tree
-
-
 def _uses(model, path) -> int:
     """How often a decode step runs a leaf's layer slice: zamba2's shared
     block once per site; whisper's encoder and cross K / V projections
@@ -193,12 +173,13 @@ def score_layout(model, params, ecfg, mesh) -> Dict[str, Any]:
         output (a gated MLP's gate and up each), except the projections
         feeding a mixer that runs per rank over its heads
         (`_head_mixers`), whose output is gathered instead; an MoE layer's
-        rows over the data axis (in and back out) and its experts' outputs
+        rows over the data axes (in and back out) and its experts' outputs
         over the model axis; every data rank's rows for the head.
     """
     from repro_torch.models.layers import moe_capacity, moe_groups
     cfg = model.cfg
-    n_data, n_model = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    n_data = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+    n_model = mesh.shape.get("model", 1)
     s_all = ecfg.num_slots
     elt = cfg.torch_dtype.itemsize
     caches = model.init_seq_caches(
@@ -208,7 +189,7 @@ def score_layout(model, params, ecfg, mesh) -> Dict[str, Any]:
     with use_rules(mesh, SERVE_RULES, fsdp=False):
         pshard = auto_shard(params, serving_names(model))
         cshard = cache_shardings(model, caches)
-        s_rank = s_all // n_data if logical_to_spec((s_all,), ("slots",))[0] else s_all
+        s_rank = s_all // spec_parts(logical_to_spec((s_all,), ("slots",)), mesh.shape)
     flops = nbytes = coll = 0.0
     counts: Dict[str, int] = {}
 
@@ -219,7 +200,7 @@ def score_layout(model, params, ecfg, mesh) -> Dict[str, Any]:
             counts["all-gather"] = counts.get("all-gather", 0) + times
 
     def heads_cut(kind, name):
-        return _cut_on_model(cshard[kind][name].spec) is not None
+        return cut_dim(cshard[kind][name].spec) is not None
 
     # the projections whose column shards feed a mixer per rank over its heads
     ungathered = set()
@@ -231,10 +212,10 @@ def score_layout(model, params, ecfg, mesh) -> Dict[str, Any]:
     if n_exp:
         groups, sg = moe_groups(s_all)
         cap = moe_capacity(sg, cfg.moe_topk, n_exp)
-    shard_of = dict(_leaves(pshard))
-    names_of = dict(_leaves(model.names()))
+    shard_of = dict(dict_leaves(pshard))
+    names_of = dict(dict_leaves(model.names()))
     head = ("lm_head",) if "lm_head" in params else None
-    for path, leaf in _leaves(params):
+    for path, leaf in dict_leaves(params):
         ns, uses = shard_of[path], _uses(model, path)
         names = names_of[path].split(",")
         if head is None and "vocab" in names:
@@ -249,7 +230,7 @@ def score_layout(model, params, ecfg, mesh) -> Dict[str, Any]:
             continue
         clustered = is_clustered(leaf)
         w = leaf.codes if clustered else leaf
-        cut = _cut_on_model(ns.codes.spec if clustered else ns.spec)
+        cut = cut_dim(ns.codes.spec if clustered else ns.spec)
         part = n_model if cut is not None else 1
         matrix = [nm for nm in names if nm not in ("layers", "experts")]
         if (len(matrix) == 2 and cut == w.ndim - 1 and path not in ungathered

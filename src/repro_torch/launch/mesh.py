@@ -12,9 +12,15 @@ ServingEngine(mesh=)`) and train (`launch/train.py train(mesh=)`, the
 elastic restart of `launch/elastic.py` over `make_elastic_mesh`). Nothing
 is built when this module is imported.
 
-`make_production_mesh` (256 / 512 TPU chips) still waits: it belongs to the
-dry-run, which comes after training on a mesh for every family (ROADMAP
-A7).
+`make_production_mesh` gives the reference's production shapes:
+
+    single pod : (16, 16)      axes ("data", "model")          = 256 cards
+    multi-pod  : (2, 16, 16)   axes ("pod", "data", "model")   = 512 cards
+
+over the visible cards by default, so where fewer are visible it raises
+`make_mesh`'s "needs 256 devices" error rather than build anything smaller.
+The dry run (`launch/dryrun.py`) passes `[torch.device("meta")] * n`: its
+mesh places abstract tensors and runs nothing.
 """
 from __future__ import annotations
 
@@ -82,6 +88,17 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     for i, d in enumerate(devices[:n]):
         grid[i] = torch.device(d)
     return Mesh(tuple(axis_names), grid.reshape(tuple(shape)))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The production mesh (the JAX package's `make_production_mesh`):
+    (16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model") with `multi_pod`, over `devices` (default: every visible CUDA
+    device)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
 
 
 def visible_devices() -> list:

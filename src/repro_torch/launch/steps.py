@@ -34,9 +34,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.api import CT_ARRAY_FIELDS, is_clustered
 from repro_torch.distributed.layout import SERVE_RULES, serving_names
 from repro_torch.distributed.placement import MeshTree, cut_like, cut_model, place
-from repro_torch.distributed.sharding import (auto_shard, logical_to_spec, named_sharding,
+from repro_torch.distributed.sharding import (logical_to_spec, named_sharding,
                                               parse_names, tree_shardings, use_rules)
 from repro_torch.models.config import ShapeConfig, input_specs
 from repro_torch.models.registry import Model, lm_nll
@@ -321,14 +322,31 @@ def build_prefill_step(model: Model, shape: ShapeConfig) -> StepBundle:
     return StepBundle(prefill_step, (ps, batch_shardings(abatch)), out_sh, (aparams, abatch))
 
 
+def _clustered_shardings(tree, names):
+    """`tree_shardings` over a tree whose ClusteredTensor leaves carry a
+    ClusteredTensor of names: each array field by its own names (a field
+    the tensor lacks, or its names, gives None)."""
+    if isinstance(tree, dict):
+        return {k: _clustered_shardings(tree[k], names[k]) for k in tree}
+    if not is_clustered(tree):
+        return named_sharding(tuple(tree.shape), parse_names(names))
+    return type(tree)(**{
+        f: (None if getattr(tree, f) is None or getattr(names, f) is None else
+            named_sharding(tuple(getattr(tree, f).shape), parse_names(getattr(names, f))))
+        for f in CT_ARRAY_FIELDS}, nbits=tree.nbits)
+
+
 def build_serve_step(model: Model, shape: ShapeConfig, *, clustered_params=None,
                      clustered_names=None) -> StepBundle:
     """The static path's decode step, `serve_step(params, cache, batch) ->
     (next_tok (B,) int32, cache)` (the cache updated in place). With
-    `clustered_params` / `clustered_names` (LCD serving) the parameter tree
-    is the ClusteredTensor one, the packed codes streamed in place of dense
-    weights. Placements under the installed rules; abstract params, cache
-    (`model.init_cache` on "meta") and batch."""
+    `clustered_params` / `clustered_names` (LCD serving; the names of
+    `core/clustered_params.py clustered_names`, a ClusteredTensor of names
+    at each clustered leaf) the parameter tree is the ClusteredTensor one,
+    the packed codes streamed in place of dense weights, each field placed
+    by its own names as the JAX package places them. Placements under the
+    installed rules; abstract params, cache (`model.abstract_cache`) and
+    batch."""
     cfg = model.cfg
 
     @torch.no_grad()
@@ -338,9 +356,8 @@ def build_serve_step(model: Model, shape: ShapeConfig, *, clustered_params=None,
 
     aparams = clustered_params if clustered_params is not None else model.abstract()
     names = clustered_names if clustered_names is not None else model.names()
-    ps = (tree_shardings(aparams, names) if clustered_params is None
-          else auto_shard(aparams, names))
-    acache = model.init_cache(shape.global_batch, shape.seq_len, device="meta")
+    ps = _clustered_shardings(aparams, names)
+    acache = model.abstract_cache(shape.global_batch, shape.seq_len)
     cache_names = model.cache_names
     cache_sh = {k: named_sharding(tuple(v.shape), parse_names(cache_names[k])
                                   if k in cache_names else (None,) * v.ndim)

@@ -164,6 +164,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> Dic
     return c
 
 
+# the static path's cache's logical dim names (`launch/steps.py build_serve_step`)
+CACHE_NAMES = {"s": "layers,batch,rwkv_heads,.,.", "pos": ""}
+
+
 @torch.no_grad()
 def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig):
     """One static-path step over `tokens` (B, S): the last token's logits

@@ -2,8 +2,12 @@
 
 A model declares its parameters once as a nested dict of
     name -> ParamDecl(shape, logical_names, init)
-and `init_params` materializes them as a nested dict of tensors with the same
-keys. The logical names are kept from the JAX package (they drive the
+and every view comes from that one table, each a nested dict with its keys:
+  * `init_params`     — materialized tensors;
+  * `abstract_params` — tensors on the "meta" device (the dry run's
+                        inputs: shapes and dtypes, no storage);
+  * `names_tree`      — comma-joined logical-name strings (sharding specs).
+The logical names are kept from the JAX package (they also drive the
 clustering eligibility rule in core/clustered_params.py).
 """
 from __future__ import annotations
@@ -87,6 +91,18 @@ def init_params(generator: torch.Generator, table: Table, dtype: torch.dtype,
     device = resolve_device(device)
     return map_table(
         table, lambda _path, d: _init_one(generator, d, dtype, device))
+
+
+def abstract_params(table: Table, dtype: torch.dtype) -> Dict[str, Any]:
+    """The table as tensors on the "meta" device: declared shapes and dtypes,
+    nothing allocated (the JAX package's ShapeDtypeStruct tree)."""
+    return map_table(table, lambda _path, d: torch.empty(
+        d.shape, dtype=decl_dtype(d, dtype), device="meta"))
+
+
+def names_tree(table: Table) -> Dict[str, Any]:
+    """The table's comma-joined logical dim names, one string a parameter."""
+    return map_table(table, lambda _path, d: d.names)
 
 
 def param_count(table: Table) -> int:

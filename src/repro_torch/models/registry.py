@@ -131,12 +131,11 @@ class Model:
     def abstract(self):
         """The parameter tree as tensors on the "meta" device: shapes and
         dtypes, no storage (the JAX package's ShapeDtypeStruct tree)."""
-        return PT.map_table(self.table, lambda _, d: torch.empty(
-            d.shape, dtype=PT.decl_dtype(d, self.cfg.torch_dtype), device="meta"))
+        return PT.abstract_params(self.table, self.cfg.torch_dtype)
 
     def names(self):
         """The tree of comma-joined logical dim names, one per parameter."""
-        return PT.map_table(self.table, lambda _, d: d.names)
+        return PT.names_tree(self.table)
 
     @property
     def cache_names(self) -> Dict[str, str]:
@@ -158,6 +157,11 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int, device="cuda"):
         return self._init_cache(self.cfg, batch, max_seq, device)
+
+    def abstract_cache(self, batch: int, max_seq: int):
+        """The static path's cache as tensors on the "meta" device: what
+        `init_cache` would allocate (the JAX package's `abstract_cache`)."""
+        return self.init_cache(batch, max_seq, device="meta")
 
     def param_count(self) -> int:
         return PT.param_count(self.table)

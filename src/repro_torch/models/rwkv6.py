@@ -198,6 +198,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> Dic
     return c
 
 
+# the static path's cache's logical dim names (`launch/steps.py build_serve_step`)
+CACHE_NAMES = {"wkv": "layers,batch,rwkv_heads,.,.", "x_tm": "layers,batch,.",
+               "x_cm": "layers,batch,.", "pos": ""}
+
+
 @torch.no_grad()
 def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig):
     """One static-path step of the whole stack over `tokens` (B, S): returns

@@ -214,6 +214,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> Dic
     return c
 
 
+# the static path's cache's logical dim names (`launch/steps.py build_serve_step`)
+CACHE_NAMES = {
+    "ssm": "layers,batch,ssm_heads,.,.",
+    "conv": "layers,batch,.,ssm_inner",
+    "k": "layers,batch,seq_kv,kv,.",
+    "v": "layers,batch,seq_kv,kv,.",
+    "pos": "",
+}
+
+
 @torch.no_grad()
 def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig):
     """One static-path step over `tokens` (B, S) at positions pos..pos+S-1
