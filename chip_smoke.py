@@ -33,11 +33,19 @@ serves the rest of the transformer family at full width (`serve_family`:
 gemma2-27b, starcoder2-15b and stablelm-12b cut to 4 layers, paligemma-3b at
 its 18) and each of the four speculatively, gemma2-27b at 2 layers and the
 others at 1 (`serve_spec_family`); serves on (data, model) meshes whose every
-coordinate is the one card (`serve_mesh`: the `serve` drive on (1, 2) and
-(2, 1) with `serve`'s tokens, one decode step's logits and the pools
-torch.equal to 1 x 1, B1-B5 on a rank's shard torch.equal to that part of
-the full launch, the int8 pool on (2, 2), the layout search's report; and
-the speculative engine on (1, 2) with plain greedy's tokens);
+coordinate is the one card (`serve_mesh`: one decode step's logits and the
+pools at 32 layers on (1, 2) and (2, 1) torch.equal to 1 x 1, the `serve`
+drive at 4 layers on both with a 1 x 1 engine's tokens, B1-B5 on a rank's
+shard torch.equal to that part of the full launch, the int8 pool on (2, 2),
+the layout search's report; and the speculative engine on (1, 2) with plain
+greedy's tokens); serves on process meshes (`serve_processes`: (1, 2) and
+(2, 1) as two torch.distributed processes on the card over gloo, each
+holding only its own shards of `serve`'s weights cut to 4 layers, every
+process's tokens, every step's logits and its pool replica equal to the
+one-process mesh's, whose tokens equal 1 x 1's, every process launching
+B1-B5, a cached system prompt matched across data ranks with the cache-off
+tokens, the int8 pool; the bytes a process holds, its collectives and eager
+ms per decode step);
 compresses a 1-layer full-width llama2-7b
 with the LCD pipeline on the card (twice: the same bytes; under a bits
 budget; then inside `build_engine`, whose engine serves requests that
@@ -1730,9 +1738,7 @@ def phase_compress(seed: int) -> None:
     leaves_e = dict(_flatten_with_paths(served))
     engine_same_bytes = all(torch.equal(leaves_e[p].packed, leaves1[p].packed)
                             for p in r1.bits_assignment)
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(8)]
+    prompts = _serve_prompts(cfg.vocab, seed, 8)
     requests = _drive(engine, prompts, 16)
     tokens = [list(r.out_tokens) for r in requests]
     solo_same = {}
@@ -2349,9 +2355,7 @@ def _serve(name, arch, seed, n_layers, n_requests, new_tokens, kv_dtype, solo_id
         if all(bool((pool[k] == 1.0).all()) for k in ("k_smooth", "v_smooth")):
             raise SystemExit(f"{name}: the int8 pool kept identity smoothing vectors")
     cfg = engine.model.cfg
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(n_requests)]
+    prompts = _serve_prompts(cfg.vocab, seed, n_requests)
 
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -2472,8 +2476,12 @@ def _first_layers(params, n):
 # serving on a (data, model) mesh of one card
 # ---------------------------------------------------------------------------
 
-# the meshes the 32-layer drive runs on; every coordinate is cuda:0 (one card)
+# the meshes the logits check (32 layers) and the serve drive run on; every
+# coordinate is cuda:0 (one card). The serve drive runs at MESH_DRIVE_LAYERS
+# (cut from 32 for the script's time limit: `serve` is the dense family's
+# full-depth drive), held to a 1 x 1 engine of the same depth
 MESH_SHAPES = ((1, 2), (2, 1))
+MESH_DRIVE_LAYERS = 4
 SERVE_ECFG = dict(num_slots=8, block_size=16, prefill_chunk=32, num_blocks=256,
                   max_blocks_per_slot=32)
 MESH_PATH = PLAIN_LUT + ("paged_pool_attention",)
@@ -2515,6 +2523,30 @@ def _next_decode_logits(engine):
     return logits
 
 
+def _serve_prompts(vocab, seed, n):
+    """`n` prompts of 40-200 tokens, from `seed` (`_serve`'s and the other
+    drives')."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(40, 201))).astype(np.int32)
+            for _ in range(n)]
+
+
+def _lockstep_prompts(vocab, seed):
+    """The mesh logits check's prompts: one of 40-120 tokens a slot, from
+    `seed` + 21."""
+    rng = np.random.default_rng(seed + 21)
+    return [rng.integers(0, vocab, int(rng.integers(40, 121))).astype(np.int32)
+            for _ in range(SERVE_ECFG["num_slots"])]
+
+
+def _step_until_decoding(engine):
+    """Step `engine` (at most 64 steps) until every slot decodes."""
+    for _ in range(64):
+        if all(r is not None and not r.prefilling and r.out_tokens for r in engine.slots):
+            break
+        engine.step()
+
+
 def _lockstep_drive(engine, prompts, new_tokens, timed=False):
     """`prompts` submitted at once on `engine` and stepped until every slot
     decodes, where the next decode step's logits (through the eager body on
@@ -2526,10 +2558,7 @@ def _lockstep_drive(engine, prompts, new_tokens, timed=False):
     torch.cuda.synchronize()
     reset_launch_counts()
     reqs = [_submit(engine, p, new_tokens) for p in prompts]
-    for _ in range(64):
-        if all(r is not None and not r.prefilling and r.out_tokens for r in engine.slots):
-            break
-        engine.step()
+    _step_until_decoding(engine)
     seen = dict(steps=engine.steps,
                 slots_decoding=sum(r is not None and not r.prefilling for r in engine.slots),
                 cached_tokens=int(engine.lengths.sum()))
@@ -2564,9 +2593,7 @@ def _drive_decode_ms(engine):
 def _lockstep_logits(engine, seed):
     """The mesh logits check's 8 prompts (40-120 tokens, 6 new) through
     `_lockstep_drive`: (logits, caches, counts)."""
-    rng = np.random.default_rng(seed + 21)
-    prompts = [rng.integers(0, engine.model.cfg.vocab, int(rng.integers(40, 121))).astype(
-        np.int32) for _ in range(SERVE_ECFG["num_slots"])]
+    prompts = _lockstep_prompts(engine.model.cfg.vocab, seed)
     return _lockstep_drive(engine, prompts, 6)[0][:3]
 
 
@@ -2692,17 +2719,17 @@ def _shard_bits(gen) -> dict:
     return dict(cases=cases, head_kept_whole=head_bits)
 
 
-def phase_serve_mesh(seed: int, params, tokens) -> dict:
+def phase_serve_mesh(seed: int, params) -> dict:
     """Serving on a (data, model) mesh of one card (`[cuda:0] x n`: every
     rank's shard, gather and step runs for real; traffic between ranks is a
     copy on the card). On the `serve` weights (llama2-7b, 32 layers, LCD
     4-bit, quantized transform): B1-B5 on a rank's shard torch.equal to that
     part of the full launch (`_shard_bits`); one decode step's logits and
     the pool on (1, 2) and (2, 1) torch.equal to 1 x 1
-    (`_mesh_logits_check`); the `serve` drive (12 requests, 24 new tokens) on
-    (1, 2) and (2, 1) through `_serve`: `serve`'s tokens, engine = solo,
-    launch counts (every rank launches), every replay equal to its eager
-    body, step times beside a 1 x 1 engine's; the int8 pool at 4 layers on
+    (`_mesh_logits_check`); the `serve` drive (12 requests, 24 new tokens) at
+    MESH_DRIVE_LAYERS on 1 x 1, then on (1, 2) and (2, 1) through `_serve`:
+    1 x 1's tokens, engine = solo, launch counts (every rank launches), every
+    replay equal to its eager body, step times beside 1 x 1's; the int8 pool at 4 layers on
     (2, 2) with its own 1 x 1 engine's tokens, every replay equal to its
     eager body; `choose_layout`'s report over [cuda:0] x 4. Returns the
     mesh drives' launches."""
@@ -2715,33 +2742,33 @@ def phase_serve_mesh(seed: int, params, tokens) -> dict:
     bits = _shard_bits(gen)
     model = get_model(get_config("llama2-7b"))
     fails = [c for c in bits["cases"] if not c["equal"]]
-    # the 1 x 1 engine's lockstep run captures both widths, as the mesh
-    # engines' drives do, before its step times
     one = ServingEngine(model, params, EngineConfig(**SERVE_ECFG), device="cuda")
     want = _lockstep_logits(one, seed)
-    step_ms = {"1x1": _step_ms(one, seed)}
     del one
     logits = {f"{d}x{m}": _mesh_logits_check(model, params, seed, _mesh_of((d, m)), want)
               for d, m in MESH_SHAPES}
     fails += [(k, v) for k, v in logits.items() if not (v["logits_equal"] and v["caches_equal"])]
-    counts, rows = {}, {}
+    # the serve drive at MESH_DRIVE_LAYERS on 1 x 1, then on each mesh with its tokens
+    p4 = _first_layers(params, MESH_DRIVE_LAYERS)
+    counts, rows, step_ms = {}, {"1x1": {}}, {}
+    _, one_tokens = _serve("serve_mesh_1x1", "llama2-7b", seed, MESH_DRIVE_LAYERS, 12, 24, None,
+                           solo_ids=(), params=p4, step_times=True, report=rows["1x1"])
+    step_ms["1x1"] = rows["1x1"]["step_ms_8_slots_busy"]
     for d, m in MESH_SHAPES:
         key = f"{d}x{m}"
         rows[key] = {}
-        c, _ = _serve(f"serve_mesh_{key}", "llama2-7b", seed, 32, 12, 24, None,
-                      solo_ids=(0, 11), params=params, want_tokens=tokens, want_name="serve",
-                      mesh=_mesh_of((d, m)), step_times=True, report=rows[key])
+        c, _ = _serve(f"serve_mesh_{key}", "llama2-7b", seed, MESH_DRIVE_LAYERS, 12, 24, None,
+                      solo_ids=(0, 11), params=p4, want_tokens=one_tokens,
+                      want_name=f"1x1_at_{MESH_DRIVE_LAYERS}_layers", mesh=_mesh_of((d, m)),
+                      step_times=True, report=rows[key])
         step_ms[key] = rows[key]["step_ms_8_slots_busy"]
         for n, v in c.items():
             counts[n] = counts.get(n, 0) + v
     # the int8 pool on (2, 2) at 4 layers, against its own 1 x 1 engine
-    p4 = _first_layers(params, 4)
     m4 = get_model(dataclasses.replace(get_config("llama2-7b"), n_layers=4))
     smooth = calibrate_kv_smooth(m4, p4, seed=seed)
     ecfg8 = EngineConfig(kv_dtype="int8", **SERVE_ECFG)
-    rng = np.random.default_rng(seed + 3)
-    prompts = [rng.integers(0, m4.cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(8)]
+    prompts = _serve_prompts(m4.cfg.vocab, seed + 3, 8)
     int8 = {}
     for key, mesh in (("1x1", None), ("2x2", _mesh_of((2, 2)))):
         e = ServingEngine(m4, p4, ecfg8, mesh=mesh, device="cuda", kv_smooth=smooth)
@@ -2761,7 +2788,8 @@ def phase_serve_mesh(seed: int, params, tokens) -> dict:
     _, report = choose_layout(model, params, EngineConfig(**SERVE_ECFG),
                               devices=[torch.device("cuda", 0)] * 4)
     decode = {k: v["decode_width_1"] for k, v in step_ms.items()}
-    emit("serve_mesh", arch="llama2-7b", layers=32, shard_bits=bits,
+    emit("serve_mesh", arch="llama2-7b", layers=32, drive_layers=MESH_DRIVE_LAYERS,
+         shard_bits=bits,
          decode_step_logits=logits, int8_2x2_4_layers_tokens_equal_1x1=int8_same,
          step_ms_8_slots_busy=step_ms,
          decode_wall_ms_per_step={k: v["wall_ms_per_step"] for k, v in decode.items()},
@@ -2772,6 +2800,322 @@ def phase_serve_mesh(seed: int, params, tokens) -> dict:
     missing = [n for n in MESH_PATH if not counts.get(n)]
     if missing:
         raise SystemExit(f"serve_mesh: {missing} never launched: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# serving on a process mesh: one process per (data, model) rank
+# ---------------------------------------------------------------------------
+
+# `serve`'s llama2-7b weights cut to serve_mesh's int8 depth; the two meshes
+# run as two processes on cuda:0 over gloo, one spawn, the second mesh made
+# over the same processes
+PROCESS_LAYERS = 4
+PROCESS_SHAPES = ((1, 2), (2, 1))
+PROCESS_BACKEND = "gloo"
+PROCESS_TIMEOUT_S = 420
+PROCESS_NEW_TOKENS = 16          # the lockstep prompts' new tokens: room for the timed steps
+PROCESS_DECODE_STEPS = 8
+# the prefix mix on (2, 1): a 64-token system prompt (4 blocks of 16) that a
+# data-rank-0 slot writes and a data-rank-1 slot matches
+PROCESS_SHARED_LEN = 64
+
+
+def _digest(x) -> str:
+    """SHA-256 (hex) of a tensor's, or a tree's tensors', dtypes, shapes and
+    bytes (`distributed/collectives.py tree_digest`): equal where the
+    tensors are torch.equal (finite values)."""
+    from repro_torch.distributed.collectives import tree_digest
+    return tree_digest(x).hex()
+
+
+def _process_weights(seed):
+    """(model, params on the CPU): `serve`'s weights (`_served_params`, 32
+    layers on the card, from `seed`) cut to their first PROCESS_LAYERS
+    layers."""
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+    _, full = _served_params("llama2-7b", seed, 32)
+    params = to_device(_first_layers(full, PROCESS_LAYERS), "cpu")
+    del full
+    torch.cuda.empty_cache()
+    model = get_model(dataclasses.replace(get_config("llama2-7b"), n_layers=PROCESS_LAYERS))
+    return model, params
+
+
+def _process_prompts(vocab, seed):
+    """(serve_mesh's lockstep prompts: 8 of 40-120 tokens; `serve`'s: 12 of
+    40-200; the prefix mix: A and B open with one shared prompt, C1-C3 not)."""
+    rng = np.random.default_rng(seed + 29)
+    shared = rng.integers(0, vocab, PROCESS_SHARED_LEN).astype(np.int32)
+    prefix = [np.concatenate([shared, rng.integers(0, vocab, n).astype(np.int32)])
+              for n in (20, 25)] + [rng.integers(0, vocab, 30).astype(np.int32)
+                                    for _ in range(3)]
+    return dict(lockstep=_lockstep_prompts(vocab, seed), serve=_serve_prompts(vocab, seed, 12),
+                prefix=prefix)
+
+
+class _StepDigests:
+    """The engine's model with every serving step's logits digested."""
+
+    def __init__(self, model):
+        self.model, self.digests = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def serving_step(self, *a):
+        out = self.model.serving_step(*a)
+        self.digests.append(_digest(out[0]))
+        return out
+
+
+def _pool_digests(engine):
+    """Per pool leaf, the digest of each part this process holds (every
+    model rank's part on a one-process mesh)."""
+    from repro_torch.distributed.sharding import Sharded
+    view = engine.caches["paged"].views[0]
+    return {name: [_digest(p) for p in leaf.parts] if isinstance(leaf, Sharded)
+            else [_digest(leaf)] for name, leaf in view.items()}
+
+
+def _process_engine(model, params, mesh, kv_dtype=None, smooth=None, prefix=False):
+    """(engine, device bytes its construction left allocated): on a
+    one-process mesh the steps run the eager body, as a process mesh's do."""
+    from repro_torch.launch.engine import EngineConfig, ServingEngine
+    from repro_torch.launch.mesh import is_process_mesh
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = ServingEngine(model, params, EngineConfig(kv_dtype=kv_dtype, prefix_cache=prefix,
+                                                       **SERVE_ECFG),
+                           mesh=mesh, device="cuda", kv_smooth=smooth)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    if not is_process_mesh(mesh):
+        engine._model_step = engine._eager_step
+    engine.model = _StepDigests(model)
+    return engine, held
+
+
+def _process_lockstep(engine, prompts):
+    """The lockstep prompts submitted at once, stepped until every slot
+    decodes; then PROCESS_DECODE_STEPS decode steps timed on the host clock
+    (synchronised; logits not digested) with this process's collectives
+    counted; then run to the end."""
+    from repro_torch.distributed import collectives
+    reqs = [_submit(engine, p, PROCESS_NEW_TOKENS) for p in prompts]
+    _step_until_decoding(engine)
+    wrapped, engine.model = engine.model, engine.model.model
+    ran = engine.traces.get(1, 0)
+    collectives.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROCESS_DECODE_STEPS):
+        engine.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / PROCESS_DECODE_STEPS
+    counts = collectives.collective_counts()
+    engine.model = wrapped
+    if engine.traces.get(1, 0) - ran != PROCESS_DECODE_STEPS or any(
+            r is None or r.prefilling for r in engine.slots):
+        raise SystemExit("serve_processes: the timed steps were not all of width 1 with "
+                         "every slot decoding")
+    engine.run()
+    per_step = {name: {k: v / PROCESS_DECODE_STEPS for k, v in c.items()}
+                for name, c in counts.items()}
+    return [list(r.out_tokens) for r in reqs], dict(
+        eager_wall_ms_per_decode_step=round(wall, 3), collectives_per_decode_step=per_step)
+
+
+def _process_prefix(engine, prompts):
+    """The prefix mix: A and C1-C3 admitted into slots 0-3 (data rank 0 on
+    (2, 1)); once A's prefill is done its system-prompt blocks are cached,
+    and B, opening with the same prompt, takes slot 4 (data rank 1)."""
+    a, b, *cs = prompts
+    reqs = [_submit(engine, p, PROCESS_NEW_TOKENS) for p in [a] + cs]
+    while reqs[0].prefilling or not reqs[0].out_tokens:
+        engine.step()
+    rb = _submit(engine, b, PROCESS_NEW_TOKENS)
+    engine.step()
+    slot_b = rb.slot
+    engine.run()
+    return dict(tokens=[list(r.out_tokens) for r in [reqs[0], rb] + reqs[1:]], slot_b=slot_b,
+                cached_tokens=engine.cache_stats["cached_tokens"])
+
+
+def _process_mesh_drives(model, params, mesh, smooth, prompts) -> dict:
+    """The drives of one mesh, on a one-process mesh (the yardstick) or as
+    one process of a process mesh: the lockstep and serve drives (tokens,
+    every step's logits digested, the pool's digests after each, launches
+    per drive, the bytes the engine holds), then with a data axis of 2 the
+    int8 pool (lockstep prompts) and the prefix mix, cache on (a process
+    mesh) or off (the yardstick)."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import _tree_bytes
+    from repro_torch.launch.mesh import is_process_mesh
+    out, launches = {}, {}
+
+    def launched(drive):
+        for n, c in launch_counts().items():
+            if c:
+                launches.setdefault(drive, {})[n] = c
+
+    engine, held = _process_engine(model, params, mesh)
+    out["bytes"] = dict(memory_allocated_after_placement=held,
+                        params=_tree_bytes(engine.params),
+                        pool=_tree_bytes(engine.caches["paged"]))
+    out["eager_reason"] = engine.eager_reason
+    if not is_process_mesh(mesh):
+        out["bytes"]["per_model_rank"] = [
+            dict(params=_tree_bytes(engine.params.rank_tree(m)),
+                 pool=sum(_tree_bytes(leaf.parts[m])
+                          for leaf in engine.caches["paged"].views[0].values()))
+            for m in range(mesh.shape["model"])]
+    for drive in ("lockstep", "serve"):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        n0 = len(engine.model.digests)
+        if drive == "lockstep":
+            tokens, row = _process_lockstep(engine, prompts["lockstep"])
+        else:
+            reqs = _drive(engine, prompts["serve"], 24)
+            tokens, row = [list(r.out_tokens) for r in reqs], {}
+        torch.cuda.synchronize()
+        launched(drive)
+        out[drive] = dict(tokens=tokens, logits=engine.model.digests[n0:],
+                          pool=_pool_digests(engine), **row)
+    del engine
+    if mesh.shape["data"] > 1:
+        reset_launch_counts()
+        engine, _ = _process_engine(model, params, mesh, kv_dtype="int8", smooth=smooth)
+        tokens, _ = _process_lockstep(engine, prompts["lockstep"])
+        launched("int8")
+        out["int8"] = dict(tokens=tokens, logits=engine.model.digests)
+        del engine
+        reset_launch_counts()
+        engine, _ = _process_engine(model, params, mesh, prefix=is_process_mesh(mesh))
+        out["prefix"] = _process_prefix(engine, prompts["prefix"])
+        launched("prefix")
+        del engine
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _processes_child(mesh, seed, smooth, weights_digest) -> dict:
+    """One process of the process meshes: `serve`'s weights made again from
+    `seed` and held to the parent's digest, then `_process_mesh_drives` on
+    each of PROCESS_SHAPES (the first is `mesh`, the second made over the
+    same processes)."""
+    from repro_torch.distributed.collectives import staged
+    from repro_torch.launch.mesh import init_process_mesh
+    model, params = _process_weights(seed)
+    if _digest(params) != weights_digest:
+        raise SystemExit(f"serve_processes: rank {mesh.rank}'s weights differ from the "
+                         f"parent's")
+    prompts = _process_prompts(model.cfg.vocab, seed)
+    out = {}
+    for shape in PROCESS_SHAPES:
+        m = mesh if tuple(mesh.devices.shape) == shape else init_process_mesh(
+            shape, backend=mesh.backend, device=mesh.device)
+        row = _process_mesh_drives(model, params, m, smooth, prompts)
+        row.update(rank=m.rank, coord=m.coord, staged_through_host=staged(
+            m.group("world"), torch.empty(1, device=m.device)))
+        out["x".join(map(str, shape))] = row
+    return out
+
+
+def phase_serve_processes(seed: int, params, smi: str) -> dict:
+    """Serving on a process mesh: PROCESS_SHAPES as two processes on cuda:0
+    over gloo (one card; NCCL refuses two ranks on one device), spawned once
+    after the build, so that they load the parent's library. `serve`'s
+    llama2-7b at full width cut to PROCESS_LAYERS layers (LCD 4-bit,
+    quantized transform); the yardstick, the one-process mesh engine of the
+    same shape on [cuda:0] x 2 and the 1 x 1 engine, eager, in this process.
+    Holds (a) every process's tokens and every step's logits (digests)
+    equal to the one-process mesh's, whose tokens equal 1 x 1's; (b) each
+    pool replica equal to the one-process pool's part of its model rank
+    after each drive; (c) every process launching every kernel of
+    MESH_PATH; (d) on (2, 1) a cached system prompt, written by a
+    data-rank-0 slot, matched into a data-rank-1 slot with the cache-off
+    tokens; (e) the int8 pool on (2, 1) with its one-process engine's tokens
+    and logits; and each process's parameter bytes equal to its model
+    rank's on the one-process mesh. Reports the bytes each process holds,
+    the collectives and eager ms per decode step. Returns the processes'
+    launches."""
+    from repro_torch.launch.engine import _tree_bytes, calibrate_kv_smooth
+    from repro_torch.launch.mesh import make_mesh, run_on_processes
+    from repro_torch.models.config import get_config
+    from repro_torch.models.registry import get_model
+    model = get_model(dataclasses.replace(get_config("llama2-7b"), n_layers=PROCESS_LAYERS))
+    params = to_device(_first_layers(params, PROCESS_LAYERS), "cpu")
+    prompts = _process_prompts(model.cfg.vocab, seed)
+    smooth = calibrate_kv_smooth(model, to_device(params, "cuda"), seed=seed)
+    one = {}
+    for shape in PROCESS_SHAPES:
+        mesh = make_mesh(shape, ("data", "model"), [torch.device("cuda", 0)] * 2)
+        one["x".join(map(str, shape))] = _process_mesh_drives(model, params, mesh, smooth,
+                                                              prompts)
+    one_by_one, _ = _process_engine(model, to_device(params, "cuda"), None)
+    one_tokens = {drive: _process_lockstep(one_by_one, prompts["lockstep"])[0]
+                  if drive == "lockstep" else
+                  [list(r.out_tokens) for r in _drive(one_by_one, prompts["serve"], 24)]
+                  for drive in ("lockstep", "serve")}
+    del one_by_one
+    t0 = time.perf_counter()
+    results = run_on_processes(_processes_child, PROCESS_SHAPES[0], backend=PROCESS_BACKEND,
+                               devices=[torch.device("cuda", 0)] * 2,
+                               timeout_s=PROCESS_TIMEOUT_S,
+                               args=(seed, smooth, _digest(params)))
+    spawn_s = time.perf_counter() - t0
+    fails, rows, counts = [], {}, {}
+    for key, yard in one.items():
+        for drive in ("lockstep", "serve"):
+            if yard[drive]["tokens"] != one_tokens[drive]:
+                fails.append(f"{key} one-process {drive} tokens differ from 1 x 1's")
+        procs = []
+        for res in results:
+            r = res[key]
+            m = r["coord"]["model"]
+            check = {f"{drive}_{what}": r[drive][what] == yard[drive][what]
+                     for drive in ("lockstep", "serve") for what in ("tokens", "logits")}
+            for drive in ("lockstep", "serve"):
+                check[f"{drive}_pool_replica"] = all(
+                    r[drive]["pool"][name] == [parts[m]]
+                    for name, parts in yard[drive]["pool"].items())
+            check["param_bytes_of_its_model_rank"] = (
+                r["bytes"]["params"] == yard["bytes"]["per_model_rank"][m]["params"])
+            missing = [n for n in MESH_PATH
+                       if not sum(c.get(n, 0) for c in r["launches"].values())]
+            check["every_mesh_path_kernel_launched"] = not missing
+            if "int8" in r:
+                check["int8_tokens"] = r["int8"]["tokens"] == yard["int8"]["tokens"]
+                check["int8_logits"] = r["int8"]["logits"] == yard["int8"]["logits"]
+                p = r["prefix"]
+                check["prefix_matched_into_data_rank_1"] = (
+                    p["slot_b"] >= SERVE_ECFG["num_slots"] // 2
+                    and p["cached_tokens"] >= PROCESS_SHARED_LEN)
+                check["prefix_tokens_equal_cache_off"] = p["tokens"] == yard["prefix"]["tokens"]
+            fails += [f"{key} rank {r['rank']}: {k}" for k, ok in check.items() if not ok]
+            for c in r["launches"].values():
+                for n, v in c.items():
+                    counts[n] = counts.get(n, 0) + v
+            procs.append(dict(
+                rank=r["rank"], coord=r["coord"], checks=check, bytes=r["bytes"],
+                eager_reason=r["eager_reason"], staged_through_host=r["staged_through_host"],
+                launches=r["launches"],
+                eager_wall_ms_per_decode_step=r["lockstep"]["eager_wall_ms_per_decode_step"],
+                collectives_per_decode_step=r["lockstep"]["collectives_per_decode_step"],
+                prefix={k: v for k, v in r.get("prefix", {}).items() if k != "tokens"}))
+        rows[key] = dict(processes=procs, one_process=dict(
+            bytes=yard["bytes"], launches=yard["launches"],
+            eager_wall_ms_per_decode_step=yard["lockstep"]["eager_wall_ms_per_decode_step"],
+            collectives_per_decode_step=yard["lockstep"]["collectives_per_decode_step"]))
+    emit("serve_processes", arch="llama2-7b", layers=PROCESS_LAYERS, card=smi,
+         backend=PROCESS_BACKEND, processes=2, whole_model_param_bytes=_tree_bytes(params),
+         spawn_and_drives_s=round(spawn_s, 1), meshes=rows)
+    if fails:
+        raise SystemExit(f"serve_processes: {fails}")
     return counts
 
 
@@ -3518,9 +3862,7 @@ def phase_serve_spec(seed: int):
                            ecfg=EngineConfig(speculative_k=k, **base), params=params,
                            draft_params=draft, device="cuda")
     cfg = model.cfg
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(12)]
+    prompts = _serve_prompts(cfg.vocab, seed, 12)
 
     turns, tokens, counts, traces = [], {}, None, None
     for engine, name in ((spec, "spec"), (plain, "plain"), (plain, "plain"), (spec, "spec")):
@@ -3623,9 +3965,7 @@ def _serve_spec_arch(arch, seed, n_layers=2, k=SPEC_K, new_tokens=16):
                            ecfg=EngineConfig(speculative_k=k, **base), params=params,
                            draft_params=draft, device="cuda")
     cfg = model.cfg
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(8)]
+    prompts = _serve_prompts(cfg.vocab, seed, 8)
     want = [list(r.out_tokens) for r in _drive(plain, prompts, new_tokens)]
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -3947,9 +4287,7 @@ def phase_serve_sched(seed: int, params) -> dict:
     engine, _ = build_engine("llama2-7b", use_reduced=False, lcd=True, ecfg=ecfg,
                              params=params, n_layers=n_layers, device="cuda")
     cfg = engine.model.cfg
-    rng = np.random.default_rng(seed + 31)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(12)]
+    prompts = _serve_prompts(cfg.vocab, seed + 31, 12)
     tags = [dict(tenant="ab"[i % 2], priority=i % 3) for i in range(12)]
     seen = dict(picks=0, mismatches=[], deferred=0)
     order = []
@@ -5197,9 +5535,7 @@ def _serve_spec_moe(arch, seed, params, n_layers=2, k=SPEC_K, new_tokens=16):
                            ecfg=EngineConfig(speculative_k=k, **base), params=params,
                            draft_params=draft, device="cuda")
     cfg = spec.model.cfg
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(40, 201))).astype(np.int32)
-               for _ in range(8)]
+    prompts = _serve_prompts(cfg.vocab, seed, 8)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -6105,15 +6441,17 @@ def phase_dryrun(train_drive, profile_drive) -> None:
 
 
 ALL_PHASES = ("kernels", "autotune", "lut_layer", "model_parity", "serve", "serve_mesh",
-              "serve_unfused", "serve_static", "serve_int8", "serve_gqa", "serve_spec",
+              "serve_processes", "serve_unfused", "serve_static", "serve_int8", "serve_gqa",
+              "serve_spec",
               "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched",
               "serve_family", "serve_spec_family", "compress", "profile", "moe_parity",
               "serve_moe", "recurrent_parity", "serve_recurrent", "audio_parity",
               "serve_audio", "serve_mesh_family", "train", "train_mesh", "dryrun")
 # the phases served on the `serve` phase's llama2-7b weights (the 4-layer ones on
 # their first 4 layers)
-ON_SERVE_WEIGHTS = {"serve", "serve_mesh", "serve_unfused", "serve_static", "profile",
-                    "serve_prefix", "serve_prefix_spec", "serve_prefix_int8", "serve_sched"}
+ON_SERVE_WEIGHTS = {"serve", "serve_mesh", "serve_processes", "serve_unfused", "serve_static",
+                    "profile", "serve_prefix", "serve_prefix_spec", "serve_prefix_int8",
+                    "serve_sched"}
 
 
 def main() -> int:
@@ -6162,13 +6500,12 @@ def main() -> int:
         counts, tokens = timed("serve", _serve, "serve", "llama2-7b", args.seed, 32, 12, 24,
                                None, solo_ids=(0, 11), params=params)
     # the same weights and drive on (data, model) meshes of the card, counted on their own
-    mesh_counts = {}
-    if "serve_mesh" in phases:
-        if tokens is None:
-            print("chip_smoke: serve_mesh holds the mesh engines to serve's tokens; run "
-                  "serve too", file=sys.stderr)
-            return 1
-        mesh_counts = timed("serve_mesh", phase_serve_mesh, args.seed, params, tokens)
+    mesh_counts = (timed("serve_mesh", phase_serve_mesh, args.seed, params)
+                   if "serve_mesh" in phases else {})
+    # the same weights at 4 layers on a process mesh: two processes on the card
+    # over gloo, each holding its own shards, counted on their own
+    process_counts = (timed("serve_processes", phase_serve_processes, args.seed, params, smi)
+                      if "serve_processes" in phases else {})
     if "serve_unfused" in phases:
         # the same prompts through per-projection launches: the same tokens
         timed("serve_unfused", _serve, "serve_unfused", "llama2-7b", args.seed, 32, 12, 24,
@@ -6316,6 +6653,9 @@ def main() -> int:
             "launches_serve_mesh": mesh_counts.get(name, 0),
             # the MoE, recurrent, hybrid and audio drives on the same meshes
             "launches_serve_mesh_family": mesh_family_counts.get(name, 0),
+            # the serve weights at 4 layers on (1, 2) and (2, 1) process
+            # meshes: both processes' launches
+            "launches_serve_processes": process_counts.get(name, 0),
             # the rest of the family: its full-depth drives and its speculative ones
             "launches_serve_family": family_counts.get(name, 0),
             "launches_serve_spec_family": family_spec_counts.get(name, 0),
@@ -6367,6 +6707,7 @@ def main() -> int:
         print("chip_smoke: a kernel of the main path was never launched", file=sys.stderr)
         return 1
     if complete and not all(k["launches_serve_mesh"] > 0 and k["launches_serve_mesh_family"] > 0
+                            and k["launches_serve_processes"] > 0
                             for k in kernels if k["name"] in MESH_PATH):
         print("chip_smoke: a kernel of the mesh path was never launched", file=sys.stderr)
         return 1

@@ -7,8 +7,11 @@ shardings)` and lets GSPMD partition every step. The port runs a mesh from
 one process over one repeated device: `place` cuts each leaf on the dims its
 spec gives the mesh axes (a contiguous tensor per part), and a leaf left
 whole (and a model axis of 1) is the caller's tensor where it already lies
-on the mesh's device. A mesh of distinct cards is refused: it waits for a
-multi-process torch.distributed backend.
+on the mesh's device. A one-process mesh of distinct cards is refused; such
+a mesh is a process mesh (`launch/mesh.py ProcessMesh`: one process per
+coordinate), on which `place` keeps only this process's coordinate, for
+serving: one data rank's view, one model rank's parts (each `Sharded` over
+the model group), on this process's device.
 
 Serving (`fsdp=False`, the default, and `writable=`):
 
@@ -55,7 +58,7 @@ import torch
 from repro_torch.core.api import CT_ARRAY_FIELDS, is_clustered, map_arrays
 from repro_torch.distributed.sharding import (PartitionSpec, Sharded, gather,
                                               logical_to_spec, use_rules)
-from repro_torch.launch.mesh import require_one_device
+from repro_torch.launch.mesh import is_process_mesh, refuse_process_mesh, require_one_device
 from repro_torch.tree import flatten_with_paths, unflatten
 
 # input channels of one k-block: the packing group of every width
@@ -270,15 +273,19 @@ def _cut_dims(spec, what: str) -> Tuple[Optional[int], Tuple[str, ...], Optional
     return data_dim, data_axes, model_dim
 
 
-def _cut(x: torch.Tensor, dim: Optional[int], m: int) -> List[torch.Tensor]:
+def _cut(x: torch.Tensor, dim: Optional[int], m: int,
+         which: Optional[List[int]] = None) -> List[torch.Tensor]:
+    """The parts `which` (default: all m) of `x` cut on `dim` into m."""
+    which = range(m) if which is None else which
     if dim is None:
-        return [x] * m
+        return [x] * len(which)
     size = x.shape[dim] // m
-    return [x.narrow(dim, i * size, size).contiguous() for i in range(m)]
+    return [x.narrow(dim, i * size, size).contiguous() for i in which]
 
 
-def _cut_clustered(ct, shardings, m: int, what: str):
-    """(parts, cut dim of the dense weight) of a ClusteredTensor."""
+def _cut_clustered(ct, shardings, m: int, what: str, which: Optional[List[int]] = None):
+    """(parts `which` (default: all m), cut dim of the dense weight) of a
+    ClusteredTensor."""
     fields: Dict[str, List] = {}
     dims: Dict[str, Optional[int]] = {}
     for f in CT_ARRAY_FIELDS:
@@ -286,7 +293,7 @@ def _cut_clustered(ct, shardings, m: int, what: str):
         if arr is None:
             continue
         dims[f] = _model_dim(ns.spec, f"{what}.{f}")
-        fields[f] = _cut(arr, dims[f], m)
+        fields[f] = _cut(arr, dims[f], m, which)
     dim = dims["codes"]
     if dim is not None and dim < ct.codes.ndim - 2:
         # a stack dim (experts): every field carrying it follows the cut
@@ -294,13 +301,14 @@ def _cut_clustered(ct, shardings, m: int, what: str):
         for f in fields:
             arr = getattr(ct, f)
             if dims[f] is None and tuple(arr.shape[:dim + 1]) == lead:
-                dims[f], fields[f] = dim, _cut(arr, dim, m)
+                dims[f], fields[f] = dim, _cut(arr, dim, m, which)
     d_in = ct.smooth.shape[-1]
     if dim is not None and dim == ct.codes.ndim - 2 and (d_in // m) % K_BLOCK:
         raise ValueError(
             f"place: {what} is cut along K (d_in {d_in}) into {m} parts of "
             f"{d_in // m} channels; a cut must fall on whole {K_BLOCK}-channel k-blocks")
-    parts = [ct._replace(**{f: v[i] for f, v in fields.items()}) for i in range(m)]
+    parts = [ct._replace(**{f: v[i] for f, v in fields.items()})
+             for i in range(len(fields["codes"]))]
     return parts, dim
 
 
@@ -317,10 +325,21 @@ def place(tree, shardings, mesh, *, writable: bool = False, fsdp: bool = False) 
     reads. `fsdp` marks a training state (params, Adam moments, EF state):
     a tensor leaf's cut on the data axes (the reference's FSDP `embed`
     rule) gives each data rank its own part (`_cut_dims`); without it such
-    a cut is refused."""
+    a cut is refused.
+
+    On a process mesh only this process's coordinate is placed, for
+    serving: one view (its data rank's) whose cut leaves are `Sharded`
+    over its model group, holding its model rank's part alone, on its
+    device."""
     require_one_device(mesh, "place")
-    ranks = data_ranks(mesh)
+    if fsdp:
+        refuse_process_mesh(mesh, "training (a placed training state)", "A7.5")
+    process = is_process_mesh(mesh)
+    ranks = [mesh.coord] if process else data_ranks(mesh)
     n_model = mesh.shape.get("model", 1)
+    # the model ranks whose parts this process holds, and the group they form
+    mine = [mesh.coord.get("model", 0)] if process else list(range(n_model))
+    group = mesh.groups.get("model") if process else None
     dev = mesh.lead_device
 
     def to(x):
@@ -350,12 +369,13 @@ def place(tree, shardings, mesh, *, writable: bool = False, fsdp: bool = False) 
         if fsdp and not is_clustered(x):
             return fsdp_leaf(x, spec, what)
         if is_clustered(x):
-            parts, dim = _cut_clustered(x, ns, n_model, what)
+            parts, dim = _cut_clustered(x, ns, n_model, what, mine)
         else:
             dim = _model_dim(spec, what, shared)
-            parts = _cut(x, dim, n_model)
-        parts = [to(p) for p in parts] if dim is not None else [to(x)] * n_model
-        leaf = Sharded(tuple(parts), dim) if dim is not None or writable else parts[0]
+            parts = _cut(x, dim, n_model, mine)
+        parts = [to(p) for p in parts] if dim is not None else [to(x)] * len(mine)
+        leaf = (Sharded(tuple(parts), dim, group=group) if dim is not None or writable
+                else parts[0])
         return [leaf] * len(ranks)
 
     def walk(x, ns, what):

@@ -26,7 +26,11 @@ every model rank's shard is a tensor of its own on its rank's device
 (`Sharded`), and its step runs each rank's part and combines the parts
 where the layout says. `maybe_shard` is that point: the JAX package's sharding constraint,
 which here gathers a cut activation (the parts concatenated in rank order)
-where the names leave its dim whole.
+where the names leave its dim whole. On a process mesh (one process per
+coordinate, `launch/mesh.py ProcessMesh`) a `Sharded` holds this process's
+part alone and the axis group it is cut over, and the same points combine
+the parts with an all-gather over that group (`distributed/collectives.py`),
+concatenated in rank order as in one process.
 """
 from __future__ import annotations
 
@@ -263,20 +267,34 @@ def tree_shardings(tree_shapes, tree_names, sr: Optional[ShardingRules] = None):
 class Sharded:
     """A tensor (or ClusteredTensor) cut over one mesh axis, as one process
     holds it: `parts[i]` is rank i's part on that rank's device, cut on
-    `dim` of the whole (None: every part is the whole)."""
+    `dim` of the whole (None: every part is the whole). On a process mesh
+    `group` is the axis group (`distributed/collectives.py AxisGroup`) and
+    `parts` holds this process's part alone."""
     parts: Tuple[Any, ...]
     dim: Optional[int]
     axis: str = "model"
+    group: Any = None
 
     @property
     def dtype(self):
         return self.parts[0].dtype
 
+    @property
+    def ranks(self) -> int:
+        """The ranks the value is cut over (the parts held, or the group's
+        processes)."""
+        return len(self.parts) if self.group is None else self.group.size
+
+    def with_parts(self, parts: Sequence[Any], dim: Optional[int]) -> "Sharded":
+        """`parts` (one per part held) cut on `dim`, over this value's axis
+        and group."""
+        return Sharded(tuple(parts), dim, self.axis, self.group)
+
     def map(self, fn, dims_dropped: int = 0) -> "Sharded":
         """`fn` on every part; `dims_dropped` leading dims indexed away (a
         layer slice)."""
         dim = None if self.dim is None else self.dim - dims_dropped
-        return Sharded(tuple(fn(p) for p in self.parts), dim, self.axis)
+        return self.with_parts([fn(p) for p in self.parts], dim)
 
 
 def device_of(x) -> torch.device:
@@ -295,17 +313,23 @@ def gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
 
 def whole(x):
     """The whole value of a `Sharded` (its parts gathered, or its first part
-    where every part is the whole); anything else as it is."""
+    where every part is the whole; on a process mesh, all-gathered over its
+    group); anything else as it is."""
     if not isinstance(x, Sharded):
         return x
-    return x.parts[0] if x.dim is None else gather(x.parts, x.dim)
+    if x.dim is None:
+        return x.parts[0]
+    if x.group is not None:
+        from repro_torch.distributed.collectives import all_gather
+        return all_gather(x.parts[0], x.group, x.dim)
+    return gather(x.parts, x.dim)
 
 
 def parts_on(x, n: int, dim: int) -> List[torch.Tensor]:
     """`x` as `n` equal parts on `dim`, in rank order: a `Sharded` x cut on
     that dim in n parts gives its own parts; anything else is made whole and
     narrowed (views). n = 1 gives [whole(x)]."""
-    if isinstance(x, Sharded) and x.dim is not None and len(x.parts) == n:
+    if isinstance(x, Sharded) and x.dim is not None and x.group is None and len(x.parts) == n:
         nd = x.parts[0].ndim
         if x.dim % nd == dim % nd:
             return list(x.parts)
@@ -330,8 +354,8 @@ def like(x, parts: Sequence[Any]):
     if not isinstance(x, Sharded):
         return parts[0]
     if x.dim is None:
-        return Sharded((parts[0],) * len(x.parts), None, x.axis)
-    return Sharded(tuple(parts), x.dim, x.axis)
+        return x.with_parts((parts[0],) * len(x.parts), None)
+    return x.with_parts(parts, x.dim)
 
 
 def on_parts(x, fn, dims_dropped: int = 0):
@@ -350,10 +374,10 @@ def maybe_shard(x, *names: Optional[str]):
         return whole(x)
     sr = current_rules()
     full = list(x.parts[0].shape)
-    full[x.dim] = sum(p.shape[x.dim] for p in x.parts)
+    full[x.dim] = sum(p.shape[x.dim] for p in x.parts) * (x.ranks // len(x.parts))
     keep = False
     if sr is not None:
         entry = logical_to_spec(full, names, sr)[x.dim]
         axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        keep = x.axis in axes and sr.mesh.shape.get(x.axis, 1) == len(x.parts)
-    return x if keep else gather(x.parts, x.dim)
+        keep = x.axis in axes and sr.mesh.shape.get(x.axis, 1) == x.ranks
+    return x if keep else whole(x)

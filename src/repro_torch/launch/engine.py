@@ -112,14 +112,30 @@ LUT codes cut by the projections' columns, the pools by kv heads, the slots
 by data rank. One process drives every rank: each data rank runs its slots,
 each model rank its shards through B1-B5, the parts combine in rank order
 (`models/transformer.py _mesh_step`), and the tokens and every step's logits
-are the bits of the one-device engine. The mesh's devices must repeat
-(`[cuda:0] x n`, built only when asked for); on it the whole mesh step is one
-CUDA graph per step shape. Every family serves on a mesh: an MoE layer
+are the bits of the one-device engine. A one-process mesh's devices must
+repeat (`[cuda:0] x n`, built only when asked for); on it the whole mesh
+step is one CUDA graph per step shape. Every family serves on a mesh: an MoE layer
 routes the step's gathered rows once, each model rank running its experts;
 the slot state is cut by heads, its rows shared by the data ranks (each
-writes its own slots), and the slot ops act on every part. A mesh of
-distinct cards raises NotImplementedError: it waits for a multi-process
-torch.distributed backend.
+writes its own slots), and the slot ops act on every part. A one-process
+mesh of distinct cards raises NotImplementedError.
+
+A mesh of several cards (or of CPU processes, or of processes sharing one
+card over gloo) is a process mesh (`launch/mesh.py ProcessMesh`): one
+torch.distributed process per (data, model) coordinate, each holding only
+its coordinate's shards (its columns' LUT codes, its kv heads of the pool;
+the vocab tables whole) and running only its data rank's slots and its
+model rank's B1-B5 launches, the parts combined by the collectives of
+`distributed/collectives.py`. Every process runs the same host scheduler
+from the same submits (admission, block tables, prefix cache, COW copies
+on every replica, chunked prefill, the priority picks); each pool replica
+takes every data rank's writes, and after each step rank 0's next tokens
+are broadcast and held against every process's own (the lockstep check).
+The tokens and every step's logits are the bits of the one-process mesh of
+the same shape. The dense and vlm families serve on it, non-speculatively;
+the other families and speculative rounds raise NotImplementedError. Its
+steps run the eager body on the card as well (`eager_reason`): gloo's
+collectives cannot be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -137,10 +153,13 @@ import torch
 from repro_torch.core.api import CT_ARRAY_FIELDS, compress_model, is_clustered
 from repro_torch.core.clustered_params import make_draft_params
 from repro_torch.core.lut import SUPPORTED_NBITS
+from repro_torch.distributed.collectives import check_lockstep, check_same_tree
 from repro_torch.distributed.placement import MeshTree, place
 from repro_torch.distributed.sharding import parts_on, use_rules
 from repro_torch.kernels.ops import add_launches, capture_launches
-from repro_torch.launch.mesh import make_mesh, require_one_device, visible_devices
+from repro_torch.launch.mesh import (init_process_mesh, is_process_mesh, make_mesh,
+                                     refuse_process_mesh, require_one_device,
+                                     visible_devices)
 from repro_torch.models.config import get_config, reduced
 from repro_torch.models.registry import (CAP_ENCODER, CAP_INT8_KV, CAP_PAGED,
                                          CAP_PREFIX_CACHE, CAP_SLOT_STATE,
@@ -749,7 +768,13 @@ class ServingEngine:
         self.has_paged = CAP_PAGED in caps
         self.has_slot = CAP_SLOT_STATE in caps
         self.spec_k = ecfg.speculative_k
+        family = model.cfg.family
+        if model.cfg.n_experts:
+            refuse_process_mesh(mesh, f"serving the MoE family ({family})", "A7.3")
+        if self.has_slot:
+            refuse_process_mesh(mesh, f"serving the slot-state family '{family}'", "A7.3")
         if self.spec_k:
+            refuse_process_mesh(mesh, "speculative rounds (speculative_k > 0)", "A7.4")
             if CAP_SPECULATIVE not in caps:
                 raise ValueError(
                     f"EngineConfig.speculative_k > 0 needs the 'speculative' "
@@ -856,12 +881,23 @@ class ServingEngine:
         self.layout_report = None
         self._place_sharded()
         # on the card the model step (the whole mesh step) is captured per
-        # width, after the pools above are final; the CPU runs it eagerly
-        self._graphs = _StepGraphs() if self.device.type == "cuda" else None
+        # width, after the pools above are final; the CPU runs it eagerly,
+        # and so does a process mesh: its collectives cannot be captured
+        # (gloo's at all; NCCL's capture waits for a host with several cards)
+        self.eager_reason: Optional[str] = None
+        if self.device.type != "cuda":
+            self.eager_reason = "cpu: no CUDA graphs"
+        elif is_process_mesh(self.mesh):
+            self.eager_reason = (f"process mesh ({self.mesh.backend}): its collectives are "
+                                 f"not captured in a CUDA graph; every kernel still "
+                                 f"launches on the card")
+            logger.info(f"engine: eager steps on the card: {self.eager_reason}")
+        self._graphs = _StepGraphs() if self.eager_reason is None else None
 
     def _place_sharded(self) -> None:
         """Place the params, the draft's and every cache on the mesh (a 1 x 1
-        mesh keeps them as they are). Weights by the serving names
+        mesh keeps them as they are; a process mesh, only this process's
+        coordinate's shards). Weights by the serving names
         (`distributed/layout.py serving_names`: ClusteredTensor codes cut by
         the projections' output columns, smoothing vectors like the input
         dims, an MoE layer's stacked experts on their experts with every
@@ -1265,6 +1301,8 @@ class ServingEngine:
         download."""
         nxt = self._step_body(self.caches, self._host_upload(tokens, n_new),
                               tokens.shape[1], self.draft_caches)
+        if is_process_mesh(self.mesh):
+            nxt = check_lockstep(nxt, self.mesh.group("world"))
         return nxt.cpu().numpy()
 
     def _eager_round(self, pend: np.ndarray, n_one: np.ndarray) -> np.ndarray:
@@ -1907,6 +1945,13 @@ def _tree_bytes(tree) -> int:
     return 0
 
 
+def _process_world() -> int:
+    """The size of the initialised torch.distributed process group (1 where
+    none is)."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
                  target_centroids: int = 8, ecfg: Optional[EngineConfig] = None,
                  seed: int = 0, params=None, draft_params=None, kv_smooth=None,
@@ -1924,9 +1969,14 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
     passes gets the roofline layout search (`distributed/layout.py
     choose_layout`, its report on the engine as `layout_report`); otherwise
     the engine serves on `device` alone, however many cards are visible. A
-    mesh is served only where its devices repeat (`[cuda:0] x n`, built on
-    request); one over distinct cards raises NotImplementedError until a
-    multi-process backend exists.
+    one-process mesh is served only where its devices repeat (`[cuda:0] x
+    n`, built on request). Under an initialised torch.distributed process
+    group of several processes (torchrun) the knobs must factor its size,
+    or the layout search runs over its processes, and the engine serves on
+    a process mesh (`launch/mesh.py init_process_mesh`, the group's
+    backend; `device` is this process's), each process holding its own
+    shards; a process whose weights or kv smoothing vectors differ from
+    rank 0's raises (`collectives.check_same_tree`).
 
     Without `params`, dense weights are drawn from `seed`. With `lcd=True` and
     no clustered leaf among the params, the dense weights are LCD-compressed
@@ -1966,12 +2016,17 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
                     "(Eq. 9 candidate search per layer x kv-head)")
     layout_report = None
     if mesh is None:
-        devs = list(devices) if devices is not None else (
+        world = _process_world()
+        # under an initialised process group (torchrun) the mesh spans its
+        # processes, one device each (the layout search reads their count)
+        devs = [dev] * world if world > 1 else list(devices) if devices is not None else (
             visible_devices() if dev.type == "cuda" else [dev])
         n = len(devs)
+        over = f"{n} processes of the process group" if world > 1 else f"{n} visible device(s)"
         dp, mp = ecfg.data_parallel, ecfg.model_parallel
+        shape = None
         if dp is not None or mp is not None:
-            # derive the unpinned factor from the visible device count
+            # derive the unpinned factor from the device (process) count
             if dp is None:
                 dp = n // mp if mp and n % mp == 0 else 0
             if mp is None:
@@ -1979,13 +2034,22 @@ def build_engine(arch: str, *, use_reduced: bool = True, lcd: bool = False,
             if dp < 1 or mp < 1 or dp * mp != n:
                 raise ValueError(
                     f"build_engine: data_parallel x model_parallel must "
-                    f"factor the {n} visible device(s); got "
+                    f"factor the {over}; got "
                     f"{ecfg.data_parallel} x {ecfg.model_parallel}")
-            mesh = make_mesh((dp, mp), ("data", "model"), devs)
-        elif devices is not None and n > 1:
+            shape = (dp, mp)
+        elif (devices is not None or world > 1) and n > 1:
             from repro_torch.distributed.layout import choose_layout
-            mesh, layout_report = choose_layout(model, params, ecfg, devices=devs)
-            logger.info(f"mesh layout: chose {layout_report['chosen']} over {n} device(s)")
+            chosen, layout_report = choose_layout(model, params, ecfg, devices=devs)
+            shape = tuple(chosen.devices.shape)
+            logger.info(f"mesh layout: chose {layout_report['chosen']} over the {over}")
+        if shape is not None and world > 1:
+            import torch.distributed as dist
+            mesh = init_process_mesh(shape, backend=dist.get_backend(), device=dev)
+            # every process drew (and compressed) the weights itself
+            check_same_tree((params, kv_smooth), mesh.group("world"),
+                            "weights and kv smoothing vectors")
+        elif shape is not None:
+            mesh = make_mesh(shape, ("data", "model"), devs)
     engine = ServingEngine(model, params, ecfg, mesh=mesh, draft_params=draft_params,
                            kv_smooth=kv_smooth, device=dev)
     engine.compress_report = report

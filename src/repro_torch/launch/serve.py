@@ -51,12 +51,26 @@ int8 block pool, whose smoothing vectors are calibrated at start-up):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
         --reduced --lcd --continuous --device cpu
 
+On a host with several cards, one process per card (a process mesh: each
+process holds its own shards; the dense and vlm families), the knobs
+factoring the process count (neither: the layout search); only rank 0
+prints:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.serve --arch llama2-7b --lcd \
+        --continuous --model-parallel 2
+
+The backend is nccl on the card (a card a process: cuda:<LOCAL_RANK>) and
+gloo on the CPU (`--device cpu`).
+
 All engine logic lives in `repro_torch.launch.engine`; this module only parses
 flags and reports.
 """
 from __future__ import annotations
 
 import argparse
+import logging
+import os
 import time
 import types
 from typing import Optional, Sequence
@@ -132,6 +146,28 @@ def _build_kernels(device) -> None:
             logger.info(f"built the CUDA kernels in {_build.build_seconds:.1f}s")
 
 
+def _init_processes(backend: str, device) -> torch.device:
+    """This process's device and the process group torchrun's environment
+    describes (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`,
+    `MASTER_PORT`): "cuda" without an index is cuda:<LOCAL_RANK>. Ranks
+    other than 0 log warnings only. On the card rank 0 builds the kernels
+    and the others load its library after a barrier (two builds at once
+    would write one directory)."""
+    import torch.distributed as dist
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="env://")
+    if dist.get_rank() != 0:
+        logger.setLevel(logging.WARNING)
+    if device.type == "cuda":
+        if dist.get_rank() == 0:
+            _build_kernels(device)
+        dist.barrier()
+    return device
+
+
 def _run_continuous(args, device) -> list:
     ecfg = EngineConfig(num_slots=args.slots, block_size=args.block_size,
                         num_blocks=args.blocks,
@@ -152,6 +188,8 @@ def _run_continuous(args, device) -> list:
     if args.describe:
         _describe(engine)
         return []
+    if engine.mesh.size > 1:
+        logger.info(f"serving mesh: {engine.mesh}")
     rng = np.random.default_rng(args.seed)
     cfg = engine.model.cfg
     # staggered submissions: a fresh request every other scheduler step, with
@@ -306,6 +344,17 @@ def main(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
         if flag and not args.continuous:
             ap.error(f"{name} applies to the paged engine; add --continuous")
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1 and not args.continuous:
+        ap.error("serving on several processes (torchrun) applies to the paged "
+                 "engine; add --continuous")
+    if world > 1:
+        import torch.distributed as dist
+        dev = _init_processes("nccl" if dev.type == "cuda" else "gloo", dev)
+        try:
+            return _run_continuous(args, dev)
+        finally:
+            dist.destroy_process_group()
     if args.continuous:
         return _run_continuous(args, dev)
     _build_kernels(dev)

@@ -32,7 +32,7 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.distributed.sharding import use_rules
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, refuse_process_mesh
 from repro_torch.launch.steps import build_train_step, place_train_state
 from repro_torch.models.config import ShapeConfig, get_config, reduced
 from repro_torch.models.registry import get_model
@@ -60,7 +60,10 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     synthetic stream from `seed`, on `device` ("cuda" unless the caller asks
     for the CPU; asking for a card that is not there raises), or on `mesh`
     (default: `make_host_mesh([device])`, 1 x 1): a mesh of more than one
-    coordinate trains the placed state (`launch/steps.py`)."""
+    coordinate trains the placed state (`launch/steps.py`). A process mesh
+    (`launch/mesh.py ProcessMesh`) is refused: training on one waits for
+    ROADMAP A7.5."""
+    refuse_process_mesh(mesh, "training", "A7.5")
     dev = resolve_device(device) if mesh is None else mesh.lead_device
     mesh = make_host_mesh([dev]) if mesh is None else mesh
     cfg = get_config(arch)

@@ -13,7 +13,10 @@ pool cut over the model axis arrives as a `distributed/sharding.py Sharded`:
 shard (B1-B4 on the card), `paged_attn_block` runs B5 on each rank's kv
 heads with the query heads of their groups, `moe_block` each rank's experts,
 and the parts combine at the `maybe_shard` calls, where the JAX package
-places its sharding constraints. On a training mesh (`launch/steps.py
+places its sharding constraints. On a process mesh each process holds
+one model rank's parts, so those loops run once, on its own shards, and
+the combines are all-gathers over its model group; its pool replica also
+takes the other data ranks' K / V writes (`_attend`). On a training mesh (`launch/steps.py
 build_train_step` on a placed state) the full-sequence `attn_block` does
 the same under autograd: each model rank's projections on its column
 shard and the attention of its own heads (`_mesh_attention`).
@@ -32,6 +35,7 @@ from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import _unpack_codes, is_clustered
+from repro_torch.distributed.collectives import row_writes
 from repro_torch.distributed.sharding import Sharded, device_of, gather, maybe_shard, whole
 from repro_torch.kernels.ops import clustered_linear, clustered_linear_multi
 from repro_torch.kernels.paged_attention import paged_pool_attention
@@ -127,10 +131,10 @@ def _sharded_linear(x: torch.Tensor, w: Sharded, b=None):
             f"(distributed/layout.py serving_names)")
     ys = [linear(_on(x, p), p) for p in w.parts]
     if b is None:
-        return Sharded(tuple(ys), ys[0].ndim - 1)
+        return w.with_parts(ys, ys[0].ndim - 1)
     if isinstance(b, Sharded):
-        return Sharded(tuple(y + bb.to(y.dtype) for y, bb in zip(ys, b.parts)), ys[0].ndim - 1)
-    y = gather(ys, ys[0].ndim - 1)
+        return w.with_parts([y + bb.to(y.dtype) for y, bb in zip(ys, b.parts)], ys[0].ndim - 1)
+    y = whole(w.with_parts(ys, ys[0].ndim - 1))
     return y + b.to(y.dtype)
 
 
@@ -144,7 +148,7 @@ def _sharded_group(x: torch.Tensor, ws, bs, cfg: ModelConfig):
         per_rank = [linear_group(_on(x, parts[0]), parts,
                                  [None if b is None else b.parts[m] for b in bs], cfg)
                     for m, parts in enumerate(zip(*(w.parts for w in ws)))]
-        return tuple(Sharded(tuple(out), out[0].ndim - 1) for out in zip(*per_rank))
+        return tuple(ws[0].with_parts(out, out[0].ndim - 1) for out in zip(*per_rank))
     return tuple(linear(x, w, b) for w, b in zip(ws, bs))
 
 
@@ -544,8 +548,8 @@ def paged_attn_block(
         if not all(isinstance(a, Sharded) for a in (q, k, v)):
             raise ValueError("paged_attn_block: the pool is cut on kv heads but the "
                              "QKV projections are not cut alike")
-        o = Sharded(tuple(_attend(q.parts[m], k.parts[m], v.parts[m], _pool_part(pool, m),
-                                  *args) for m in range(len(kc.parts))), 2)
+        o = q.with_parts([_attend(q.parts[m], k.parts[m], v.parts[m], _pool_part(pool, m),
+                                  *args) for m in range(len(kc.parts))], 2)
     o = maybe_shard(o, "slots", None, None)
     return maybe_shard(linear(o, p["wo"]), "slots", None, "embed")
 
@@ -589,8 +593,12 @@ def _attend(q, k, v, pool, cfg: ModelConfig, layer_window: int, block_tables,
         writes = (("kc", kq8), ("vc", vq8), ("kc_scale", ks8), ("vc_scale", vs8))
     else:
         writes = (("kc", k.to(kc.dtype)), ("vc", v.to(kc.dtype)))
-    for name, vals in writes:
-        _scatter_rows(pool[name], idx, vals, valid)
+    # every data rank's writes, in rank order: on a process mesh whose data
+    # ranks split the slots, each process's pool replica takes them all
+    # (`collectives.exchange_rows`), as the one pool of a one-process mesh does
+    for ridx, rvalid, rvals in row_writes(idx, valid, [vals for _, vals in writes]):
+        for (name, _), vals in zip(writes, rvals):
+            _scatter_rows(pool[name], ridx, vals, rvalid)
 
     o = paged_pool_attention(
         q.contiguous(), kc, pool["vc"], block_tables, lengths, n_new, layer_window,

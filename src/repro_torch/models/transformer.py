@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import is_clustered, map_arrays
+from repro_torch.distributed.collectives import all_gather, exchange_rows, is_process_mesh
 from repro_torch.distributed.placement import MeshTree, data_rows
 from repro_torch.distributed.sharding import Sharded, maybe_shard, use_rules
 from repro_torch.models import params as PT
@@ -429,9 +430,13 @@ def _mesh_step(params: MeshTree, cache: MeshTree, tokens, lengths, n_new, block_
     and a row's bits must not depend on the mesh (ROADMAP C). `rows_of(x,
     n_new)` picks the rows the head needs (the last valid token's, or every
     position for the verify). Returns the logits on the mesh's first
-    device; the pools were written in place."""
+    device; the pools were written in place. A process mesh runs
+    `_process_mesh_step`."""
     mesh = params.mesh
     rows_all = data_rows(mesh, tokens.shape[0])
+    if is_process_mesh(mesh):
+        return _process_mesh_step(params, cache, tokens, lengths, n_new, block_tables, cfg,
+                                  rows_of, rows_all)
     with use_rules(mesh, fsdp=False):
         ranks = []
         for d, rows in enumerate(rows_all):
@@ -447,6 +452,29 @@ def _mesh_step(params: MeshTree, cache: MeshTree, tokens, lengths, n_new, block_
             x = outs[0]
         else:                              # the head's rows: every data rank's
             x = maybe_shard(Sharded(tuple(outs), 0, axis="data"), *[None] * outs[0].ndim)
+    return lm_head_logits(params.views[0], x, cfg)
+
+
+def _process_mesh_step(params: MeshTree, cache: MeshTree, tokens, lengths, n_new,
+                       block_tables, cfg: ModelConfig, rows_of, rows_all) -> torch.Tensor:
+    """`_mesh_step` as one process of a process mesh runs it: the trunk over
+    its data rank's slots on its own shards (the model ranks' parts
+    combined by all-gathers over its model group). Where the data ranks
+    split the slots, every K / V row a data rank writes reaches every
+    process's pool replica (`collectives.exchange_rows`) and the head's
+    rows are all-gathered over the data group in rank order; the head then
+    runs once, whole, on every process. Where they do not (the
+    divisibility fallback) every process runs every slot and needs
+    neither."""
+    mesh = params.mesh
+    d, dev = mesh.coord["data"], mesh.device
+    split = rows_all[0] != slice(None)
+    args = [a[rows_all[d]].to(dev) for a in (tokens, lengths, n_new, block_tables)]
+    with use_rules(mesh, fsdp=False), exchange_rows(mesh.group("data") if split else None):
+        x = _paged_trunk(params.views[0], cache.views[0], *args, cfg)
+        x = x if rows_of is None else rows_of(x, args[2])
+        if split:
+            x = all_gather(x, mesh.group("data"), 0)
     return lm_head_logits(params.views[0], x, cfg)
 
 

@@ -11,12 +11,18 @@ takes head dims in multiples of 32) with dense weights, and a `reduced()`
 llama2-7b with LCD weights, float and quantized Eq. 11 transform, its QKV
 and gate+up fused. Then engine = solo on each mesh, int8 pools on 2 x 4,
 speculative = plain greedy on 1 x 2, the packed bytes a rank holds on 1 x 8,
-every write reaching the pool parts the data ranks share, a mesh of
-distinct devices refused, the pinned ValueErrors, the layout search through
+every write reaching the pool parts the data ranks share, a one-process
+mesh of distinct devices refused (a process mesh serves one:
+tests/test_torch_process_mesh.py), the pinned ValueErrors, the layout search through
 `build_engine` and the CLI flags (a dense, an MoE and a recurrent arch). The
 other families on a mesh: tests/test_torch_mesh_moe.py and
 tests/test_torch_mesh_slot_state.py."""
 import dataclasses
+import os
+import pathlib
+import re
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -251,11 +257,13 @@ def test_placed_pool_parts_get_every_write(models, kv_dtype):
 
 
 def test_a_mesh_of_distinct_devices_is_refused(models):
-    """A mesh over distinct devices waits for a multi-process backend: the
-    engine refuses it, naming it, before placing anything."""
+    """A one-process mesh over distinct devices is refused before anything
+    is placed, the message naming the process mesh that serves such a mesh
+    (tests/test_torch_process_mesh.py)."""
     model, params, _, _ = models["tiny"]
     mesh = make_mesh((1, 2), ("data", "model"), [CPU, torch.device("cuda", 0)])
-    with pytest.raises(NotImplementedError, match="distinct devices.*multi-process"):
+    with pytest.raises(NotImplementedError,
+                       match="distinct devices.*multi-process mesh.*init_process_mesh"):
         port_engine.ServingEngine(model, params, port_engine.EngineConfig(**_ecfg()),
                                   mesh=mesh, device="cpu")
 
@@ -315,6 +323,28 @@ def test_cli_mesh_flags(capsys, arch):
     done = port_serve.main(argv + ["--lcd", "--continuous", "--data-parallel", "1",
                                    "--model-parallel", "1"], device="cpu")
     assert len(done) == 2 and all(len(r.out_tokens) == 3 for r in done)
+
+
+def test_cli_under_torchrun_serves_on_a_process_mesh(tmp_path):
+    """The CLI as torchrun starts it, two processes on the CPU with
+    --model-parallel 2: each joins the process group from torchrun's
+    environment (gloo on the CPU), the engine serves on a (1, 2) process
+    mesh, and only rank 0 logs. Tokens on a process mesh are held to the
+    one-process mesh by tests/test_torch_process_mesh.py."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(src)] + [p for p in [os.environ.get("PYTHONPATH")] if p]), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.serve", "--arch", "llama2-7b", "--reduced", "--continuous",
+         "--device", "cpu", "--model-parallel", "2", "--requests", "2", "--tokens", "3"],
+        capture_output=True, text=True, timeout=240, env=env, cwd=tmp_path)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out[-4000:]
+    meshes = re.findall(r"serving mesh: (ProcessMesh\(.*\))", out)
+    assert meshes == ["ProcessMesh({'data': 1, 'model': 2}, rank=0 at {'data': 0, 'model': 0} "
+                      "on cpu, backend='gloo')"], out[-4000:]
+    assert len(re.findall(r"request \d+: prompt \d+ -> 3 tokens", out)) == 2, out[-4000:]
 
 
 def test_kv_smooth_reaches_every_rank(models):

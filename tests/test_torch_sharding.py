@@ -237,8 +237,9 @@ def test_pools_cut_on_kv_heads_one_tensor_a_part(n_model):
 
 
 def test_a_mesh_of_distinct_devices_is_not_placed():
-    """One process serves a mesh whose devices repeat; a mesh over distinct
-    devices waits for a multi-process backend and is refused, naming it."""
+    """One process serves a mesh whose devices repeat; a one-process mesh
+    over distinct devices is refused, naming the process mesh that serves
+    one."""
     model = _port_model("llama2-7b")
     pool = model.init_seq_caches(num_blocks=8, block_size=4, num_slots=4, max_seq=16,
                                  device="cpu")
@@ -246,7 +247,8 @@ def test_a_mesh_of_distinct_devices_is_not_placed():
     assert not mesh.one_device
     with sharding.use_rules(mesh, fsdp=False):
         sh = layout.cache_shardings(model, pool)
-        with pytest.raises(NotImplementedError, match="distinct devices.*multi-process"):
+        with pytest.raises(NotImplementedError,
+                           match="distinct devices.*multi-process mesh.*init_process_mesh"):
             placement.place(pool["paged"], sh["paged"], mesh, writable=True)
 
 
